@@ -55,6 +55,11 @@ class DeviceSelectionError(CekirdeklerError):
     devices are found, Cores.cs:186-246)."""
 
 
+class NotPortedError(CekirdeklerError, NotImplementedError):
+    """The JAX package supports this configuration or call, the port does
+    not yet; the message names the ROADMAP item that brings it."""
+
+
 class ClusterError(CekirdeklerError):
     """Cluster tier failure (connection, protocol, or remote compute error)."""
 

@@ -1,11 +1,13 @@
-"""Benchmark/validation workloads: mandelbrot, n-body, streaming vector add.
+"""Benchmark/validation workloads: mandelbrot, n-body, streaming vector add,
+and the flagship transformer's forward pass.
 
 Counterpart of the main-path subset of ``cekirdekler_tpu/workloads.py``:
 the kernel sources, the host references for self-checking, and the
 runners that feed the two BASELINE metrics (Mpixels/s and load-balance
 convergence iterations).  Runners default to ``all_devices().gpus()`` and
 raise :class:`DeviceSelectionError` where there is no CUDA device; host
-lanes run only when the caller selects them.
+lanes run only when the caller selects them.  :func:`run_transformer_forward`
+is the counterpart of ``__graft_entry__.entry()``'s forward step.
 """
 
 from __future__ import annotations
@@ -32,6 +34,8 @@ __all__ = [
     "run_nbody",
     "run_stream",
     "convergence_iterations",
+    "run_transformer_forward",
+    "REQUEST_BATCHES",
 ]
 
 # One pixel per work item; escape-iteration count written as float.
@@ -284,3 +288,55 @@ def convergence_iterations(devices: Devices | None = None, max_iter: int = 192,
     res = run_mandelbrot(devices, width=width, height=height, max_iter=max_iter,
                          iters=16, warmup=0)
     return res.convergence_iters
+
+
+# (B, T) token batches a transformer smoke run answers: two long-context
+# batches, a short one, and T=96, which admits no 128-wide flash tile and so
+# takes the dense fallback
+REQUEST_BATCHES = ((4, 2048), (8, 1024), (16, 256), (4, 96))
+
+
+def run_transformer_forward(model, batches, keep: str = "logits") -> dict:
+    """Answer token batches with ``model`` (a ``models.Transformer``).
+
+    ``batches`` is a list of ``[B, T]`` int32 token arrays.  ``keep`` is
+    ``"logits"`` (f32 ``[B, T, vocab]`` on the model's device) or
+    ``"argmax"`` (``[B, T]`` token ids).  Returns the kept outputs, each
+    batch's seconds and tokens/s, and the launch counts of the run: flash
+    kernel launches, plain flash runs by device type, and the flash
+    routes (``tiled`` or the ``dense`` fallback).  On the card a batch is
+    timed by CUDA events, on the CPU by the host clock; ``device`` names
+    which."""
+    import torch
+
+    from .ops import flash_attention as fa
+
+    if keep not in ("logits", "argmax"):
+        raise ValueError(f"keep must be 'logits' or 'argmax', got {keep!r}")
+    dev = model.device
+    before = (fa.LAUNCHES.count, dict(fa.PLAIN_RUNS.by_key), dict(fa.ROUTES.by_key))
+    outputs, seconds, tokens_per_s = [], [], []
+    for tokens in batches:
+        tokens = torch.as_tensor(tokens, device=dev)
+        if dev.type == "cuda":
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            logits = model(tokens)
+            end.record()
+            end.synchronize()
+            sec = start.elapsed_time(end) / 1e3
+        else:
+            t0 = time.perf_counter()
+            logits = model(tokens)
+            sec = time.perf_counter() - t0
+        seconds.append(sec)
+        tokens_per_s.append(tokens.numel() / sec)
+        outputs.append(logits if keep == "logits" else logits.argmax(dim=-1))
+    plain = {k: v - before[1].get(k, 0) for k, v in fa.PLAIN_RUNS.by_key.items()}
+    routes = {k: v - before[2].get(k, 0) for k, v in fa.ROUTES.by_key.items()}
+    return {"outputs": outputs, "seconds": seconds, "tokens_per_s": tokens_per_s,
+            "device": str(dev),
+            "launches": {"flash_attention": fa.LAUNCHES.count - before[0],
+                         "plain_flash": {k: v for k, v in plain.items() if v},
+                         "routes": {k: v for k, v in routes.items() if v}}}

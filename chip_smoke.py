@@ -22,12 +22,24 @@ Phases, each of which raises on failure (the script then exits non-zero):
 5. balancer: mandelbrot 1024x1024x64 over one GPU lane plus one host lane,
    ten runs of 80 calls at each local range 1024, 512 and the main path's
    256: every first split is the rate-table prior split, every image is
-   exact, and every run must settle (``convergence_iters`` not None) and
-   hold its final split for at least the last 20 calls.  The host lane's
+   exact, every run must settle (``convergence_iters`` not None), and at
+   least 8 of the 10 runs at each local range must move at most once, by
+   one step, in their last 20 calls.  The host lane's
    eager plain version costs about 1 ms a call whatever its share, so the
-   balancer drains it from the prior split to a couple of steps, where
-   the quantization freeze holds it; at 256 that takes 15-25 calls;
-6. the kernels line, then the last line ``{"ok": true, "device": ...}``.
+   balancer drains it from the prior split to one or two steps, where
+   the quantization freeze holds it; at 256 that takes 15-25 calls (see
+   ``check_balancer`` for why one late step is allowed);
+6. transformer: the flagship transformer's forward at the default width
+   (vocab 32000, d_model 512, 4 layers, 8 heads of 64, d_ff 2048, bf16,
+   ``attention="flash"``, seeded random weights) on ``cuda:0``.  With every
+   count set to 0 it answers four request batches (4x2048, 8x1024, 16x256
+   and 4x96, which takes the dense fallback); then the counts are read:
+   the flash kernel launched once per layer for each of the three tiled
+   batches, the dense fallback ran only for the T=96 batch, and the plain
+   flash version never ran.  One 1x2048 batch's logits are held against
+   the same weights on the CPU (plain versions), and an f32 model's at
+   1x1024;
+7. the kernels line, then the last line ``{"ok": true, "device": ...}``.
 
 Exits non-zero without printing a result when no CUDA device is present,
 or when the package is not beside this script.
@@ -46,11 +58,13 @@ import numpy as np
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 FP32_OPS_PER_S = 67e12     # H100 SXM data sheet, float32 outside the tensor cores
+BF16_OPS_PER_S = 989e12    # H100 SXM data sheet, bf16 dense tensor cores
 MANDEL_OPS_PER_ITER = 10   # csrc/mandelbrot.cu: the FP32 work of one escape iteration
 NBODY_OPS_PER_PAIR = 20    # 3 sub, 6 mul + 3 add for r2, sqrt, mul, div, 3 mul + 3 add
 BALANCE_REPS = 10
 BALANCE_ITERS = 80
 BALANCE_HOLD = 20
+BALANCE_MIN_STILL = 8
 BALANCE_STEPS = (1024, 512, 256)
 EMITTER_SOURCE = "cekirdekler_tpu_torch/kernel/cuda_backend.py"
 EMITTER_REPLACES = "cekirdekler_tpu/kernel/pallas_backend.py:404"
@@ -90,6 +104,219 @@ def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / reps
 
 
+def flash_bound(B: int, Tq: int, Tk: int, H: int, D: int, causal: bool,
+                dtype) -> tuple[float, str]:
+    """Least time (ms) of one flash forward and what binds it: its
+    operations (q.k and p.v, 2 each per live (query, key) pair and head
+    column) at the type's peak, against its bytes (q, k, v read once, o
+    written once) at the memory rate."""
+    import torch
+
+    pairs = B * H * (Tq * (Tq + 1) // 2 if causal else Tq * Tk)
+    ops = 4.0 * D * pairs
+    rate = BF16_OPS_PER_S if dtype == torch.bfloat16 else FP32_OPS_PER_S
+    size = 2 if dtype == torch.bfloat16 else 4
+    nbytes = float(size * B * H * D * (2 * Tq + 2 * Tk))
+    by_ops, by_bytes = ops / rate * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+    return (by_ops, "operations") if by_ops >= by_bytes else (by_bytes, "bytes")
+
+
+def bf16_ulps(t, n: float = 2.0) -> float:
+    """``n`` bf16 ulps at the largest magnitude of ``t``."""
+    return n * 2.0 ** (np.floor(np.log2(float(t.abs().max()))) - 7)
+
+
+def check_flash(fa, dev) -> dict:
+    """The flash kernel against its plain version (key blocks at the
+    kernel's tile width) on the card at the transformer's shapes (H=8,
+    D=64).  f32 at "highest" within 1e-5, bf16 at "default" within 2 bf16
+    ulps of the output's largest magnitude, the lse within 1e-5.  Each case
+    is timed beside the plain version and ``scaled_dot_product_attention``;
+    returns the kernels-line row of the first (the 4x2048 causal bf16
+    forward of the model's tiled batch)."""
+    import torch
+    import torch.nn.functional as F
+
+    g = torch.Generator().manual_seed(2024)
+    H, D = 8, 64
+    cases = (  # label, B, T, causal, dtype, precision, with_lse
+        ("4x2048 causal bf16 default", 4, 2048, True, torch.bfloat16, "default", False),
+        ("4x2048 causal bf16 default + lse", 4, 2048, True, torch.bfloat16, "default", True),
+        ("4x1024 causal f32 highest", 4, 1024, True, torch.float32, "highest", False),
+        ("4x2048 full bf16 default", 4, 2048, False, torch.bfloat16, "default", False),
+    )
+    row = None
+    for label, B, T, causal, dtype, prec, with_lse in cases:
+        q, k, v = (torch.randn(B, T, H, D, generator=g).to(dtype).to(dev) for _ in range(3))
+        res = fa._flash_forward(q, k, v, causal, 512, 512, prec, with_lse=with_lse)
+        out = res[0] if with_lse else res
+        want, want_lse = fa.flash_attention_plain(q, k, v, causal, fa.KERNEL_BLOCK, prec, dtype)
+        torch.cuda.synchronize()
+        err = float((out.float() - want.float()).abs().max())
+        tol = 1e-5 if dtype == torch.float32 else bf16_ulps(want)
+        if not bool(torch.isfinite(out).all()) or err > tol:
+            raise AssertionError(f"flash kernel vs plain ({label}): max abs err {err} > {tol}")
+        lse_err = None
+        if with_lse:
+            lse_err = float((res[1] - want_lse).abs().max())
+            if lse_err > 1e-5:
+                raise AssertionError(f"flash kernel lse vs plain ({label}): {lse_err} > 1e-5")
+        ms = cuda_ms(lambda: fa._flash_forward(q, k, v, causal, 512, 512, prec,
+                                               with_lse=with_lse), 10)
+        plain_ms = cuda_ms(lambda: fa.flash_attention_plain(q, k, v, causal, fa.KERNEL_BLOCK,
+                                                            prec, dtype), 3, warmup=1)
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt,
+                                                                   is_causal=causal), 10)
+        bound_ms, bound_by = flash_bound(B, T, T, H, D, causal, dtype)
+        print(f"flash {label}: kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  sdpa "
+              f"{library_ms:.4f} ms  bound {bound_ms:.4f} ms ({bound_by})  max_abs_err {err} "
+              f"(tol {tol})" + ("" if lse_err is None else f"  lse err {lse_err}"))
+        if row is None:
+            row = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                       bound_ms=bound_ms, bound_by=bound_by)
+        del q, k, v, qt, kt, vt, res, out, want, want_lse
+    return row
+
+
+def check_transformer(wl, fa, card: str) -> int:
+    """The transformer phase; returns the flash kernel's launch count."""
+    import torch
+
+    from cekirdekler_tpu_torch.models import Transformer, TransformerConfig
+
+    cfg = TransformerConfig(attention="flash")
+    model = Transformer(cfg, seed=0)
+    rng = np.random.default_rng(7)
+    batches = [rng.integers(0, cfg.vocab, (b, t)).astype(np.int32) for b, t in wl.REQUEST_BATCHES]
+    # every batch once outside the counted run (cuBLAS handles and plans,
+    # the allocator, kernels loaded at first use)
+    wl.run_transformer_forward(model, batches, keep="argmax")
+    for counter in (fa.LAUNCHES, fa.PLAIN_RUNS, fa.ROUTES):
+        counter.reset()
+    tr = wl.run_transformer_forward(model, batches, keep="argmax")
+    launches = tr["launches"]
+    print(f"transformer launch counts: {launches}; flash LAUNCHES {fa.LAUNCHES.count}, "
+          f"plain runs {dict(fa.PLAIN_RUNS.by_key)}")
+    tiled = sum(fa.default_blocks(t) is not None for _, t in wl.REQUEST_BATCHES)
+    want = cfg.n_layers * tiled
+    if fa.LAUNCHES.count != want or launches["flash_attention"] != want:
+        raise AssertionError(f"flash kernel launched {fa.LAUNCHES.count} times on the "
+                             f"transformer path, want {want}")
+    if launches["routes"] != {"tiled": want, "dense": cfg.n_layers}:
+        raise AssertionError(f"attention routes {launches['routes']}: want {want} tiled and "
+                             f"the dense fallback once per layer for the T=96 batch only")
+    if fa.PLAIN_RUNS.count != 0:
+        raise AssertionError(f"plain flash ran on the transformer path: {fa.PLAIN_RUNS.by_key}")
+    for (b, t), ids, tps, sec in zip(wl.REQUEST_BATCHES, tr["outputs"], tr["tokens_per_s"],
+                                     tr["seconds"]):
+        if tuple(ids.shape) != (b, t) or int(ids.min()) < 0 or int(ids.max()) >= cfg.vocab:
+            raise AssertionError(f"batch {b}x{t}: bad argmax tokens {tuple(ids.shape)}")
+        print(f"transformer batch {b}x{t}: {tps:.1f} tokens/s ({sec * 1e3:.3f} ms, CUDA "
+              f"events) on {card}")
+    del tr
+
+    # the same weights on the CPU, through the plain versions
+    one = batches[0][:1]
+    on_card = model(one)
+    if not bool(torch.isfinite(on_card).all()):
+        raise AssertionError("non-finite logits on the card")
+    on_cpu = Transformer(cfg, device="cpu", seed=0)(one)
+    err = (on_card.cpu() - on_cpu).abs()
+    agree = float((on_card.argmax(-1).cpu() == on_cpu.argmax(-1)).float().mean())
+    print(f"bf16 1x2048 logits, card vs CPU: max abs {float(err.max())}, mean abs "
+          f"{float(err.mean())}, argmax agreement {agree} (limits 5e-2, 5e-3, 0.95)")
+    if float(err.max()) > 5e-2 or float(err.mean()) > 5e-3 or agree < 0.95:
+        raise AssertionError("bf16 transformer logits on the card differ from the CPU's")
+    del model, on_card
+    cfg32 = TransformerConfig(attention="flash", dtype=torch.float32)
+    one = batches[1][:1]
+    err32 = float((Transformer(cfg32, seed=0)(one).cpu()
+                   - Transformer(cfg32, device="cpu", seed=0)(one)).abs().max())
+    print(f"f32 1x1024 logits, card vs CPU: max abs {err32} (limit 1e-3)")
+    if err32 > 1e-3:
+        raise AssertionError("f32 transformer logits on the card differ from the CPU's")
+    return want
+
+
+def tail_moves(ranges: list[list[int]], calls: int) -> tuple[int, int, int]:
+    """Over the last ``calls`` calls of a run: how many times the split
+    changed, the span (largest less smallest) of the host lane's range,
+    and the calls at the end whose split equals the last one."""
+    tail = ranges[-calls:]
+    moves = sum(a != b for a, b in zip(tail, tail[1:]))
+    host = [r[1] for r in tail]
+    held = 0
+    for r in reversed(ranges):
+        if r != ranges[-1]:
+            break
+        held += 1
+    return moves, max(host) - min(host), held
+
+
+def check_balancer(ck, wl, lanes, priors: list[float]) -> None:
+    """Mandelbrot 1024x1024x64 over one GPU lane and one host lane,
+    ``BALANCE_REPS`` runs of ``BALANCE_ITERS`` calls at each local range.
+
+    Every run starts at the rate-table prior split and gives the exact
+    image.  The host lane costs about the same whatever its share, so the
+    balancer drains it until the quantization freeze holds it at one or
+    two steps.  At one step the freeze holds whatever the walls; at two it
+    holds only while the GPU lane's wall exceeds 0.4 of the host lane's, so
+    one noisy pair of walls may move a settled split down one step at any
+    call.  So every run must settle (``convergence_iters`` not None), and
+    at each local range at least ``BALANCE_MIN_STILL`` runs must, in their
+    last ``BALANCE_HOLD`` calls, move at most once and by one step: a
+    drain still under way or a cycle moves more than that in every run.
+    The lane walls are host wall times, and on a host whose cores are
+    shared a lane thread descheduled for several milliseconds can move a
+    run further (one GPU-lane call of 11 ms against a usual 3-4 moved one
+    run by three steps); the odd run is printed with its walls."""
+    from cekirdekler_tpu_torch.core.balance import prior_split
+
+    mixed_ref = wl.mandelbrot_host(1024, 1024, -2.0, -1.25, 2.5 / 1024, 2.5 / 1024, 64)
+    failed = []
+    for step in BALANCE_STEPS:
+        want_first = prior_split(1024 * 1024, step, priors)
+        its, held, late = [], [], []
+        for rep in range(BALANCE_REPS):
+            r = wl.run_mandelbrot(lanes, 1024, 1024, 64, iters=BALANCE_ITERS, warmup=0,
+                                  local_range=step, keep_image=True)
+            if r.ranges_per_iter[0] != want_first:
+                raise AssertionError(f"local range {step}: first split "
+                                     f"{r.ranges_per_iter[0]} != prior split {want_first}")
+            if not np.array_equal(r.image.ravel(), mixed_ref):
+                raise AssertionError(f"local range {step}: GPU + host mandelbrot image "
+                                     "differs from mandelbrot_host")
+            if rep == 0:
+                print(f"local range {step}, host-lane range per call: "
+                      f"{[lane[1] for lane in r.ranges_per_iter]}")
+                print(f"local range {step}, lane walls per call (GPU ms / host ms): "
+                      f"{[(round(b[0], 4), round(b[1], 4)) for b in r.benches_per_iter]}")
+            moves, span, still = tail_moves(r.ranges_per_iter, BALANCE_HOLD)
+            its.append(r.convergence_iters)
+            held.append(still)
+            late.append((moves, span // step))
+            if moves:
+                print(f"local range {step}, run {rep} moved late; last 25 calls' host-lane "
+                      f"ranges {[lane[1] for lane in r.ranges_per_iter[-25:]]}, walls "
+                      f"{[(round(b[0], 4), round(b[1], 4)) for b in r.benches_per_iter[-25:]]}")
+        n_ok = sum(c is not None for c in its)
+        n_still = sum(m <= 1 and s <= 1 for m, s in late)
+        print(f"local range {step}: settled within {BALANCE_ITERS} calls in {n_ok} of "
+              f"{BALANCE_REPS} runs, at {its}; calls at the final split: {held}; "
+              f"(moves, steps spanned) in the last {BALANCE_HOLD} calls: {late}; "
+              f"{n_still} of {BALANCE_REPS} runs moved at most once, by one step")
+        if n_ok < BALANCE_REPS or n_still < BALANCE_MIN_STILL:
+            failed.append(f"local range {step}: settled at {its}, (moves, steps spanned) in "
+                          f"the last {BALANCE_HOLD} calls {late}")
+    if failed:
+        raise AssertionError(f"GPU + host balancer: not every run settled within "
+                             f"{BALANCE_ITERS} calls, or fewer than {BALANCE_MIN_STILL} of "
+                             f"{BALANCE_REPS} moved at most once, by one step, in their last "
+                             f"{BALANCE_HOLD}: " + "; ".join(failed))
+
+
 def main() -> int:
     import torch
 
@@ -98,12 +325,15 @@ def main() -> int:
               file=sys.stderr)
         return 2
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    # f32 products in true f32 (PyTorch's defaults, pinned)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     import cekirdekler_tpu_torch as ck
     from cekirdekler_tpu_torch import workloads as wl
-    from cekirdekler_tpu_torch.core.balance import prior_split
     from cekirdekler_tpu_torch.hardware import rate_prior
     from cekirdekler_tpu_torch.kernel import build, cuda_backend, lang, registry
     from cekirdekler_tpu_torch.kernel.codegen import build_kernel_fn
+    from cekirdekler_tpu_torch.ops import flash_attention as fa_op
     from cekirdekler_tpu_torch.ops import mandelbrot as mandel_op
 
     dev = torch.device("cuda", 0)
@@ -127,7 +357,8 @@ def main() -> int:
         "streamAdd": lang.parse_kernels(wl.STREAM_SRC)[0],
         "saxpy": lang.parse_kernels(SAXPY_SRC)[0],
     }
-    jobs = {"mandelbrot.cu": (mandel_op.SOURCE.read_text(), "mandelbrot")}
+    jobs = {"mandelbrot.cu": (mandel_op.SOURCE.read_text(), "mandelbrot"),
+            "flash_attention.cu": (fa_op.SOURCE.read_text(), "flash_attention")}
     for name, kdef in programs.items():
         reason = cuda_backend.unsupported_reason(kdef)
         if reason is not None:
@@ -252,6 +483,7 @@ def main() -> int:
                      (6 + 3) * 4.0 * nb / HBM_BYTES_PER_S) * 1e3,
         bound_by="operations")
     del pos, v_k, v_p
+    rows["flash_attention"] = check_flash(fa_op, dev)
     for name, r in rows.items():
         lib = "-" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
         print(f"{name:20s} kernel {r['ms']:.4f} ms  plain {r['plain_ms']:.4f} ms  "
@@ -303,50 +535,11 @@ def main() -> int:
     rows["mandelbrot"]["launches"] = counts["mandelbrot.cu"]
 
     phase("balancer (GPU + host lane)")
-    # mandelbrot 1024x1024x64 over one GPU lane and one host lane,
-    # BALANCE_REPS runs of BALANCE_ITERS calls per local range.  Every run
-    # starts at the rate-table prior split and gives the exact image.  The
-    # host lane costs about the same whatever its share, so the balancer
-    # drains it by a few percent per call until the quantization freeze
-    # holds it at a few steps: a run settles only after that drain, so it
-    # is long enough to show the fixed split, not the drift towards it.
-    lanes = gpus.subset(1) + ck.all_devices().cpus(1)
-    mixed_ref = wl.mandelbrot_host(1024, 1024, -2.0, -1.25, 2.5 / 1024, 2.5 / 1024, 64)
-    settled = {}
-    for step in BALANCE_STEPS:
-        want_first = prior_split(1024 * 1024, step, [rate_prior(kind), rate_prior("cpu")])
-        its, still = [], []
-        for rep in range(BALANCE_REPS):
-            r = wl.run_mandelbrot(lanes, 1024, 1024, 64, iters=BALANCE_ITERS, warmup=0,
-                                  local_range=step, keep_image=True)
-            if r.ranges_per_iter[0] != want_first:
-                raise AssertionError(f"local range {step}: first split "
-                                     f"{r.ranges_per_iter[0]} != prior split {want_first}")
-            if not np.array_equal(r.image.ravel(), mixed_ref):
-                raise AssertionError(f"local range {step}: GPU + host mandelbrot image "
-                                     "differs from mandelbrot_host")
-            if rep == 0:
-                print(f"local range {step}, host-lane range per call: "
-                      f"{[lane[1] for lane in r.ranges_per_iter]}")
-                print(f"local range {step}, lane walls per call (GPU ms / host ms): "
-                      f"{[(round(b[0], 4), round(b[1], 4)) for b in r.benches_per_iter]}")
-            its.append(r.convergence_iters)
-            # calls at the end of the run whose split equals the last one
-            tail = 0
-            for rr in reversed(r.ranges_per_iter):
-                if rr != r.ranges_per_iter[-1]:
-                    break
-                tail += 1
-            still.append(tail)
-        settled[step] = (its, still)
-        n_ok = sum(c is not None for c in its)
-        print(f"local range {step}: settled within {BALANCE_ITERS} calls in {n_ok} of "
-              f"{BALANCE_REPS} runs, at {its}; calls at the final split: {still}")
-    for step, (its, still) in settled.items():
-        if any(c is None for c in its) or min(still) < BALANCE_HOLD:
-            raise AssertionError(f"GPU + host balancer at local range {step} did not settle "
-                                 f"within {BALANCE_ITERS} calls and hold its split for "
-                                 f"{BALANCE_HOLD}: settled at {its}, held {still}")
+    check_balancer(ck, wl, gpus.subset(1) + ck.all_devices().cpus(1),
+                   [rate_prior(kind), rate_prior("cpu")])
+
+    phase("transformer forward")
+    rows["flash_attention"]["launches"] = check_transformer(wl, fa_op, card)
 
     phase("summary")
     meta = {
@@ -356,6 +549,8 @@ def main() -> int:
         "emitter:nBody": ("cuda", EMITTER_SOURCE, EMITTER_REPLACES),
         "mandelbrot": ("cuda", "cekirdekler_tpu_torch/csrc/mandelbrot.cu",
                        "cekirdekler_tpu/ops/mandelbrot.py:81"),
+        "flash_attention": ("cuda", "cekirdekler_tpu_torch/csrc/flash_attention.cu",
+                            "cekirdekler_tpu/ops/flash_attention.py:351"),
     }
     kernels = []
     for name, (route, source, replaces) in meta.items():

@@ -1,5 +1,11 @@
-"""The flagship decoder-only transformer (forward pass)."""
+"""The flagship decoder-only transformer (forward pass and train step)."""
 
-from .transformer import Transformer, TransformerConfig, cross_entropy_loss, params_from_jax
+from .transformer import (
+    Transformer,
+    TransformerConfig,
+    adamw,
+    cross_entropy_loss,
+    params_from_jax,
+)
 
-__all__ = ["Transformer", "TransformerConfig", "cross_entropy_loss", "params_from_jax"]
+__all__ = ["Transformer", "TransformerConfig", "adamw", "cross_entropy_loss", "params_from_jax"]

@@ -1,8 +1,10 @@
-"""The flagship decoder-only transformer, forward pass.
+"""The flagship decoder-only transformer: forward pass and train step.
 
 Counterpart of ``cekirdekler_tpu/models/transformer.py`` on one device with
 no mesh: ``Transformer.forward(tokens)`` is the reference's
-``Transformer.apply(params, tokens, mesh=None)``.  Parameters keep the
+``Transformer.apply(params, tokens, mesh=None)``, ``loss_fn`` its
+``loss_fn`` and ``make_train_step`` its ``make_train_step``, with
+:func:`adamw` as the counterpart of ``optax.adamw``.  Parameters keep the
 reference's names and ``[in, out]`` layouts (``embed``, ``final_norm``,
 ``blocks.{i}.{ln1, wqkv, wo, ln2, w1, w2}``), stay in ``param_dtype`` and are
 cast to the activation dtype at each use; the projections are plain
@@ -14,12 +16,15 @@ default blocks: it runs the CUDA kernel on the card when
 ``attention_reference`` otherwise (``flash_attention.ROUTES`` counts
 which), the decision the reference's model makes with the same policy.
 Precision follows the activation dtype: ``"default"`` below 32 bits,
-``"highest"`` at f32.  f32 products assume TF32 off on the card,
+``"highest"`` at f32; the gradients of the tiled route come from the
+flash backward kernels.  ``remat=True`` recomputes each block's
+activations in the backward (``torch.utils.checkpoint``, the counterpart
+of ``jax.checkpoint``).  f32 products assume TF32 off on the card,
 PyTorch's default.
 
 Not covered yet, each refused with :class:`NotPortedError`: experts
 (``n_experts > 0``), pipeline stages (``pp_stages > 1``), ring and Ulysses
-attention, a mesh, and gradients (the training slice).
+attention, and a mesh.
 """
 
 from __future__ import annotations
@@ -30,12 +35,13 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..errors import DeviceSelectionError, NotPortedError
 from ..ops.flash_attention import flash_attention
 from ..parallel.attention import attention_reference
 
-__all__ = ["TransformerConfig", "Transformer", "cross_entropy_loss", "params_from_jax"]
+__all__ = ["TransformerConfig", "Transformer", "cross_entropy_loss", "params_from_jax", "adamw"]
 
 _BLOCK_PARAMS = ("ln1", "wqkv", "wo", "ln2", "w1", "w2")
 
@@ -53,7 +59,7 @@ class TransformerConfig:
     attention: str = "dense"                   # "dense" | "flash" | "ring" | "ulysses"
     # flash precision; None follows dtype (sub-f32 -> "default", f32 -> "highest")
     attention_precision: str | None = None
-    # recomputation of activations in the backward: no effect on a forward
+    # recompute each block's activations in the backward (no effect without grad)
     remat: bool = False
     sp_axis: str = "sp"
     n_experts: int = 0
@@ -65,6 +71,13 @@ class TransformerConfig:
     @property
     def head_dim(self) -> int:
         return self.d_model // self.n_heads
+
+
+def _refuse_mesh(mesh) -> None:
+    if mesh is not None:
+        raise NotPortedError(
+            "a mesh: sharded execution is not ported yet (ROADMAP Queue A, attention "
+            "stack: parallel/ on torch.distributed)")
 
 
 def _check_supported(c: TransformerConfig) -> None:
@@ -103,7 +116,7 @@ def _init(gen: torch.Generator, shape, scale: float, dtype: torch.dtype) -> torc
 
 
 class Transformer(nn.Module):
-    """Decoder-only transformer, forward only.  Weights are random normal
+    """Decoder-only transformer.  Weights are random normal
     draws from a CPU ``torch.Generator`` seeded with ``seed`` (the
     reference's scales, not its values: JAX's generator gives other
     numbers), then moved to ``device``, ``cuda:0`` by default."""
@@ -152,19 +165,21 @@ class Transformer(nn.Module):
         h = h @ p.w2.to(c.dtype)
         return x + h
 
-    @torch.no_grad()
     def forward(self, tokens, mesh=None) -> torch.Tensor:
-        """tokens [B, T] int -> logits [B, T, vocab] f32."""
-        if mesh is not None:
-            raise NotPortedError(
-                "a mesh: sharded execution is not ported yet (ROADMAP Queue A, attention "
-                "stack: parallel/ on torch.distributed)")
+        """tokens [B, T] int -> logits [B, T, vocab] f32, differentiable with
+        respect to the parameters; serving calls it under
+        ``torch.inference_mode()``."""
+        _refuse_mesh(mesh)
         c = self.config
         tokens = torch.as_tensor(tokens, device=self.device)
         # embed.astype(dtype)[tokens]: the cast commutes with the gather
         x = self.embed[tokens].to(c.dtype)
+        remat = c.remat and torch.is_grad_enabled()
         for p in self.blocks:
-            x = self._block(p, x)
+            if remat:
+                x = checkpoint(self._block, p, x, use_reentrant=False)
+            else:
+                x = self._block(p, x)
         x = _rms_norm(x, self.final_norm)
         return x.float() @ self.embed.float().T
 
@@ -173,6 +188,34 @@ class Transformer(nn.Module):
         tokens = torch.as_tensor(batch["tokens"], device=self.device)
         logits = self.forward(tokens[:, :-1], mesh)
         return cross_entropy_loss(logits, tokens[:, 1:])
+
+    def make_train_step(self, optimizer: torch.optim.Optimizer, mesh=None):
+        """The train step: loss, gradients, optimizer update.
+
+        Returns ``step(batch) -> loss`` (a 0-d f32 tensor on the model's
+        device), which runs ``loss_fn`` -> ``backward`` -> ``optimizer.step()``
+        -> ``optimizer.zero_grad()``.  The parameters and the optimizer's
+        state are updated in place, the PyTorch idiom; the reference's step
+        is pure and returns ``(params, opt_state, loss)`` instead."""
+        _refuse_mesh(mesh)
+
+        def step(batch: dict) -> torch.Tensor:
+            loss = self.loss_fn(batch)
+            loss.backward()
+            optimizer.step()
+            optimizer.zero_grad(set_to_none=True)
+            return loss.detach()
+
+        return step
+
+
+def adamw(model: nn.Module, lr: float) -> torch.optim.AdamW:
+    """``torch.optim.AdamW`` over every parameter with ``optax.adamw``'s
+    defaults: betas (0.9, 0.999), eps 1e-8 (added outside the square root)
+    and decoupled weight decay 1e-4 on every parameter.  PyTorch's own
+    default weight decay is 1e-2."""
+    return torch.optim.AdamW(model.parameters(), lr=lr, betas=(0.9, 0.999), eps=1e-8,
+                             weight_decay=1e-4)
 
 
 def _rms_norm(x: torch.Tensor, gain: torch.Tensor) -> torch.Tensor:

@@ -1,30 +1,37 @@
-"""Flash-attention forward: the hand-written CUDA kernel, its plain PyTorch
-version, and the reference's block policies.
+"""Flash attention, forward and backward: the hand-written CUDA kernels,
+their plain PyTorch versions, and the reference's block policies.
 
-Counterpart of the forward half of ``cekirdekler_tpu/ops/flash_attention.py``:
-``_flash_forward`` (the Pallas kernel ``_fa_kernel`` with ``parts=False``)
-and a forward-only ``flash_attention``.  The kernel
-(``csrc/flash_attention.cu``) takes its own tile sizes; ``block_q`` and
-``block_k`` keep the reference's contract (:func:`_blocks_for` degrades them
-by gcd and raises on degenerate tiles) and size the plain version's key
-blocks, so on the CPU the plain version runs the reference's own blocking.
+Counterpart of the single-card half of ``cekirdekler_tpu/ops/flash_attention.py``:
+``_flash_forward`` (the Pallas kernel ``_fa_kernel`` with ``parts=False``),
+``_flash_backward`` (``_fa_bwd_dq_kernel`` and ``_fa_bwd_dkv_kernel``), the
+``_flash_attention_tiled`` custom_vjp (here :class:`_FlashAttention`, a
+``torch.autograd.Function``) and ``flash_attention``.  The kernels
+(``csrc/flash_attention.cu``, ``csrc/flash_attention_bwd.cu``) take their
+own tile sizes; ``block_q`` and ``block_k`` keep the reference's contract
+(:func:`_blocks_for` degrades them by gcd and raises on degenerate tiles)
+and size the plain versions' blocks, so on the CPU the plain versions run
+the reference's own blocking.
 
 Numerics kept from the reference:
 
 - the causal mask is the finite ``_NEG = -1e30``, the final divide uses
   ``max(l, 1e-30)``, and ``lse = m + log(max(l, 1e-30))`` comes out as a
   ``[B*H, Tq, 1]`` f32 column;
-- ``precision="default"`` casts f32 q/k/v to bf16 once (:func:`_stream_cast`),
-  sums scores in f32, keeps ``p`` in f32 for the denominator and rounds to
-  bf16 only the copy of ``p`` that multiplies V; ``"highest"`` is true f32;
-- the output has q's dtype before the cast.
+- ``precision="default"`` casts f32 q/k/v (and dO) to bf16 once
+  (:func:`_stream_cast`), sums every product in f32, keeps ``p`` in f32 for
+  the denominator and rounds to bf16 only the copies that enter a second
+  product: ``p`` before ``p.v`` and ``pT.dO``, ``ds`` before ``ds.k`` and
+  ``dsT.q``; ``"highest"`` is true f32;
+- the backward's ``delta = rowsum(dO * O)`` is taken in f32 from dO and
+  the stored output before the stream cast;
+- the output has q's dtype before the cast, and the gradients the
+  dtypes of their primals.
 
-The backward (``_flash_backward``), the ring forms (``flash_attention_parts``,
-``flash_attention_bwd_parts``) and the BlockTuner are not ported yet
-(ROADMAP Queue B 5-7, Queue A).  A default-argument call takes
-:func:`default_blocks`, which is the pair the reference's tuner gives cold,
-and both gate on the same >= 128 divisor, so flash against dense is decided
-as in the reference.
+The ring forms (``flash_attention_parts``, ``flash_attention_bwd_parts``)
+and the BlockTuner are not ported yet (ROADMAP Queue B 6-7, Queue A).  A
+default-argument call takes :func:`default_blocks`, which is the pair the
+reference's tuner gives cold, and both gate on the same >= 128 divisor, so
+flash against dense is decided as in the reference.
 """
 
 from __future__ import annotations
@@ -35,14 +42,16 @@ from pathlib import Path
 
 import torch
 
-from ..errors import KernelCompileError, NotPortedError
+from ..errors import KernelCompileError
 from ..kernel.build import LaunchCounter, build_library
 from ..parallel.attention import attention_reference
 
-__all__ = ["flash_attention", "flash_attention_plain", "auto_block", "default_blocks",
-           "LAUNCHES", "PLAIN_RUNS", "ROUTES", "SOURCE", "KERNEL_BLOCK", "MAX_HEAD_DIM"]
+__all__ = ["flash_attention", "flash_attention_plain", "flash_attention_bwd_plain",
+           "auto_block", "default_blocks", "LAUNCHES", "BWD_LAUNCHES", "PLAIN_RUNS",
+           "PLAIN_BWD_RUNS", "ROUTES", "SOURCE", "SOURCE_BWD", "KERNEL_BLOCK", "MAX_HEAD_DIM"]
 
 SOURCE = Path(__file__).resolve().parents[1] / "csrc" / "flash_attention.cu"
+SOURCE_BWD = Path(__file__).resolve().parents[1] / "csrc" / "flash_attention_bwd.cu"
 
 _NEG = -1e30  # finite "-inf": exp(_NEG - m) == 0 without nan hazards
 
@@ -55,14 +64,19 @@ KERNEL_BLOCK = 64
 #: the largest head dimension the kernel takes
 MAX_HEAD_DIM = 128
 
-#: kernel launches (the wrapper adds one per launch on the card)
+#: forward kernel launches (the wrapper adds one per launch on the card)
 LAUNCHES = LaunchCounter()
-#: runs of the plain version, keyed by device type
+#: backward kernel launches, keyed "dq" and "dkv"
+BWD_LAUNCHES = LaunchCounter()
+#: runs of the plain forward, keyed by device type
 PLAIN_RUNS = LaunchCounter()
+#: runs of the plain backward, keyed by device type
+PLAIN_BWD_RUNS = LaunchCounter()
 #: :func:`flash_attention` calls, keyed "tiled" or "dense" (the fallback)
 ROUTES = LaunchCounter()
 
 _lib_fn = None
+_bwd_fns = None
 
 
 def auto_block(T: int, target: int = 512, floor: int = 8) -> int | None:
@@ -227,11 +241,6 @@ def _flash_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bo
     if causal and Tq != Tk:
         raise ValueError("causal flash attention requires Tq == Tk")
     precision = _precision_str(precision)
-    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
-        raise NotPortedError(
-            "flash_attention has no backward in the port yet: the flash backward and "
-            "the train step are the training slice (ROADMAP Queue B 5); call it under "
-            "torch.no_grad()")
     out_dtype = q.dtype
     q, k, v = _stream_cast(precision, q, k, v)
     if q.device.type == "cpu":
@@ -245,16 +254,209 @@ def _flash_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bo
     return out
 
 
+def _round_bf16(t: torch.Tensor) -> torch.Tensor:
+    return t.to(torch.bfloat16).float()
+
+
+def flash_attention_bwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                              do: torch.Tensor, lse: torch.Tensor, delta: torch.Tensor,
+                              causal: bool, block_q: int, block_k: int, precision: str,
+                              grad_dtypes: tuple[torch.dtype, torch.dtype, torch.dtype]
+                              ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The plain backward: the reference kernels' FlashAttention-2
+    arithmetic over query blocks of ``block_q`` and key blocks of
+    ``block_k`` (the last of each may be shorter), on q's device.
+
+    ``q``/``k``/``v``/``do`` are already stream-cast; ``lse`` and ``delta``
+    hold one f32 per (b*h, query) row.  For every live (query block, key
+    block) pair: ``p = exp(s - lse)``, ``dp = dO.V^T``,
+    ``ds = p (dp - delta) scale``, then ``dq += ds.K``, ``dv += p^T.dO`` and
+    ``dk += ds^T.q``, each block's product summed on its own and added to
+    the f32 sum, dq over key blocks and dk/dv over query blocks in order.
+    Under ``"default"`` ``p`` and ``ds`` round to bf16 before those three
+    products.  Returns ``(dq, dk, dv)`` in ``grad_dtypes``."""
+    PLAIN_BWD_RUNS.add(q.device.type)
+    B, Tq, H, D = q.shape
+    Tk = k.shape[1]
+    scale = 1.0 / math.sqrt(D)
+    rnd = precision == "default"
+    q3, k3, v3, do3 = (t.permute(0, 2, 1, 3).float() for t in (q, k, v, do))
+    lse3 = lse.reshape(B, H, Tq, 1).float()
+    dlt3 = delta.reshape(B, H, Tq, 1).float()
+    dq = torch.zeros((B, H, Tq, D), dtype=torch.float32, device=q.device)
+    dk = torch.zeros((B, H, Tk, D), dtype=torch.float32, device=q.device)
+    dv = torch.zeros((B, H, Tk, D), dtype=torch.float32, device=q.device)
+    for m0 in range(0, Tq, block_q):
+        m1 = min(m0 + block_q, Tq)
+        qb, dob = q3[:, :, m0:m1], do3[:, :, m0:m1]
+        lb, db = lse3[:, :, m0:m1], dlt3[:, :, m0:m1]
+        qpos = torch.arange(m0, m1, device=q.device)
+        for n0 in range(0, Tk, block_k):
+            if causal and n0 > m1 - 1:
+                break  # the reference's dead block: no key here is visible
+            n1 = min(n0 + block_k, Tk)
+            kb, vb = k3[:, :, n0:n1], v3[:, :, n0:n1]
+            s = (qb @ kb.transpose(-1, -2)) * scale
+            if causal:
+                kpos = torch.arange(n0, n1, device=q.device)
+                s = torch.where(kpos[None, :] <= qpos[:, None], s, _NEG)
+            p = torch.exp(s - lb)
+            dp = dob @ vb.transpose(-1, -2)
+            ds = p * (dp - db) * scale
+            p2, ds2 = (_round_bf16(p), _round_bf16(ds)) if rnd else (p, ds)
+            dq[:, :, m0:m1] += ds2 @ kb
+            dv[:, :, n0:n1] += p2.transpose(-1, -2) @ dob
+            dk[:, :, n0:n1] += ds2.transpose(-1, -2) @ qb
+    return tuple(g.permute(0, 2, 1, 3).to(dt) for g, dt in zip((dq, dk, dv), grad_dtypes))
+
+
+def _bwd_launchers():
+    global _bwd_fns
+    if _bwd_fns is None:
+        lib = build_library(SOURCE_BWD.read_text(), "flash_attention_bwd")
+        dq_fn, dkv_fn = lib.flash_attention_bwd_dq, lib.flash_attention_bwd_dkv
+        head = [ctypes.c_int] * 5 + [ctypes.c_longlong] * 12 + [ctypes.c_float]
+        dq_fn.restype = dkv_fn.restype = ctypes.c_int
+        dq_fn.argtypes = [ctypes.c_void_p] * 7 + head + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+        dkv_fn.argtypes = [ctypes.c_void_p] * 8 + head + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+        _bwd_fns = (dq_fn, dkv_fn)
+    return _bwd_fns
+
+
+def _launch_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, do: torch.Tensor,
+                lse: torch.Tensor, delta: torch.Tensor, causal: bool, precision: str,
+                grad_dtypes: tuple[torch.dtype, torch.dtype, torch.dtype]
+                ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Launch the two kernels of ``csrc/flash_attention_bwd.cu`` on q's
+    device and current stream: dq, then dk and dv."""
+    B, Tq, H, D = q.shape
+    Tk = k.shape[1]
+    kinds = (torch.float32, torch.bfloat16)
+    if q.dtype not in kinds or any(t.dtype != q.dtype for t in (k, v, do)):
+        raise KernelCompileError(
+            f"flash_attention backward kernels: q/k/v/dO must share one of {kinds}, got "
+            f"{q.dtype}/{k.dtype}/{v.dtype}/{do.dtype}")
+    if any(dt not in kinds for dt in grad_dtypes):
+        raise KernelCompileError(
+            f"flash_attention backward kernels: unsupported gradient dtypes {grad_dtypes}")
+    if D > MAX_HEAD_DIM:
+        raise KernelCompileError(
+            f"flash_attention backward kernels: head dim {D} exceeds {MAX_HEAD_DIM}")
+    for name, t, T in (("k", k, Tk), ("v", v, Tk), ("dO", do, Tq)):
+        if t.device != q.device or t.shape != (B, T, H, D):
+            raise KernelCompileError(
+                f"flash_attention backward kernels: {name} {tuple(t.shape)} on {t.device} "
+                f"does not match q {tuple(q.shape)} on {q.device}")
+    if any(t.stride(3) != 1 for t in (q, k, v, do)):
+        raise KernelCompileError(
+            "flash_attention backward kernels: the head dim must have stride 1")
+    lse = lse.reshape(B * H, Tq).contiguous()
+    delta = delta.reshape(B * H, Tq).contiguous()
+    if lse.dtype != torch.float32 or delta.dtype != torch.float32 or \
+            lse.device != q.device or delta.device != q.device:
+        raise KernelCompileError(
+            "flash_attention backward kernels: lse and delta must be f32 on q's device")
+    dq, dk, dv = (torch.empty((B, T, H, D), dtype=dt, device=q.device)
+                  for T, dt in zip((Tq, Tk, Tk), grad_dtypes))
+    is_bf16 = [int(dt == torch.bfloat16) for dt in grad_dtypes]
+    dq_fn, dkv_fn = _bwd_launchers()
+    strides = (*q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *do.stride()[:3])
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
+            delta.data_ptr())
+    shape = (B, H, Tq, Tk, D)
+    flags = (int(causal), int(q.dtype == torch.bfloat16))
+    rnd = int(precision == "default")
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        rc = dq_fn(*ptrs, dq.data_ptr(), *shape, *strides, 1.0 / math.sqrt(D), *flags,
+                   is_bf16[0], rnd, stream)
+        if rc != 0:
+            raise KernelCompileError(f"flash_attention_bwd_dq: CUDA launch failed with error {rc}")
+        BWD_LAUNCHES.add("dq")
+        rc = dkv_fn(*ptrs, dk.data_ptr(), dv.data_ptr(), *shape, *strides, 1.0 / math.sqrt(D),
+                    *flags, is_bf16[1], is_bf16[2], rnd, stream)
+        if rc != 0:
+            raise KernelCompileError(
+                f"flash_attention_bwd_dkv: CUDA launch failed with error {rc}")
+        BWD_LAUNCHES.add("dkv")
+    return dq, dk, dv
+
+
+def _delta(out: torch.Tensor, do: torch.Tensor) -> torch.Tensor:
+    """``rowsum(dO * O)`` in f32 as a ``[B*H, Tq]`` column, from the output
+    and its cotangent as they are (before any stream cast)."""
+    B, Tq, H, _ = out.shape
+    return (do.float() * out.float()).sum(dim=-1).permute(0, 2, 1).reshape(B * H, Tq)
+
+
+def _flash_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: torch.Tensor,
+                    lse: torch.Tensor, do: torch.Tensor, causal: bool, block_q: int,
+                    block_k: int, precision: str,
+                    grad_dtypes: tuple[torch.dtype, torch.dtype, torch.dtype] | None = None
+                    ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Backward pass: ``(dq, dk, dv)`` from the forward's operands, output
+    and ``[B*H, Tq, 1]`` logsumexp and the output's cotangent ``do``.
+
+    ``delta = rowsum(dO * O)`` is taken in f32 before the stream cast, as
+    the reference takes it outside its kernels.  Gradients come out in
+    ``grad_dtypes`` (the primals' dtypes), by default ``do``'s.  On a CUDA
+    tensor this launches the two kernels or raises; on a CPU tensor it runs
+    the plain version."""
+    B, Tq, H, D = q.shape
+    Tk = k.shape[1]
+    bq, bk = _blocks_for(Tq, Tk, block_q, block_k)
+    precision = _precision_str(precision)
+    delta = _delta(out, do)
+    grad_dtypes = grad_dtypes or (do.dtype,) * 3
+    q, k, v, do = _stream_cast(precision, q, k, v, do)
+    if q.device.type == "cpu":
+        return flash_attention_bwd_plain(q, k, v, do, lse, delta, causal, bq, bk, precision,
+                                         grad_dtypes)
+    if q.device.type == "cuda":
+        return _launch_bwd(q, k, v, do, lse, delta, causal, precision, grad_dtypes)
+    raise KernelCompileError(f"flash_attention backward: unsupported device {q.device}")
+
+
+class _FlashAttention(torch.autograd.Function):
+    """Tiled flash attention with its backward: the reference's
+    ``_flash_attention_tiled`` custom_vjp.  The forward saves the
+    stream-cast q/k/v (bf16 under ``"default"``), the output and the
+    compact logsumexp; the backward gives dq in dO's dtype and dk/dv in
+    k's and v's primal dtypes.  dO comes from autograd in whatever layout
+    the loss gives it (a ``sum`` gives a broadcast with zero strides), so
+    it is made contiguous for the kernels."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, block_q, block_k, precision):
+        out, lse, (qs, ks, vs) = _flash_forward(q, k, v, causal, block_q, block_k, precision,
+                                                with_lse=True)
+        ctx.save_for_backward(qs, ks, vs, out, lse)
+        ctx.args = (causal, block_q, block_k, precision, k.dtype, v.dtype)
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        qs, ks, vs, out, lse = ctx.saved_tensors
+        causal, block_q, block_k, precision, k_dtype, v_dtype = ctx.args
+        dq, dk, dv = _flash_backward(qs, ks, vs, out, lse, do.contiguous(), causal, block_q,
+                                     block_k, precision, (do.dtype, k_dtype, v_dtype))
+        return dq, dk, dv, None, None, None, None
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool = False,
                     block_q: int | None = None, block_k: int | None = None,
                     precision: str = "highest") -> torch.Tensor:
-    """Tiled flash attention, forward only: q [B, Tq, H, D], k/v
-    [B, Tk, H, D] -> [B, Tq, H, D].  Default-argument blocks come from
+    """Tiled flash attention: q [B, Tq, H, D], k/v [B, Tk, H, D] ->
+    [B, Tq, H, D], differentiable.  Default-argument blocks come from
     :func:`default_blocks`; where it gives None the call runs
     :func:`attention_reference` at the same precision (counted ``dense``
-    in :data:`ROUTES`).  Explicit blocks keep :func:`_blocks_for`'s
-    contract.  The reference's ``interpret`` argument has no counterpart:
-    a CUDA tensor runs the kernel, a CPU tensor the plain version."""
+    in :data:`ROUTES`), whose gradient is plain autograd, as the
+    reference's ``_dense_attention`` is.  Explicit blocks keep
+    :func:`_blocks_for`'s contract.  With grad enabled and an input that
+    requires grad, the call goes through :class:`_FlashAttention`, which
+    keeps the logsumexp for the backward kernels.  The reference's
+    ``interpret`` argument has no counterpart: a CUDA tensor runs the
+    kernels, a CPU tensor the plain versions."""
     precision = _precision_str(precision)
     if block_q is None and block_k is None:
         blocks = default_blocks(q.shape[1], k.shape[1])
@@ -266,4 +468,6 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: b
         block_q = block_q or block_k
         block_k = block_k or block_q
     ROUTES.add("tiled")
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        return _FlashAttention.apply(q, k, v, causal, block_q, block_k, precision)
     return _flash_forward(q, k, v, causal, block_q, block_k, precision)

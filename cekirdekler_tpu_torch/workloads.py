@@ -1,5 +1,5 @@
 """Benchmark/validation workloads: mandelbrot, n-body, streaming vector add,
-and the flagship transformer's forward pass.
+and the flagship transformer's forward pass and train step.
 
 Counterpart of the main-path subset of ``cekirdekler_tpu/workloads.py``:
 the kernel sources, the host references for self-checking, and the
@@ -7,11 +7,13 @@ runners that feed the two BASELINE metrics (Mpixels/s and load-balance
 convergence iterations).  Runners default to ``all_devices().gpus()`` and
 raise :class:`DeviceSelectionError` where there is no CUDA device; host
 lanes run only when the caller selects them.  :func:`run_transformer_forward`
-is the counterpart of ``__graft_entry__.entry()``'s forward step.
+is the counterpart of ``__graft_entry__.entry()``'s forward step and
+:func:`run_transformer_train` of its dry run's train steps.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import time
 from dataclasses import dataclass, field
 
@@ -35,6 +37,7 @@ __all__ = [
     "run_stream",
     "convergence_iterations",
     "run_transformer_forward",
+    "run_transformer_train",
     "REQUEST_BATCHES",
 ]
 
@@ -306,7 +309,8 @@ def run_transformer_forward(model, batches, keep: str = "logits") -> dict:
     kernel launches, plain flash runs by device type, and the flash
     routes (``tiled`` or the ``dense`` fallback).  On the card a batch is
     timed by CUDA events, on the CPU by the host clock; ``device`` names
-    which."""
+    which.  The forwards run under ``torch.inference_mode()``: serving
+    keeps no activations for a backward."""
     import torch
 
     from .ops import flash_attention as fa
@@ -316,23 +320,13 @@ def run_transformer_forward(model, batches, keep: str = "logits") -> dict:
     dev = model.device
     before = (fa.LAUNCHES.count, dict(fa.PLAIN_RUNS.by_key), dict(fa.ROUTES.by_key))
     outputs, seconds, tokens_per_s = [], [], []
-    for tokens in batches:
-        tokens = torch.as_tensor(tokens, device=dev)
-        if dev.type == "cuda":
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            start.record()
-            logits = model(tokens)
-            end.record()
-            end.synchronize()
-            sec = start.elapsed_time(end) / 1e3
-        else:
-            t0 = time.perf_counter()
-            logits = model(tokens)
-            sec = time.perf_counter() - t0
-        seconds.append(sec)
-        tokens_per_s.append(tokens.numel() / sec)
-        outputs.append(logits if keep == "logits" else logits.argmax(dim=-1))
+    with torch.inference_mode():
+        for tokens in batches:
+            tokens = torch.as_tensor(tokens, device=dev)
+            logits, sec = _timed(dev, lambda: model(tokens))
+            seconds.append(sec)
+            tokens_per_s.append(tokens.numel() / sec)
+            outputs.append(logits if keep == "logits" else logits.argmax(dim=-1))
     plain = {k: v - before[1].get(k, 0) for k, v in fa.PLAIN_RUNS.by_key.items()}
     routes = {k: v - before[2].get(k, 0) for k, v in fa.ROUTES.by_key.items()}
     return {"outputs": outputs, "seconds": seconds, "tokens_per_s": tokens_per_s,
@@ -340,3 +334,62 @@ def run_transformer_forward(model, batches, keep: str = "logits") -> dict:
             "launches": {"flash_attention": fa.LAUNCHES.count - before[0],
                          "plain_flash": {k: v for k, v in plain.items() if v},
                          "routes": {k: v for k, v in routes.items() if v}}}
+
+
+def _timed(dev, fn):
+    """``(fn(), seconds)``: CUDA events on the card, the host clock on the CPU."""
+    import torch
+
+    if dev.type == "cuda":
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = fn()
+        end.record()
+        end.synchronize()
+        return out, start.elapsed_time(end) / 1e3
+    t0 = time.perf_counter()
+    out = fn()
+    return out, time.perf_counter() - t0
+
+
+def run_transformer_train(model, optimizer, batch, steps: int, remat: bool | None = None) -> dict:
+    """Take ``steps`` train steps of ``model`` (a ``models.Transformer``) on
+    one batch (``{"tokens": [B, T+1]}``) with ``optimizer``, through
+    ``model.make_train_step``.
+
+    ``remat`` overrides the model's ``config.remat`` for these steps.
+    Returns each step's loss, seconds and tokens/s (B*T over the step's
+    time: CUDA events on the card, the host clock on the CPU), and the
+    launch counts of the run: forward kernel launches, backward kernel
+    launches by kernel (``dq``, ``dkv``), plain forward and backward runs
+    by device type, and the flash routes."""
+    from .ops import flash_attention as fa
+
+    dev = model.device
+    tokens = batch["tokens"]
+    n_tokens = tokens.shape[0] * (tokens.shape[1] - 1)
+    counters = (fa.LAUNCHES, fa.BWD_LAUNCHES, fa.PLAIN_RUNS, fa.PLAIN_BWD_RUNS, fa.ROUTES)
+    before = [(c.count, dict(c.by_key)) for c in counters]
+    config = model.config
+    if remat is not None:
+        model.config = dataclasses.replace(config, remat=remat)
+    try:
+        step = model.make_train_step(optimizer)
+        losses, seconds = [], []
+        for _ in range(steps):
+            loss, sec = _timed(dev, lambda: step(batch))
+            losses.append(float(loss))
+            seconds.append(sec)
+    finally:
+        model.config = config
+
+    def delta(i: int) -> dict:
+        now, (_, was) = counters[i].by_key, before[i]
+        return {k: v - was.get(k, 0) for k, v in now.items() if v != was.get(k, 0)}
+
+    return {"losses": losses, "seconds": seconds,
+            "tokens_per_s": [n_tokens / sec for sec in seconds], "device": str(dev),
+            "launches": {"flash_attention": fa.LAUNCHES.count - before[0][0],
+                         "flash_attention_bwd": delta(1), "plain_flash": delta(2),
+                         "plain_flash_bwd": delta(3), "routes": delta(4)}}

@@ -12,7 +12,9 @@ Phases, each of which raises on failure (the script then exits non-zero):
 3. kernels: each kernel's wrapper on the card at the main path's shapes,
    held against its plain PyTorch version on the same inputs (stated
    tolerances), timed beside the plain version and, where one exists, the
-   one PyTorch call computing the same function;
+   one PyTorch call computing the same function; the flash backward's two
+   kernels at 4x2048x8x64 causal bf16, 4x1024 causal f32 and 4x2048
+   non-causal bf16, each kernel timed from a ``torch.profiler`` trace;
 4. main path: with every launch count set to 0, the BASELINE workloads
    through ``ClArray.compute`` on the GPU lane — mandelbrot 2048x2048x256
    by the C-subset route and by the hand kernel (images equal
@@ -39,7 +41,18 @@ Phases, each of which raises on failure (the script then exits non-zero):
    flash version never ran.  One 1x2048 batch's logits are held against
    the same weights on the CPU (plain versions), and an f32 model's at
    1x1024;
-7. the kernels line, then the last line ``{"ok": true, "device": ...}``.
+7. transformer train: the same model trained with ``adamw(model, 1e-3)``
+   (``__graft_entry__``'s dry-run optimizer) for 8 steps on one seeded
+   4x2049 batch (T = 2048): the loss is finite at every step and lower at
+   the last than at the first, and with every count set to 0 before them
+   each step launched the forward, dq and dk/dv kernels once per layer and
+   no plain flash ran; one step with ``remat=True`` launches the forward
+   twice per layer; one step on a 2x97 batch takes the dense route and
+   launches no flash kernel.  One step's loss and gradients on the card
+   are held against the CPU's (plain versions) from the same weights: f32
+   at 1x1024, bf16 at 1x2048 beside the CPU's own bf16-vs-f32 gap; and
+   the gradients with remat against those without it;
+8. the kernels line, then the last line ``{"ok": true, "device": ...}``.
 
 Exits non-zero without printing a result when no CUDA device is present,
 or when the package is not beside this script.
@@ -121,6 +134,58 @@ def flash_bound(B: int, Tq: int, Tk: int, H: int, D: int, causal: bool,
     return (by_ops, "operations") if by_ops >= by_bytes else (by_bytes, "bytes")
 
 
+def flash_bwd_bound(B: int, T: int, H: int, D: int, causal: bool, dtype, ops_per_d: int = 10,
+                    tensors: int = 8) -> tuple[float, str]:
+    """Least time (ms) of a flash backward with Tq == Tk == T, and what
+    binds it: ``ops_per_d * D`` operations per live (query, key) pair and
+    head at the type's peak, against the bytes of ``tensors`` [B, T, H, D]
+    tensors each read or written once plus the f32 lse and delta.  The
+    whole backward is FlashAttention-2's count, 10 (s recomputed, dp, dq,
+    dk, dv: 2 each) over q, k, v, o, dO, dq, dk, dv; the dq kernel's own
+    function is 6 (s, dp, dq) over q, k, v, dO, dq, and the dk/dv kernel's
+    8 (s, dp, dk, dv) over q, k, v, dO, dk, dv."""
+    import torch
+
+    pairs = B * H * (T * (T + 1) // 2 if causal else T * T)
+    ops = float(ops_per_d) * D * pairs
+    rate = BF16_OPS_PER_S if dtype == torch.bfloat16 else FP32_OPS_PER_S
+    size = 2 if dtype == torch.bfloat16 else 4
+    nbytes = float(size * tensors * B * T * H * D + 2 * 4 * B * H * T)
+    by_ops, by_bytes = ops / rate * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+    return (by_ops, "operations") if by_ops >= by_bytes else (by_bytes, "bytes")
+
+
+def profiled_ms(fn, reps: int, names: tuple[str, ...] = ()) -> dict[str, float]:
+    """Mean device time (ms) per ``fn()`` call of each kernel whose name
+    holds one of ``names``, and of all device activity (``"total"``),
+    from a ``torch.profiler`` trace of ``reps`` calls; raises when the
+    trace shows no device time for one of them.  Unlike CUDA events
+    around the calls, this leaves out the host's gaps between launches."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from cekirdekler_tpu_torch.tools.profile_main_path import _device_us
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    out = dict.fromkeys((*names, "total"), 0.0)
+    for evt in prof.key_averages():
+        if getattr(evt, "device_type", None) == torch.autograd.DeviceType.CPU:
+            continue
+        ms = _device_us(evt) / 1e3 / reps
+        out["total"] += ms
+        for name in names:
+            if name in evt.key:
+                out[name] += ms
+    if not all(out.values()):
+        raise AssertionError(f"the profiler shows no device time for a kernel: {out}")
+    return out
+
+
 def bf16_ulps(t, n: float = 2.0) -> float:
     """``n`` bf16 ulps at the largest magnitude of ``t``."""
     return n * 2.0 ** (np.floor(np.log2(float(t.abs().max()))) - 7)
@@ -179,6 +244,187 @@ def check_flash(fa, dev) -> dict:
     return row
 
 
+def check_flash_bwd(fa, dev) -> tuple[dict, dict]:
+    """The flash backward's dq and dk/dv kernels against the plain backward
+    (blocks at the kernels' tile width) on the card, from the forward
+    kernel's output and lse, at the transformer's shapes (H=8, D=64).  f32
+    at "highest" within 1e-5 of each gradient's largest magnitude, bf16 at
+    "default" within 2 bf16 ulps there.  Each kernel is timed from a
+    profiler trace, the pair and the plain backward by CUDA events, and
+    the library as the device time of ``torch.autograd.grad`` through one
+    ``scaled_dot_product_attention`` output (its backward alone, from a
+    profiler trace: timed by CUDA events it is bound by the host).
+    Returns the
+    kernels-line rows of the two kernels from the first case (the 4x2048
+    causal bf16 backward of the model's train step): each row's bound is
+    its own kernel's function; plain and library times are the whole
+    backward's, in both rows."""
+    import torch
+    import torch.nn.functional as F
+
+    g = torch.Generator().manual_seed(2025)
+    H, D = 8, 64
+    cases = (  # label, B, T, causal, dtype, precision
+        ("4x2048 causal bf16 default", 4, 2048, True, torch.bfloat16, "default"),
+        ("4x1024 causal f32 highest", 4, 1024, True, torch.float32, "highest"),
+        ("4x2048 full bf16 default", 4, 2048, False, torch.bfloat16, "default"),
+    )
+    rows = None
+    for label, B, T, causal, dtype, prec in cases:
+        q, k, v, do = (torch.randn(B, T, H, D, generator=g).to(dtype).to(dev) for _ in range(4))
+        out, lse, (qs, ks, vs) = fa._flash_forward(q, k, v, causal, 512, 512, prec, with_lse=True)
+
+        def bwd():
+            return fa._flash_backward(qs, ks, vs, out, lse, do, causal, 512, 512, prec,
+                                      (dtype,) * 3)
+
+        def plain():
+            kb = fa.KERNEL_BLOCK
+            return fa.flash_attention_bwd_plain(*fa._stream_cast(prec, qs, ks, vs, do), lse,
+                                                fa._delta(out, do), causal, kb, kb, prec,
+                                                (dtype,) * 3)
+
+        got, want = bwd(), plain()
+        torch.cuda.synchronize()
+        errs = {}
+        for name, a, w in zip(("dq", "dk", "dv"), got, want):
+            err = float((a.float() - w.float()).abs().max())
+            tol = 1e-5 * float(w.abs().max()) if dtype == torch.float32 else bf16_ulps(w)
+            if not bool(torch.isfinite(a).all()) or err > tol:
+                raise AssertionError(f"flash backward {name} kernel vs plain ({label}): max abs "
+                                     f"err {err} > {tol}")
+            errs[name] = (err, tol)
+        pair_ms = cuda_ms(bwd, 10)
+        each = profiled_ms(bwd, 10, ("fa_bwd_dq_kernel", "fa_bwd_dkv_kernel"))
+        plain_ms = cuda_ms(plain, 2, warmup=1)
+        qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_(True) for t in (q, k, v))
+        sdpa = F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal)
+        library_ms = profiled_ms(lambda: torch.autograd.grad(
+            sdpa, (qt, kt, vt), do.transpose(1, 2), retain_graph=True), 10)["total"]
+        whole, _ = flash_bwd_bound(B, T, H, D, causal, dtype)
+        bound_dq = flash_bwd_bound(B, T, H, D, causal, dtype, ops_per_d=6, tensors=5)
+        bound_dkv = flash_bwd_bound(B, T, H, D, causal, dtype, ops_per_d=8, tensors=6)
+        print(f"flash backward {label}: dq kernel {each['fa_bwd_dq_kernel']:.4f} ms (bound "
+              f"{bound_dq[0]:.4f}), dkv kernel {each['fa_bwd_dkv_kernel']:.4f} ms (bound "
+              f"{bound_dkv[0]:.4f}); backward by CUDA events {pair_ms:.4f} ms against its bound "
+              f"{whole:.4f} ms; the two kernels and delta by the profiler {each['total']:.4f} ms; "
+              f"plain {plain_ms:.4f} ms; SDPA backward {library_ms:.4f} ms; max abs err "
+              + ", ".join(f"{n} {e} (tol {t})" for n, (e, t) in errs.items()))
+        if rows is None:
+            common = dict(plain_ms=plain_ms, library_ms=library_ms)
+            rows = (dict(max_abs_err=errs["dq"][0], ms=each["fa_bwd_dq_kernel"],
+                         bound_ms=bound_dq[0], bound_by=bound_dq[1], **common),
+                    dict(max_abs_err=max(errs["dk"][0], errs["dv"][0]),
+                         ms=each["fa_bwd_dkv_kernel"], bound_ms=bound_dkv[0],
+                         bound_by=bound_dkv[1], **common))
+        del q, k, v, do, out, lse, qs, ks, vs, got, want, qt, kt, vt, sdpa
+    return rows
+
+
+def _loss_and_grads(model, batch) -> tuple[float, dict]:
+    loss = model.loss_fn(batch)
+    loss.backward()
+    grads = {n: p.grad.detach().float().cpu() for n, p in model.named_parameters()}
+    model.zero_grad(set_to_none=True)
+    return float(loss.detach()), grads
+
+
+def _rel(a, b) -> float:
+    return float((a - b).norm() / b.norm())
+
+
+def check_training(wl, fa, card: str) -> tuple[int, int]:
+    """The train phase; returns the dq and dk/dv kernels' launch counts
+    over its 8 steps."""
+    import dataclasses
+
+    import torch
+
+    from cekirdekler_tpu_torch.models import Transformer, TransformerConfig, adamw
+
+    cfg = TransformerConfig(attention="flash")
+    n = cfg.n_layers
+    model = Transformer(cfg, seed=0)
+    opt = adamw(model, 1e-3)
+    rng = np.random.default_rng(11)
+    batch = {"tokens": torch.from_numpy(rng.integers(0, cfg.vocab, (4, 2049))).cuda()}
+    counters = (fa.LAUNCHES, fa.BWD_LAUNCHES, fa.PLAIN_RUNS, fa.PLAIN_BWD_RUNS, fa.ROUTES)
+
+    def run(steps, b, remat=None):
+        for counter in counters:
+            counter.reset()
+        tr = wl.run_transformer_train(model, opt, b, steps, remat=remat)
+        seen = (fa.LAUNCHES.count, dict(fa.BWD_LAUNCHES.by_key), fa.PLAIN_RUNS.count,
+                fa.PLAIN_BWD_RUNS.count, dict(fa.ROUTES.by_key))
+        return tr, seen
+
+    tr, seen = run(8, batch)
+    steps = len(tr["losses"])
+    print(f"train steps 4x2048: losses {tr['losses']}; launch counts {tr['launches']}")
+    for i, (tps, sec) in enumerate(zip(tr["tokens_per_s"], tr["seconds"])):
+        print(f"train step {i}: {tps:.1f} tokens/s ({sec * 1e3:.3f} ms, CUDA events) on {card}")
+    if not all(np.isfinite(tr["losses"])) or not tr["losses"][-1] < tr["losses"][0]:
+        raise AssertionError(f"train losses not finite or not falling: {tr['losses']}")
+    want = (steps * n, {"dq": steps * n, "dkv": steps * n}, 0, 0, {"tiled": steps * n})
+    if seen != want or tr["launches"]["flash_attention"] != steps * n:
+        raise AssertionError(f"train launch counts (forward, backward, plain forward, plain "
+                             f"backward, routes) {seen}, want {want}")
+    launches = (seen[1]["dq"], seen[1]["dkv"])
+
+    tr, seen = run(1, batch, remat=True)
+    print(f"one remat step: loss {tr['losses'][0]}, {tr['tokens_per_s'][0]:.1f} tokens/s; "
+          f"launch counts {tr['launches']}")
+    want = (2 * n, {"dq": n, "dkv": n}, 0, 0, {"tiled": 2 * n})
+    if seen != want:
+        raise AssertionError(f"remat step launch counts {seen}, want {want}")
+    short = {"tokens": torch.from_numpy(rng.integers(0, cfg.vocab, (2, 97))).cuda()}
+    tr, seen = run(1, short)
+    print(f"one 2x96 step (dense route): loss {tr['losses'][0]}; launch counts {tr['launches']}")
+    if seen != (0, {}, 0, 0, {"dense": n}) or not np.isfinite(tr["losses"][0]):
+        raise AssertionError(f"2x96 step: launch counts {seen}, want the dense route only")
+
+    # remat recomputes each block from the same inputs: the same gradients
+    del model, opt
+    one = {"tokens": batch["tokens"][:1]}
+    model = Transformer(cfg, seed=0)
+    loss_a, grads_a = _loss_and_grads(model, one)
+    model.config = dataclasses.replace(cfg, remat=True)
+    loss_b, grads_b = _loss_and_grads(model, one)
+    diff = {k: float((g - grads_b[k]).abs().max()) for k, g in grads_a.items()}
+    print(f"bf16 1x2048 gradients, remat vs not: loss {loss_a} / {loss_b}; max abs diff "
+          f"{max(diff.values())} (embed {diff['embed']} at |g| <= "
+          f"{float(grads_a['embed'].abs().max())})")
+    if loss_a != loss_b or any(v != 0.0 for k, v in diff.items() if k != "embed") or \
+            diff["embed"] > 1e-6 * float(grads_a["embed"].abs().max()):
+        raise AssertionError("gradients with remat differ from those without it")
+    del model, grads_b
+
+    # one step's loss and gradients on the card against the CPU's
+    cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
+    b32 = {"tokens": batch["tokens"][:1, :1025].cpu()}
+    l_card, g_card = _loss_and_grads(Transformer(cfg32, seed=0), b32)
+    l_cpu, g_cpu = _loss_and_grads(Transformer(cfg32, device="cpu", seed=0), b32)
+    worst = max((float((g_card[k] - g).abs().max()) / float(g.abs().max()), k)
+                for k, g in g_cpu.items())
+    print(f"f32 1x1024 train step, card vs CPU: loss {l_card} / {l_cpu} (diff "
+          f"{abs(l_card - l_cpu)}, limit 1e-4); worst gradient max abs err / largest "
+          f"magnitude {worst[0]} ({worst[1]}, limit 1e-4)")
+    if abs(l_card - l_cpu) > 1e-4 or worst[0] > 1e-4:
+        raise AssertionError("f32 train step on the card differs from the CPU's")
+    one = {"tokens": one["tokens"].cpu()}
+    l_cpu16, g_cpu16 = _loss_and_grads(Transformer(cfg, device="cpu", seed=0), one)
+    l_cpu32, g_cpu32 = _loss_and_grads(Transformer(cfg32, device="cpu", seed=0), one)
+    rel_card = {k: _rel(g, g_cpu16[k]) for k, g in grads_a.items()}
+    rel_gap = {k: _rel(g_cpu16[k], g) for k, g in g_cpu32.items()}
+    print(f"bf16 1x2048 train step, card vs CPU: loss {loss_a} / {l_cpu16} (diff "
+          f"{abs(loss_a - l_cpu16)}, limit 1e-2); gradient relative norm errors "
+          f"{json.dumps(rel_card)} (limit 5e-2); on the CPU alone, bf16 vs f32: loss "
+          f"{l_cpu16} / {l_cpu32}, {json.dumps(rel_gap)}")
+    if abs(loss_a - l_cpu16) > 1e-2 or max(rel_card.values()) > 5e-2:
+        raise AssertionError("bf16 train step on the card differs from the CPU's")
+    return launches
+
+
 def check_transformer(wl, fa, card: str) -> int:
     """The transformer phase; returns the flash kernel's launch count."""
     import torch
@@ -218,10 +464,11 @@ def check_transformer(wl, fa, card: str) -> int:
 
     # the same weights on the CPU, through the plain versions
     one = batches[0][:1]
-    on_card = model(one)
+    with torch.no_grad():
+        on_card = model(one)
+        on_cpu = Transformer(cfg, device="cpu", seed=0)(one)
     if not bool(torch.isfinite(on_card).all()):
         raise AssertionError("non-finite logits on the card")
-    on_cpu = Transformer(cfg, device="cpu", seed=0)(one)
     err = (on_card.cpu() - on_cpu).abs()
     agree = float((on_card.argmax(-1).cpu() == on_cpu.argmax(-1)).float().mean())
     print(f"bf16 1x2048 logits, card vs CPU: max abs {float(err.max())}, mean abs "
@@ -231,8 +478,9 @@ def check_transformer(wl, fa, card: str) -> int:
     del model, on_card
     cfg32 = TransformerConfig(attention="flash", dtype=torch.float32)
     one = batches[1][:1]
-    err32 = float((Transformer(cfg32, seed=0)(one).cpu()
-                   - Transformer(cfg32, device="cpu", seed=0)(one)).abs().max())
+    with torch.no_grad():
+        err32 = float((Transformer(cfg32, seed=0)(one).cpu()
+                       - Transformer(cfg32, device="cpu", seed=0)(one)).abs().max())
     print(f"f32 1x1024 logits, card vs CPU: max abs {err32} (limit 1e-3)")
     if err32 > 1e-3:
         raise AssertionError("f32 transformer logits on the card differ from the CPU's")
@@ -358,7 +606,8 @@ def main() -> int:
         "saxpy": lang.parse_kernels(SAXPY_SRC)[0],
     }
     jobs = {"mandelbrot.cu": (mandel_op.SOURCE.read_text(), "mandelbrot"),
-            "flash_attention.cu": (fa_op.SOURCE.read_text(), "flash_attention")}
+            "flash_attention.cu": (fa_op.SOURCE.read_text(), "flash_attention"),
+            "flash_attention_bwd.cu": (fa_op.SOURCE_BWD.read_text(), "flash_attention_bwd")}
     for name, kdef in programs.items():
         reason = cuda_backend.unsupported_reason(kdef)
         if reason is not None:
@@ -484,6 +733,7 @@ def main() -> int:
         bound_by="operations")
     del pos, v_k, v_p
     rows["flash_attention"] = check_flash(fa_op, dev)
+    rows["flash_attention_bwd_dq"], rows["flash_attention_bwd_dkv"] = check_flash_bwd(fa_op, dev)
     for name, r in rows.items():
         lib = "-" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
         print(f"{name:20s} kernel {r['ms']:.4f} ms  plain {r['plain_ms']:.4f} ms  "
@@ -541,6 +791,10 @@ def main() -> int:
     phase("transformer forward")
     rows["flash_attention"]["launches"] = check_transformer(wl, fa_op, card)
 
+    phase("transformer train")
+    (rows["flash_attention_bwd_dq"]["launches"],
+     rows["flash_attention_bwd_dkv"]["launches"]) = check_training(wl, fa_op, card)
+
     phase("summary")
     meta = {
         "emitter:streamAdd": ("cuda", EMITTER_SOURCE, EMITTER_REPLACES),
@@ -551,6 +805,10 @@ def main() -> int:
                        "cekirdekler_tpu/ops/mandelbrot.py:81"),
         "flash_attention": ("cuda", "cekirdekler_tpu_torch/csrc/flash_attention.cu",
                             "cekirdekler_tpu/ops/flash_attention.py:351"),
+        "flash_attention_bwd_dq": ("cuda", "cekirdekler_tpu_torch/csrc/flash_attention_bwd.cu",
+                                   "cekirdekler_tpu/ops/flash_attention.py:661"),
+        "flash_attention_bwd_dkv": ("cuda", "cekirdekler_tpu_torch/csrc/flash_attention_bwd.cu",
+                                    "cekirdekler_tpu/ops/flash_attention.py:661"),
     }
     kernels = []
     for name, (route, source, replaces) in meta.items():

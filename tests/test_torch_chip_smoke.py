@@ -1,4 +1,4 @@
-"""The balancer gate of ``chip_smoke.py`` on the CPU.
+"""The balancer gate and the flash bounds of ``chip_smoke.py`` on the CPU.
 
 ``chip_smoke.check_balancer`` needs the card; what it decides from a run's
 range trajectory does not.  ``tail_moves`` is held against hand-made
@@ -86,3 +86,38 @@ def test_gate_fails_a_slowed_drain(step, monkeypatch):
             for seed in range(chip_smoke.BALANCE_REPS)]
     assert all(_converged_at(t, step) is not None for t in runs)
     assert sum(_still(t, step) for t in runs) < chip_smoke.BALANCE_MIN_STILL
+
+
+@pytest.mark.parametrize("causal, ops_per_d, tensors, want_gflop, want_mb", [
+    (True, 10, 8, 42.97, 67.63),    # the whole backward: q, k, v, o, dO, dq, dk, dv
+    (True, 6, 5, 25.78, 42.47),     # the dq kernel's function
+    (True, 8, 6, 34.38, 50.86),     # the dk/dv kernel's function
+    (False, 10, 8, 85.90, 67.63),
+])
+def test_flash_bwd_bound_counts(causal, ops_per_d, tensors, want_gflop, want_mb):
+    """At the model's shapes (4x2048x8x64, bf16) the backward is bound by
+    its operations: ``ops_per_d * D`` per live (query, key) pair and head
+    at 989 TFLOP/s, against the bytes of ``tensors`` bf16 tensors plus the
+    f32 lse and delta at 3.35 TB/s."""
+    import torch
+
+    ms, by = chip_smoke.flash_bwd_bound(4, 2048, 8, 64, causal, torch.bfloat16, ops_per_d,
+                                        tensors)
+    assert by == "operations"
+    assert ms == pytest.approx(want_gflop * 1e9 / chip_smoke.BF16_OPS_PER_S * 1e3, rel=1e-3)
+    by_bytes = want_mb * 1e6 / chip_smoke.HBM_BYTES_PER_S * 1e3
+    assert ms > by_bytes
+    f32_ms, f32_by = chip_smoke.flash_bwd_bound(4, 2048, 8, 64, causal, torch.float32,
+                                                ops_per_d, tensors)
+    assert f32_by == "operations"
+    assert f32_ms == pytest.approx(ms * chip_smoke.BF16_OPS_PER_S / chip_smoke.FP32_OPS_PER_S)
+
+
+def test_flash_bwd_bound_of_a_short_sequence_is_bytes():
+    """At T=16 a pair costs too few operations: the bytes bind."""
+    import torch
+
+    ms, by = chip_smoke.flash_bwd_bound(4, 16, 8, 64, True, torch.bfloat16)
+    assert by == "bytes"
+    nbytes = 2 * 8 * 4 * 16 * 8 * 64 + 2 * 4 * 4 * 8 * 16
+    assert ms == pytest.approx(nbytes / chip_smoke.HBM_BYTES_PER_S * 1e3)

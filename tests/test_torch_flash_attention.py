@@ -1,10 +1,12 @@
-"""The port's flash-attention forward against the JAX package, on the CPU.
+"""The port's flash attention, forward and backward, against the JAX
+package, on the CPU.
 
-``cekirdekler_tpu_torch/ops/flash_attention.py`` holds the CUDA kernel's
-wrapper and its plain PyTorch version; on a CPU tensor the wrapper runs the
-plain version with the reference's own key blocks.  The same numpy-seeded
+``cekirdekler_tpu_torch/ops/flash_attention.py`` holds the CUDA kernels'
+wrappers and their plain PyTorch versions; on a CPU tensor the wrappers run
+the plain versions with the reference's own blocks.  The same numpy-seeded
 inputs go through the JAX functions (Pallas in interpret mode, as
-``tests/test_flash_attention.py`` runs them) and through the port.
+``tests/test_flash_attention.py`` runs them, under ``jax.grad`` for the
+backward) and through the port (``torch.autograd``).
 
 Tolerances: f32 inputs at ``"highest"`` within 1e-5 abs (measured worst
 3.6e-7 on the output, 4.8e-7 on the lse).  bf16 inputs or ``"default"``
@@ -12,6 +14,12 @@ within 2 bf16 ulps of the output's largest magnitude (about 2e-2 at
 |o| <= 2; measured worst 9.8e-4, one bf16 rounding of an output of
 magnitude below 0.25, and 2.3e-4 for f32 inputs at ``"default"``, where a
 score summed in another order can round p the other way).
+
+Gradients: f32 at ``"highest"`` within ``tests/test_flash_attention.py``'s
+rtol and atol of 5e-4 (measured worst 1.2e-6 abs); bf16 inputs or
+``"default"`` within 2 bf16 ulps of each gradient's largest magnitude
+(measured worst half an ulp, 2.0e-3 on a dq of magnitude 2; f32 inputs at
+``"default"`` 1.7e-4, where p or ds rounds to bf16 the other way).
 """
 
 from __future__ import annotations
@@ -23,10 +31,10 @@ import pytest
 import torch
 
 jnp = pytest.importorskip("jax.numpy")
+import jax  # noqa: E402
 
 from cekirdekler_tpu.ops import flash_attention as ref  # noqa: E402
 from cekirdekler_tpu.parallel.attention import attention_reference as ref_dense  # noqa: E402
-from cekirdekler_tpu_torch.errors import NotPortedError  # noqa: E402
 from cekirdekler_tpu_torch.ops import flash_attention as port  # noqa: E402
 from cekirdekler_tpu_torch.parallel.attention import attention_reference  # noqa: E402
 
@@ -161,13 +169,128 @@ def test_bad_precision_raises(precision):
         port.flash_attention(qt, kt, vt, False, 128, 128, precision)
 
 
-def test_requires_grad_names_the_training_slice():
+def test_grads_flow_through_the_plain_backward_on_cpu():
+    """With grad enabled a tiled call is differentiable; on CPU tensors its
+    backward runs the plain version once per call (no kernel launches).
+    Under ``no_grad`` the same call is the plain forward alone."""
     _, (qt, kt, vt) = _qkv(1, 128, 128, 2, 16, "f32")
     qt.requires_grad_(True)
-    with pytest.raises(NotPortedError, match="Queue B 5"):
-        port.flash_attention(qt, kt, vt, True, 128, 128)
+    before = (port.PLAIN_BWD_RUNS.by_key.get("cpu", 0), port.BWD_LAUNCHES.count,
+              port.LAUNCHES.count)
+    out = port.flash_attention(qt, kt, vt, True, 128, 128)
+    assert out.requires_grad
+    out.sum().backward()
+    assert qt.grad is not None and qt.grad.shape == qt.shape and kt.grad is None
+    assert bool(torch.isfinite(qt.grad).all())
+    assert port.PLAIN_BWD_RUNS.by_key["cpu"] == before[0] + 1
+    assert (port.BWD_LAUNCHES.count, port.LAUNCHES.count) == before[1:]
     with torch.no_grad():
         assert port.flash_attention(qt, kt, vt, True, 128, 128).shape == qt.shape
+    assert port.PLAIN_BWD_RUNS.by_key["cpu"] == before[0] + 1
+
+
+def _grads(B, Tq, Tk, H, D, causal, dtype, precision, blocks, seed=0, dtypes=None):
+    """dq, dk, dv of sum(w * flash(q, k, v)) from JAX (interpret mode under
+    ``jax.grad``) and from the port (autograd), on the same inputs.
+    ``dtypes`` gives q/k/v their own dtypes (mixed operands)."""
+    rng = np.random.default_rng(seed)
+    arrays = [rng.standard_normal((B, t, H, D)).astype(np.float32) for t in (Tq, Tk, Tk)]
+    w = rng.standard_normal((B, Tq, H, D)).astype(np.float32)
+    dtypes = dtypes or (dtype,) * 3
+    qj, kj, vj = (jnp.asarray(a, DTYPES[d][0]) for a, d in zip(arrays, dtypes))
+    wj = jnp.asarray(w)
+
+    def loss(q, k, v):
+        out = ref.flash_attention(q, k, v, causal, *blocks, True, precision)
+        return (out.astype(jnp.float32) * wj).sum()
+
+    want = jax.grad(loss, argnums=(0, 1, 2))(qj, kj, vj)
+    qt, kt, vt = (torch.from_numpy(a).to(DTYPES[d][1]).requires_grad_(True)
+                  for a, d in zip(arrays, dtypes))
+    out = port.flash_attention(qt, kt, vt, causal, *blocks, precision)
+    (out.float() * torch.from_numpy(w)).sum().backward()
+    return want, (qt.grad, kt.grad, vt.grad)
+
+
+def _assert_grads_close(want, got, dtype, precision):
+    for name, a, b in zip(("dq", "dk", "dv"), want, got):
+        a = _np(a)
+        assert b.shape == a.shape, name
+        if dtype == "f32" and precision == "highest":
+            np.testing.assert_allclose(_np(b), a, rtol=5e-4, atol=5e-4, err_msg=name)
+        else:
+            np.testing.assert_allclose(_np(b), a, rtol=0, atol=_tol(a, "bf16", precision),
+                                       err_msg=name)
+
+
+@pytest.mark.parametrize("blocks", [(128, 128), (16, 32)], ids=lambda b: f"{b[0]}x{b[1]}")
+@pytest.mark.parametrize("shape", [(1, 128, 2, 16), (2, 256, 2, 64)],
+                         ids=lambda s: "x".join(map(str, s)))
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("precision", ["highest", "default"])
+@pytest.mark.parametrize("causal", [False, True], ids=["full", "causal"])
+def test_flash_backward_matches_reference(causal, precision, dtype, shape, blocks):
+    B, T, H, D = shape
+    before = port.PLAIN_BWD_RUNS.by_key.get("cpu", 0)
+    want, got = _grads(B, T, T, H, D, causal, dtype, precision, blocks)
+    assert port.PLAIN_BWD_RUNS.by_key["cpu"] == before + 1
+    assert all(g.dtype == DTYPES[dtype][1] for g in got)
+    _assert_grads_close(want, got, dtype, precision)
+
+
+@pytest.mark.parametrize("dtype,precision", [("f32", "highest"), ("bf16", "default")])
+@pytest.mark.parametrize("tq,tk", [(128, 256), (256, 128)])
+def test_flash_backward_tq_ne_tk(tq, tk, dtype, precision):
+    want, got = _grads(2, tq, tk, 2, 16, False, dtype, precision, (64, 128), seed=6)
+    _assert_grads_close(want, got, dtype, precision)
+
+
+def test_flash_backward_grads_keep_primal_dtypes():
+    """Mixed operands under "default": every operand streams as bf16, and
+    each gradient comes back in its own primal's dtype, as the reference's
+    ``grad_dtypes`` gives them."""
+    dtypes = ("f32", "bf16", "f32")
+    want, got = _grads(1, 128, 128, 2, 16, True, "f32", "default", (64, 64), seed=7,
+                       dtypes=dtypes)
+    assert [g.dtype for g in got] == [DTYPES[d][1] for d in dtypes]
+    assert [str(g.dtype) for g in want] == ["float32", "bfloat16", "float32"]
+    _assert_grads_close(want, got, "bf16", "default")
+
+
+@pytest.mark.parametrize("tq,tk,causal", [(128, 128, False), (128, 128, True),
+                                          (128, 256, False), (256, 128, False)])
+def test_plain_backward_matches_autograd_of_dense(tq, tk, causal):
+    """The plain backward against autograd through ``attention_reference``
+    (f32): within 1e-5 of each gradient's largest magnitude (measured worst
+    7e-7)."""
+    rng = np.random.default_rng(8)
+    arrays = [rng.standard_normal((2, t, 2, 32)).astype(np.float32) for t in (tq, tk, tk)]
+    do = torch.from_numpy(rng.standard_normal((2, tq, 2, 32)).astype(np.float32))
+    grads = []
+    for fn in (lambda q, k, v: port.flash_attention(q, k, v, causal, 64, 64),
+               lambda q, k, v: attention_reference(q, k, v, causal=causal)):
+        qkv = [torch.from_numpy(a).requires_grad_(True) for a in arrays]
+        (fn(*qkv) * do).sum().backward()
+        grads.append([t.grad for t in qkv])
+    for name, got, want in zip(("dq", "dk", "dv"), *grads):
+        err = float((got - want).abs().max())
+        assert err <= 1e-5 * float(want.abs().max()), (name, err)
+
+
+@pytest.mark.parametrize("precision", ["highest", "default"])
+def test_dense_fallback_is_differentiable(precision):
+    """T=96 takes the dense route, whose gradient is plain autograd (the
+    reference's ``_dense_attention``): no backward of the port runs."""
+    (qj, kj, vj), (qt, kt, vt) = _qkv(1, 96, 96, 2, 16, "f32", seed=9)
+    for t in (qt, kt, vt):
+        t.requires_grad_(True)
+    want = jax.grad(lambda q, k, v: ref.flash_attention(q, k, v, True, precision=precision).sum(),
+                    argnums=(0, 1, 2))(qj, kj, vj)
+    before = port.PLAIN_BWD_RUNS.count
+    port.flash_attention(qt, kt, vt, True, precision=precision).sum().backward()
+    assert port.PLAIN_BWD_RUNS.count == before
+    for a, b in zip(want, (qt.grad, kt.grad, vt.grad)):
+        np.testing.assert_allclose(b.numpy(), np.asarray(a), rtol=0, atol=1e-5)
 
 
 @pytest.mark.parametrize("dtype", ["f32", "bf16"])

@@ -5,15 +5,20 @@ Counterpart of ``cekirdekler_tpu/core/cruncher.py``: construct from an
 plus a kernel source (C-subset string, ``@kernel`` Python functions, or a
 mix).  ``AcceleratorType.GPU`` selects the CUDA devices and raises
 :class:`DeviceSelectionError` where there is none.  Of the reference's
-runtime toggles only ``repeat_count`` is ported; the balancer runs as the
-reference's default (adaptive, smoothed).  Enqueue mode and the
-fused/streamed/pipelined tiers wait for later slices.
+runtime toggles ``repeat_count`` and ``enqueue_mode`` (with ``flush`` and
+``barrier``) are ported; the balancer runs as the reference's default
+(adaptive, smoothed).  Enqueue mode runs as the reference's with
+``fused_dispatch=False``: the toggles of tiers that are not ported
+(``fused_dispatch``, ``fused_batch``, ``enqueue_mode_async_enable``,
+``fine_grained_queue_control``) read their value and raise
+:class:`NotPortedError` when set to another.
 """
 
 from __future__ import annotations
 
 from typing import Sequence
 
+from ..errors import NotPortedError
 from ..hardware import AcceleratorType, Devices, devices_for_type
 from ..kernel.registry import KernelProgram, PythonKernel
 from .cores import Cores
@@ -61,6 +66,67 @@ class NumberCruncher:
     def repeat_count(self, v: int) -> None:
         self.cores.repeat_count = max(1, int(v))
 
+    @property
+    def enqueue_mode(self) -> bool:
+        """Dispatch without waiting; readbacks wait for :meth:`flush`, and
+        ranges move only after a :meth:`barrier`.  Leaving enqueue mode
+        flushes."""
+        return self.cores.enqueue_mode
+
+    @enqueue_mode.setter
+    def enqueue_mode(self, v: bool) -> None:
+        was = self.cores.enqueue_mode
+        self.cores.enqueue_mode = bool(v)
+        if was and not v:
+            self.cores.flush()  # leaving enqueue mode syncs results to host
+
+    def flush(self) -> None:
+        """Join deferred enqueue-mode work (reference:
+        flushLastUsedCommandQueue): every deferred readback lands."""
+        self.cores.flush()
+
+    def barrier(self) -> None:
+        """Wait for all device work without host readback; in enqueue mode
+        its fence times arm the next call's rebalance."""
+        self.cores.barrier()
+
+    # toggles of tiers the port does not have yet: their one value
+    @property
+    def fused_dispatch(self) -> bool:
+        return False
+
+    @fused_dispatch.setter
+    def fused_dispatch(self, v: bool) -> None:
+        if v:
+            _not_ported("fused_dispatch=True (fused-iteration dispatch)")
+
+    @property
+    def fused_batch(self) -> int:
+        return 16
+
+    @fused_batch.setter
+    def fused_batch(self, v: int) -> None:
+        if int(v) != 16:
+            _not_ported(f"fused_batch={v} (fused-iteration dispatch)")
+
+    @property
+    def enqueue_mode_async_enable(self) -> bool:
+        return True
+
+    @enqueue_mode_async_enable.setter
+    def enqueue_mode_async_enable(self, v: bool) -> None:
+        if not v:
+            _not_ported("enqueue_mode_async_enable=False")
+
+    @property
+    def fine_grained_queue_control(self) -> bool:
+        return False
+
+    @fine_grained_queue_control.setter
+    def fine_grained_queue_control(self, v: bool) -> None:
+        if v:
+            _not_ported("fine_grained_queue_control=True (queue markers)")
+
     def reset_errors(self) -> None:
         """Re-arm a cruncher after a compute failure."""
         self.number_of_errors_happened = 0
@@ -84,3 +150,8 @@ class NumberCruncher:
 
     def __exit__(self, *exc) -> None:
         self.dispose()
+
+
+def _not_ported(what: str) -> None:
+    raise NotPortedError(f"{what} is not ported to cekirdekler_tpu_torch yet "
+                         "(ROADMAP.md Queue A 3-4)")

@@ -9,9 +9,11 @@ device's busy share of the wall (busy / wall; overlapping activities are
 counted once each, so this is an upper bound on the share), and the top
 device activities.  The busy share is the measure of the host work per
 ``compute()`` that leaves the card idle: a change to the dispatch path
-is read against it.  Needs a CUDA device.  From the repository root::
+is read against it.  ``--readback final`` traces the enqueue-mode view
+(no readback per iteration, one barrier per iteration).  Needs a CUDA
+device.  From the repository root::
 
-    python -m cekirdekler_tpu_torch.tools.profile_main_path [--iters 5]
+    python -m cekirdekler_tpu_torch.tools.profile_main_path [--iters 5] [--readback final]
 """
 
 from __future__ import annotations
@@ -32,6 +34,7 @@ def _device_us(evt) -> float:
 def main(argv: list[str] | None = None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--iters", type=int, default=5)
+    ap.add_argument("--readback", choices=("every", "final"), default="every")
     args = ap.parse_args(argv)
 
     import torch
@@ -44,12 +47,13 @@ def main(argv: list[str] | None = None) -> int:
                            "--format=csv,noheader"], capture_output=True, text=True,
                           check=True, timeout=60).stdout.strip().splitlines()[0]
     for route, hand in (("C-subset", False), ("hand kernel", True)):
-        workloads.run_mandelbrot(lanes, iters=2, warmup=1, use_cuda_kernel=hand)
+        workloads.run_mandelbrot(lanes, iters=2, warmup=1, use_cuda_kernel=hand,
+                                 readback=args.readback)
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
             res = workloads.run_mandelbrot(lanes, iters=args.iters, warmup=0,
-                                           use_cuda_kernel=hand)
+                                           use_cuda_kernel=hand, readback=args.readback)
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - t0) * 1e3
         rows = []
@@ -60,7 +64,7 @@ def main(argv: list[str] | None = None) -> int:
         rows.sort(key=lambda r: -r[1])
         busy_ms = sum(r[1] for r in rows)
         print(json.dumps({
-            "card": card, "route": route, "iters": args.iters,
+            "card": card, "route": route, "readback": args.readback, "iters": args.iters,
             "mpixels_per_sec": res.mpixels_per_sec, "wall_ms": wall_ms,
             "device_busy_ms": busy_ms,
             "device_busy_share": busy_ms / wall_ms if wall_ms else None,

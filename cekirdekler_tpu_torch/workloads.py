@@ -1,11 +1,14 @@
 """Benchmark/validation workloads: mandelbrot, n-body, streaming vector add,
-and the flagship transformer's forward pass and train step.
+saxpy as a ``@kernel`` over the elementwise kernel, and the flagship
+transformer's forward pass and train step.
 
 Counterpart of the main-path subset of ``cekirdekler_tpu/workloads.py``:
 the kernel sources, the host references for self-checking, and the
-runners that feed the two BASELINE metrics (Mpixels/s and load-balance
-convergence iterations).  Runners default to ``all_devices().gpus()`` and
-raise :class:`DeviceSelectionError` where there is no CUDA device; host
+runners that feed the two BASELINE metrics (Mpixels/s, per iteration with
+the image read back or, in enqueue mode, with one readback at the end;
+and load-balance convergence iterations).  Runners default to
+``all_devices().gpus()`` and raise :class:`DeviceSelectionError` where
+there is no CUDA device; host
 lanes run only when the caller selects them.  :func:`run_transformer_forward`
 is the counterpart of ``__graft_entry__.entry()``'s forward step and
 :func:`run_transformer_train` of its dry run's train steps.
@@ -31,6 +34,7 @@ __all__ = [
     "mandelbrot_host",
     "nbody_host_step",
     "mandelbrot_cuda_kernel",
+    "saxpy_kernel",
     "MandelbrotResult",
     "run_mandelbrot",
     "run_nbody",
@@ -116,6 +120,24 @@ def mandelbrot_cuda_kernel():
     return mandelbrot
 
 
+def saxpy_kernel():
+    """``y = y + a·x`` over each launch chunk as a :class:`PythonKernel`
+    whose body is ``ops.elementwise.saxpy``, written in place into the
+    lane's ``y`` buffer: the counterpart of the reference's pattern of a
+    Pallas op plugged into ``compute()`` (``mandelbrot_pallas_kernel``).
+    ``a`` is folded into the elementwise kernel as a constant; on a host
+    lane the plain version runs."""
+    from .ops.elementwise import saxpy
+
+    @kernel(name="saxpy")
+    def saxpy_k(gid, x, y, a=0.0):
+        s = slice(gid.start, gid.stop)
+        saxpy(a, x[s], y[s], out=y[s])
+        return (x, y)
+
+    return saxpy_k
+
+
 def mandelbrot_host(width: int, height: int, x0: float, y0: float, dx: float,
                     dy: float, max_iter: int) -> np.ndarray:
     """Host reference implementation (vectorized numpy) for self-checking."""
@@ -171,32 +193,53 @@ def _default_devices(devices: Devices | None) -> Devices:
 def run_mandelbrot(devices: Devices | None = None, width: int = 2048, height: int = 2048,
                    max_iter: int = 256, iters: int = 12, warmup: int = 2,
                    local_range: int = 256, keep_image: bool = False,
-                   use_cuda_kernel: bool = False) -> MandelbrotResult:
+                   use_cuda_kernel: bool = False, readback: str = "every",
+                   sync_every: int = 1,
+                   cruncher: NumberCruncher | None = None) -> MandelbrotResult:
     """Timed, load-balanced mandelbrot over the selected lanes.
 
     ``use_cuda_kernel`` swaps the kernel-language program for the
-    hand-written CUDA kernel (same name, same compute path).  Every
-    iteration reads the whole image back (the reference's
-    ``readback="every"``; its enqueue-mode readbacks are not ported).
+    hand-written CUDA kernel (same name, same compute path).
+    ``readback="every"`` reads the whole image back in every iteration;
+    ``"final"`` runs in enqueue mode: the image stays on the lanes,
+    iterations sync to a barrier every ``sync_every`` calls (where the
+    balancer may move ranges), and one flush at the end writes the host
+    image (the device-throughput view).  Warm-up dispatches are fenced
+    outside the timed window.  A caller's ``cruncher`` (built from the
+    mandelbrot source) is used as it is and never left in enqueue mode.
     Returns Mpixels/s over the timed iterations, per-iteration walls and
     the balancer's range trajectory (for the convergence metric)."""
-    source = mandelbrot_cuda_kernel() if use_cuda_kernel else MANDELBROT_SRC
-    cr = NumberCruncher(_default_devices(devices), source)
+    if readback not in ("every", "final"):
+        raise ValueError(f"readback must be 'every' or 'final', got {readback!r}")
+    own = cruncher is None
+    if own:
+        source = mandelbrot_cuda_kernel() if use_cuda_kernel else MANDELBROT_SRC
+        cruncher = NumberCruncher(_default_devices(devices), source)
+    cr = cruncher
     n = width * height
     out = ClArray(n, np.float32, name="mandel_out", read=False, write=True, fast=True)
     vals = (-2.0, -1.25, 2.5 / width, 2.5 / height, width, max_iter)
     per_iter: list[float] = []
     ranges: list[list[int]] = []
     benches: list[list[float]] = []
+    final = readback == "final"
     try:
+        if final:
+            cr.enqueue_mode = True
         for k in range(warmup + iters):
             t0 = time.perf_counter()
             out.compute(cr, 7001, "mandelbrot", n, local_range, values=vals)
+            if final and ((k + 1) % sync_every == 0 or k == warmup + iters - 1):
+                cr.barrier()
             dt_ms = (time.perf_counter() - t0) * 1000.0
             ranges.append(cr.ranges_of(7001))
             benches.append(cr.benchmarks_of(7001))
             if k >= warmup:
                 per_iter.append(dt_ms)
+            elif final and k == warmup - 1:
+                cr.barrier()  # warm-up work retires outside the timed window
+        if final:
+            cr.enqueue_mode = False  # the flush: one readback of the image
         mpix = (n * len(per_iter)) / (sum(per_iter) / 1000.0) / 1e6
         return MandelbrotResult(
             mpixels_per_sec=mpix,
@@ -207,7 +250,10 @@ def run_mandelbrot(devices: Devices | None = None, width: int = 2048, height: in
             image=out.host().reshape(height, width).copy() if keep_image else None,
         )
     finally:
-        cr.dispose()
+        if cr.enqueue_mode:
+            cr.enqueue_mode = False
+        if own:
+            cr.dispose()
 
 
 def _converged_at(ranges: list[list[int]], step: int) -> int | None:

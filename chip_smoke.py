@@ -15,12 +15,28 @@ Phases, each of which raises on failure (the script then exits non-zero):
    one PyTorch call computing the same function; the flash backward's two
    kernels at 4x2048x8x64 causal bf16, 4x1024 causal f32 and 4x2048
    non-causal bf16, each kernel timed from a ``torch.profiler`` trace;
+   The elementwise kernel (``ops/elementwise.py``) over 2^24 elements:
+   ``saxpy`` in f32 and bf16, ``map_blocks(torch.maximum)`` and a
+   three-op chain, each bit-exact against its plain version, and one
+   ``block_rows`` other than 256 giving the same result;
 4. main path: with every launch count set to 0, the BASELINE workloads
    through ``ClArray.compute`` on the GPU lane — mandelbrot 2048x2048x256
    by the C-subset route and by the hand kernel (images equal
    ``mandelbrot_host`` exactly), n-body at n = 8192 (the ±0.01 host check),
    streamAdd and saxpy — then the counts are read: every kernel of the path
    must have launched, and the torch lowering must not have run;
+   enqueue mode, each path with the counts set to 0 just before it and read
+   just after: (b) a ``@kernel`` saxpy over the elementwise kernel
+   (``workloads.saxpy_kernel``) at 2^24 floats, 64 calls, ``barrier()``,
+   ``flush()`` — ``y`` equals 64 plain iterations bit for bit, the kernel
+   launched once per ladder chunk per call, ``x`` and ``y`` uploaded once
+   and ``y`` read back once, at the flush; (c) ``run_mandelbrot`` with
+   ``readback="final"`` at 2048x2048x256 by both routes, beside
+   ``readback="every"`` on the same cruncher: images exact and one image
+   D2H per enqueue run; (d) one GPU lane plus one host lane in enqueue
+   mode, mandelbrot 1024x1024x64 with a barrier every 4 calls and the
+   saxpy kernel at 2^20: ranges move only on the first call after a
+   barrier, at least once, and the image and ``y`` stay exact;
 5. balancer: mandelbrot 1024x1024x64 over one GPU lane plus one host lane,
    ten runs of 80 calls at each local range 1024, 512 and the main path's
    256: every first split is the rate-table prior split, every image is
@@ -79,6 +95,9 @@ BALANCE_ITERS = 80
 BALANCE_HOLD = 20
 BALANCE_MIN_STILL = 8
 BALANCE_STEPS = (1024, 512, 256)
+ALPHA = 1.5                # saxpy's constant, folded into the elementwise kernel
+SAXPY_ID = 7005
+ENQUEUE_CALLS = 64
 EMITTER_SOURCE = "cekirdekler_tpu_torch/kernel/cuda_backend.py"
 EMITTER_REPLACES = "cekirdekler_tpu/kernel/pallas_backend.py:404"
 
@@ -88,6 +107,14 @@ __kernel void saxpy(__global float* x, __global float* y, float a) {
     y[i] = a * x[i] + y[i];
 }
 """
+
+
+def chain(a, b):
+    """A three-op chain for the elementwise kernel: compare, where, and an
+    arithmetic branch on each side."""
+    import torch
+
+    return torch.where(a > b, a * b - 1.5, torch.abs(b) * 0.5)
 
 
 def phase(name: str) -> None:
@@ -565,6 +592,202 @@ def check_balancer(ck, wl, lanes, priors: list[float]) -> None:
                              f"{BALANCE_HOLD}: " + "; ".join(failed))
 
 
+def check_elementwise(ew) -> dict:
+    """The elementwise kernel against its plain version on the card over
+    2^24 elements (4 x 64 MiB in f32, beyond the 50 MB L2): saxpy in f32
+    and bf16, ``torch.maximum`` and the three-op ``chain``, bit-exact, and
+    saxpy with ``block_rows=64`` equal to the default's.  Each is timed
+    beside its plain version and the one PyTorch call computing it, against
+    the bytes bound (every input read once, the output written once).
+    Returns the kernels-line row of saxpy in f32, the main path's."""
+    import torch
+
+    g = torch.Generator().manual_seed(4321)
+    n = 1 << 24
+    x, y = (torch.randn(n, generator=g).cuda() for _ in range(2))
+    x16, y16 = x.to(torch.bfloat16), y.to(torch.bfloat16)
+
+    def saxpy_plain(a, b):
+        return ew.map_blocks_plain(lambda xb, yb: yb + ALPHA * xb, a, b)
+
+    cases = (  # label, kernel, plain, library, bytes per element
+        ("saxpy f32", lambda: ew.saxpy(ALPHA, x, y), lambda: saxpy_plain(x, y),
+         lambda: torch.add(y, x, alpha=ALPHA), 12),
+        ("saxpy bf16", lambda: ew.saxpy(ALPHA, x16, y16), lambda: saxpy_plain(x16, y16),
+         lambda: torch.add(y16, x16, alpha=ALPHA), 6),
+        ("maximum f32", lambda: ew.map_blocks(torch.maximum, x, y),
+         lambda: ew.map_blocks_plain(torch.maximum, x, y), lambda: torch.maximum(x, y), 12),
+        ("chain f32", lambda: ew.map_blocks(chain, x, y),
+         lambda: ew.map_blocks_plain(chain, x, y), None, 12),
+    )
+    row = None
+    for label, kern, plain, library, per_elem in cases:
+        got, want = kern(), plain()
+        torch.cuda.synchronize()
+        err = float((got.float() - want.float()).abs().max())
+        if not torch.equal(got, want):
+            raise AssertionError(f"elementwise kernel vs plain ({label}): max abs err {err}")
+        r = dict(max_abs_err=err, ms=cuda_ms(kern, 20), plain_ms=cuda_ms(plain, 5),
+                 library_ms=None if library is None else cuda_ms(library, 20),
+                 bound_ms=float(per_elem) * n / HBM_BYTES_PER_S * 1e3, bound_by="bytes")
+        lib = "-" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
+        print(f"elementwise {label} 2^24: kernel {r['ms']:.4f} ms  plain {r['plain_ms']:.4f} ms"
+              f"  library {lib} ms  bound {r['bound_ms']:.4f} ms (bytes)  max_abs_err {err}")
+        row = row or r
+    tall = ew.saxpy(ALPHA, x, y, block_rows=64)
+    if not torch.equal(tall, ew.saxpy(ALPHA, x, y)):
+        raise AssertionError("elementwise saxpy with block_rows=64 differs from block_rows=256")
+    return row
+
+
+def saxpy_reference(y0: np.ndarray, x: np.ndarray, calls: int) -> np.ndarray:
+    """``calls`` plain iterations of ``y = y + ALPHA * x`` (the plain
+    version of ``ops.elementwise.saxpy`` on CPU tensors)."""
+    import torch
+
+    from cekirdekler_tpu_torch.ops import elementwise as ew
+
+    xt, yt = torch.from_numpy(x), torch.from_numpy(y0.copy())
+    for _ in range(calls):
+        yt = ew.map_blocks_plain(lambda xb, yb: yb + ALPHA * xb, xt, yt)
+    return yt.numpy()
+
+
+def enqueue_saxpy(ck, wl, lanes, n: int, calls: int, sync_every: int = 0,
+                  seed: int = 5) -> dict:
+    """``calls`` enqueue-mode calls of the ``@kernel`` saxpy over the
+    elementwise kernel through ``ClArray.compute`` on ``lanes`` (local
+    range 256; ``y`` partial-read), a barrier every ``sync_every`` calls
+    and at the end, then the flush.  Returns the host ``y``, its plain
+    reference, the ranges per call, each lane's transfer counts before
+    and after the flush, whether the host ``y`` was untouched before the
+    flush, each call's host wall (ms) and the last barrier's (ms)."""
+    rng = np.random.default_rng(seed)
+    xh = rng.standard_normal(n).astype(np.float32)
+    y0 = rng.standard_normal(n).astype(np.float32)
+    x = ck.ClArray(xh.copy(), name="x", read_only=True, fast=True)
+    y = ck.ClArray(y0.copy(), name="y", partial_read=True, fast=True)
+    group = x.next_param(y)
+    ranges, call_ms = [], []
+    with ck.NumberCruncher(lanes, wl.saxpy_kernel()) as cr:
+        cr.enqueue_mode = True
+        for k in range(calls):
+            t0 = time.perf_counter()
+            group.compute(cr, SAXPY_ID, "saxpy", n, 256, values=(ALPHA,))
+            call_ms.append((time.perf_counter() - t0) * 1e3)
+            ranges.append(cr.ranges_of(SAXPY_ID))
+            if sync_every and (k + 1) % sync_every == 0 and k + 1 < calls:
+                cr.barrier()
+        t0 = time.perf_counter()
+        cr.barrier()
+        barrier_ms = (time.perf_counter() - t0) * 1e3
+        before = [dict(w.transfers) for w in cr.cores.workers]
+        untouched = bool(np.array_equal(y.host(), y0))
+        cr.enqueue_mode = False  # the flush
+        after = [dict(w.transfers) for w in cr.cores.workers]
+    return dict(y=y.host().copy(), want=saxpy_reference(y0, xh, calls), ranges=ranges,
+                before=before, after=after, untouched=untouched, call_ms=call_ms,
+                barrier_ms=barrier_ms)
+
+
+def gate_single_lane_transfers(run: dict) -> None:
+    """On one lane, enqueue mode uploads ``x`` and ``y`` once and reads
+    ``y`` back once, at the flush: a D2H before it, or a repeated upload,
+    fails."""
+    once = {("h2d", "x"): 1, ("h2d", "y"): 1}
+    if run["before"] != [once] or not run["untouched"]:
+        raise AssertionError(f"enqueue saxpy: transfers before the flush {run['before']}, want "
+                             f"{[once]} and the host y untouched ({run['untouched']})")
+    if run["after"] != [{**once, ("d2h", "y"): 1}]:
+        raise AssertionError(f"enqueue saxpy: transfers after the flush {run['after']}, want "
+                             "one D2H of y")
+
+
+def gate_exact(got: np.ndarray, want: np.ndarray, what: str) -> None:
+    if not np.array_equal(got, want):
+        bad = int((got != want).sum())
+        raise AssertionError(f"{what}: differs from its reference at {bad} elements")
+
+
+def gate_moves(ranges: list[list[int]], sync_every: int) -> int:
+    """Ranges may move only on the first call after a barrier (calls
+    ``sync_every``, ``2 * sync_every``, ...); returns the number of moves."""
+    moves = [k for k in range(1, len(ranges)) if ranges[k] != ranges[k - 1]]
+    early = [k for k in moves if k % sync_every != 0]
+    if early:
+        raise AssertionError(f"ranges moved between barriers at calls {early}: {ranges}")
+    return len(moves)
+
+
+def check_enqueue_saxpy(ck, wl, ew, gpus, reg) -> int:
+    """Phase (b): returns the elementwise kernel's launches on that path."""
+    n = 1 << 24
+    ew.LAUNCHES.reset()
+    ew.PLAIN_RUNS.reset()
+    reg.reset_launch_counts()
+    run = enqueue_saxpy(ck, wl, gpus.subset(1), n, ENQUEUE_CALLS)
+    launches, routes = ew.LAUNCHES.count, dict(reg.launch_counts)
+    plain = ew.PLAIN_RUNS.by_key.get("cuda", 0)  # the reference's runs are on the CPU
+    ms = run["call_ms"]
+    print(f"enqueue saxpy 2^24 x {ENQUEUE_CALLS} calls (host clock): first call {ms[0]:.3f} ms, "
+          f"calls 2-{ENQUEUE_CALLS} mean {np.mean(ms[1:]):.4f} ms, median "
+          f"{np.median(ms[1:]):.4f} ms, then the barrier {run['barrier_ms']:.3f} ms; "
+          f"elementwise launches {launches}, plain runs on the card {plain}; routes {routes}; "
+          f"transfers {run['after']}")
+    gate_single_lane_transfers(run)
+    gate_exact(run["y"], run["want"], f"enqueue saxpy y after {ENQUEUE_CALLS} calls")
+    from cekirdekler_tpu_torch.core.worker import _ladder
+
+    want = len(_ladder(n, 256)) * ENQUEUE_CALLS
+    if launches != want or plain != 0 or routes["python"] != ENQUEUE_CALLS:
+        raise AssertionError(f"enqueue saxpy launched the elementwise kernel {launches} times "
+                             f"(want {want}), plain runs on the card {plain}, routes {routes}")
+    return launches
+
+
+def check_enqueue_mandelbrot(ck, wl, gpus, card: str, ref_img: np.ndarray) -> dict:
+    """Phase (c): ``readback="final"`` beside ``"every"`` by both routes on
+    one cruncher each, against ``ref_img`` (``mandelbrot_host`` at
+    2048x2048x256); returns Mpixels/s by run."""
+    W = H = 2048
+    out = {}
+    for label, source in (("C-subset", wl.MANDELBROT_SRC),
+                          ("hand kernel", wl.mandelbrot_cuda_kernel())):
+        with ck.NumberCruncher(gpus.subset(1), source) as cr:
+            w = cr.cores.workers[0]
+            for readback in ("final", "every"):
+                d2h = w.transfers["d2h", "mandel_out"]
+                r = wl.run_mandelbrot(None, W, H, 256, local_range=256, keep_image=True,
+                                      readback=readback, cruncher=cr)
+                d2h = w.transfers["d2h", "mandel_out"] - d2h
+                gate_exact(r.image.ravel(), ref_img, f"mandelbrot ({label}, {readback})")
+                if readback == "final" and d2h != 1:
+                    raise AssertionError(f"mandelbrot ({label}) readback='final' read the image "
+                                         f"back {d2h} times, want 1")
+                out[f"{label} {readback}"] = r.mpixels_per_sec
+                print(f"mandelbrot 2048x2048x256 ({label}, readback={readback!r}): "
+                      f"{r.mpixels_per_sec:.1f} Mpixels/s, image D2H {d2h} on {card}")
+    return out
+
+
+def check_enqueue_mixed(ck, wl, lanes) -> None:
+    """Phase (d): one GPU lane plus one host lane in enqueue mode."""
+    ref_img = wl.mandelbrot_host(1024, 1024, -2.0, -1.25, 2.5 / 1024, 2.5 / 1024, 64)
+    r = wl.run_mandelbrot(lanes, 1024, 1024, 64, iters=24, warmup=0, local_range=256,
+                          keep_image=True, readback="final", sync_every=4)
+    gate_exact(r.image.ravel(), ref_img, "GPU + host enqueue mandelbrot")
+    moves = gate_moves(r.ranges_per_iter, 4)
+    print(f"GPU + host enqueue mandelbrot 1024x1024x64, barrier every 4: host-lane range per "
+          f"call {[x[1] for x in r.ranges_per_iter]} ({moves} moves)")
+    run = enqueue_saxpy(ck, wl, lanes, 1 << 20, 32, sync_every=4)
+    gate_exact(run["y"], run["want"], "GPU + host enqueue saxpy y")
+    saxpy_moves = gate_moves(run["ranges"], 4)
+    print(f"GPU + host enqueue saxpy 2^20 x 32, barrier every 4: host-lane range per call "
+          f"{[x[1] for x in run['ranges']]} ({saxpy_moves} moves); transfers {run['after']}")
+    if moves + saxpy_moves == 0:
+        raise AssertionError("GPU + host enqueue mode: no barrier moved a range")
+
+
 def main() -> int:
     import torch
 
@@ -581,6 +804,7 @@ def main() -> int:
     from cekirdekler_tpu_torch.hardware import rate_prior
     from cekirdekler_tpu_torch.kernel import build, cuda_backend, lang, registry
     from cekirdekler_tpu_torch.kernel.codegen import build_kernel_fn
+    from cekirdekler_tpu_torch.ops import elementwise as ew_op
     from cekirdekler_tpu_torch.ops import flash_attention as fa_op
     from cekirdekler_tpu_torch.ops import mandelbrot as mandel_op
 
@@ -613,6 +837,11 @@ def main() -> int:
         if reason is not None:
             raise RuntimeError(f"{name} is outside the emitter subset: {reason}")
         jobs[f"emit:{name}"] = (cuda_backend.emit_source(kdef), f"ck_{name}")
+    f32, bf16 = torch.float32, torch.bfloat16
+    for label, fn, dt in (("saxpy f32", lambda x, y: y + ALPHA * x, f32),
+                          ("saxpy bf16", lambda x, y: y + ALPHA * x, bf16),
+                          ("maximum f32", torch.maximum, f32), ("chain f32", chain, f32)):
+        jobs[f"elementwise:{label}"] = (ew_op.kernel_source(fn, (dt, dt)), "elementwise")
     t0 = time.perf_counter()
     with ThreadPoolExecutor(max_workers=len(jobs)) as pool:
         futs = {k: pool.submit(build.build_library, src, nm) for k, (src, nm) in jobs.items()}
@@ -732,6 +961,7 @@ def main() -> int:
                      (6 + 3) * 4.0 * nb / HBM_BYTES_PER_S) * 1e3,
         bound_by="operations")
     del pos, v_k, v_p
+    rows["elementwise"] = check_elementwise(ew_op)
     rows["flash_attention"] = check_flash(fa_op, dev)
     rows["flash_attention_bwd_dq"], rows["flash_attention_bwd_dkv"] = check_flash_bwd(fa_op, dev)
     for name, r in rows.items():
@@ -784,6 +1014,31 @@ def main() -> int:
     rows["emitter:saxpy"]["launches"] = counts["saxpy"]
     rows["mandelbrot"]["launches"] = counts["mandelbrot.cu"]
 
+    phase("enqueue saxpy through compute() (GPU lane)")
+    rows["elementwise"]["launches"] = check_enqueue_saxpy(ck, wl, ew_op, gpus, registry)
+
+    phase("enqueue mandelbrot, readback='final' (GPU lane)")
+    for counter in (cuda_backend.LAUNCHES, mandel_op.LAUNCHES):
+        counter.reset()
+    registry.reset_launch_counts()
+    res.update(check_enqueue_mandelbrot(ck, wl, gpus, card, ref_img))
+    seen = (cuda_backend.LAUNCHES.by_key.get("mandelbrot", 0), mandel_op.LAUNCHES.count,
+            dict(registry.launch_counts))
+    print(f"launch counts (emitted mandelbrot, mandelbrot.cu, routes): {seen}")
+    if not (seen[0] > 0 and seen[1] > 0 and seen[2]["torch"] == 0):
+        raise AssertionError(f"enqueue mandelbrot left the kernels: {seen}")
+
+    phase("enqueue mode on a GPU + host lane")
+    cuda_backend.LAUNCHES.reset()
+    ew_op.LAUNCHES.reset()
+    ew_op.PLAIN_RUNS.reset()
+    check_enqueue_mixed(ck, wl, gpus.subset(1) + ck.all_devices().cpus(1))
+    seen = (cuda_backend.LAUNCHES.by_key.get("mandelbrot", 0), ew_op.LAUNCHES.count,
+            dict(ew_op.PLAIN_RUNS.by_key))
+    print(f"launch counts (emitted mandelbrot, elementwise, elementwise plain runs): {seen}")
+    if not (seen[0] > 0 and seen[1] > 0 and "cuda" not in seen[2]):
+        raise AssertionError(f"GPU + host enqueue mode left the kernels on the GPU lane: {seen}")
+
     phase("balancer (GPU + host lane)")
     check_balancer(ck, wl, gpus.subset(1) + ck.all_devices().cpus(1),
                    [rate_prior(kind), rate_prior("cpu")])
@@ -803,6 +1058,8 @@ def main() -> int:
         "emitter:nBody": ("cuda", EMITTER_SOURCE, EMITTER_REPLACES),
         "mandelbrot": ("cuda", "cekirdekler_tpu_torch/csrc/mandelbrot.cu",
                        "cekirdekler_tpu/ops/mandelbrot.py:81"),
+        "elementwise": ("cuda", "cekirdekler_tpu_torch/csrc/elementwise.cu",
+                        "cekirdekler_tpu/ops/elementwise.py:27"),
         "flash_attention": ("cuda", "cekirdekler_tpu_torch/csrc/flash_attention.cu",
                             "cekirdekler_tpu/ops/flash_attention.py:351"),
         "flash_attention_bwd_dq": ("cuda", "cekirdekler_tpu_torch/csrc/flash_attention_bwd.cu",

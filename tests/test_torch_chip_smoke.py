@@ -1,4 +1,5 @@
-"""The balancer gate and the flash bounds of ``chip_smoke.py`` on the CPU.
+"""The balancer gate, the flash bounds and the enqueue gates of
+``chip_smoke.py`` on the CPU.
 
 ``chip_smoke.check_balancer`` needs the card; what it decides from a run's
 range trajectory does not.  ``tail_moves`` is held against hand-made
@@ -6,6 +7,9 @@ trajectories, and the gate against the modelled mixed fleet of
 ``tests/test_torch_balance.py``: the port's balancer passes it, and the
 same balancer with its drain slowed (damping pinned at 0.02, no undamped
 jump) fails it, although ``workloads._converged_at`` calls both settled.
+The enqueue phases' gates run their phases on host lanes at a small size:
+they pass the port, and fail a modelled premature D2H (a barrier that
+reads back) and a modelled lost update (a move without the flush).
 """
 
 from __future__ import annotations
@@ -121,3 +125,95 @@ def test_flash_bwd_bound_of_a_short_sequence_is_bytes():
     assert by == "bytes"
     nbytes = 2 * 8 * 4 * 16 * 8 * 64 + 2 * 4 * 4 * 8 * 16
     assert ms == pytest.approx(nbytes / chip_smoke.HBM_BYTES_PER_S * 1e3)
+
+
+# -- the enqueue phases' gates, on host lanes ------------------------------
+
+def _lanes(n: int):
+    import cekirdekler_tpu_torch as ck
+
+    return ck.all_devices().cpus(n)
+
+
+def test_enqueue_saxpy_passes_its_gates_on_one_lane():
+    import cekirdekler_tpu_torch as ck
+    from cekirdekler_tpu_torch import workloads as wl
+
+    run = chip_smoke.enqueue_saxpy(ck, wl, _lanes(1), 1 << 12, 16)
+    chip_smoke.gate_single_lane_transfers(run)
+    chip_smoke.gate_exact(run["y"], run["want"], "y")
+
+
+def test_the_transfer_gate_fails_on_a_premature_d2h(monkeypatch):
+    """A barrier that reads ``y`` back early (a modelled premature D2H)."""
+    import cekirdekler_tpu_torch as ck
+    from cekirdekler_tpu_torch import workloads as wl
+    from cekirdekler_tpu_torch.core.cores import Cores
+
+    barrier = Cores.barrier
+
+    def reading_barrier(self):
+        self.flush()
+        barrier(self)
+
+    monkeypatch.setattr(Cores, "barrier", reading_barrier)
+    run = chip_smoke.enqueue_saxpy(ck, wl, _lanes(1), 1 << 12, 16)
+    chip_smoke.gate_exact(run["y"], run["want"], "y")
+    with pytest.raises(AssertionError, match="before the flush"):
+        chip_smoke.gate_single_lane_transfers(run)
+
+
+def _moving_run(monkeypatch):
+    """The saxpy phase on two host lanes whose lane 0 retires late at every
+    barrier, so ranges move."""
+    import time
+
+    import cekirdekler_tpu_torch as ck
+    from cekirdekler_tpu_torch import workloads as wl
+    from cekirdekler_tpu_torch.core.worker import Worker
+
+    fence = Worker.fence
+
+    def late(self):
+        fence(self)
+        if self.index == 0:
+            time.sleep(0.03)
+
+    monkeypatch.setattr(Worker, "fence", late)
+    return chip_smoke.enqueue_saxpy(ck, wl, _lanes(2), 1 << 14, 16, sync_every=4)
+
+
+def test_the_mixed_fleet_gates_pass_a_moving_run(monkeypatch):
+    run = _moving_run(monkeypatch)
+    assert chip_smoke.gate_moves(run["ranges"], 4) >= 1
+    chip_smoke.gate_exact(run["y"], run["want"], "y")
+
+
+def test_the_exactness_gate_fails_on_a_modelled_lost_update(monkeypatch):
+    """A move that resets upload coverage without landing the deferred
+    readbacks first: the lane that takes over a region re-uploads a stale
+    host copy, and ``y`` loses those updates."""
+    from cekirdekler_tpu_torch.core.cores import Cores
+
+    def reset_only(self):
+        for w in self.workers:
+            w.reset_coverage()
+
+    monkeypatch.setattr(Cores, "_flush_and_reset_coverage", reset_only)
+    run = _moving_run(monkeypatch)
+    assert chip_smoke.gate_moves(run["ranges"], 4) >= 1
+    with pytest.raises(AssertionError, match="differs from its reference"):
+        chip_smoke.gate_exact(run["y"], run["want"], "y")
+
+
+@pytest.mark.parametrize("ranges, moves", [
+    ([[8, 8]] * 4 + [[6, 10]] * 4 + [[4, 12]] * 4, 2),
+    ([[8, 8]] * 12, 0),
+])
+def test_gate_moves_counts_moves_after_barriers(ranges, moves):
+    assert chip_smoke.gate_moves(ranges, 4) == moves
+
+
+def test_gate_moves_fails_a_move_between_barriers():
+    with pytest.raises(AssertionError, match="between barriers at calls \\[5\\]"):
+        chip_smoke.gate_moves([[8, 8]] * 5 + [[6, 10]] * 3, 4)

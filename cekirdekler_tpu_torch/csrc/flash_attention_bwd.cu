@@ -1,10 +1,11 @@
 // Flash-attention backward on Hopper: the FlashAttention-2 gradients of
 // tiled stable-softmax attention, causal or full, as two kernels.
 //
-// Replaces the TPU kernels of cekirdekler_tpu/ops/flash_attention.py::_flash_backward:
-// the dq call (body _fa_bwd_dq_kernel, grid (B*H, q-blocks, k-blocks minor))
-// and the dk/dv call (body _fa_bwd_dkv_kernel, grid (B*H, k-blocks,
-// q-blocks minor)).  There the minor grid axis runs in order on one core
+// Replaces the TPU kernels of cekirdekler_tpu/ops/flash_attention.py::_flash_backward
+// and of its ring-attention form flash_attention_bwd_parts (the same
+// bodies with parts=True): the dq call (body _fa_bwd_dq_kernel, grid
+// (B*H, q-blocks, k-blocks minor)) and the dk/dv call (body
+// _fa_bwd_dkv_kernel, grid (B*H, k-blocks, q-blocks minor)).  There the minor grid axis runs in order on one core
 // and carries its f32 sums in VMEM scratch.  Here blocks run in parallel
 // in no order, so one CTA owns one output tile and walks the minor axis
 // itself in a loop, the sums in registers:
@@ -32,6 +33,14 @@
 // so their p, and so their ds, is exactly 0; a causal row that sees no key
 // of a tile gets p = exp(NEG - lse) = 0 as well, so the dk/dv loop may
 // start at any query tile at or before the first that sees the key tile.
+//
+// The ring's form passes the global positions of query 0 and key 0,
+// q_pos0 and k_pos0 (both 0 on one card): key j is visible to query i
+// where k_pos0 + j <= q_pos0 + i, the loop limits follow, and a wholly
+// masked block runs no tile and stores zero gradients.  Its gradients are
+// f32 whatever the input type: the ring sums one partial per step and
+// rounds once at the end.  It runs at "highest", so its bound is the FP32
+// peak.
 //
 // Bound on this card: operations.  Causal attention at the model's shapes
 // (B=4, T=2048, H=8, D=64) needs 10*D operations per live (query, key)
@@ -138,7 +147,8 @@ __global__ void __launch_bounds__(THREADS)
 fa_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                  const T* __restrict__ dO, const float* __restrict__ lse,
                  const float* __restrict__ delta, void* __restrict__ dq, int H, int Tq, int Tk,
-                 int D, Strides st, float scale, int causal, int dq_bf16, int round_ops) {
+                 int D, Strides st, float scale, int causal, int dq_bf16, int round_ops,
+                 int q_pos0, int k_pos0) {
   extern __shared__ float smem[];
   const int DP = D + 1;                // padded rows: column reads hit distinct banks
   float* Qs = smem;                    // [BM][DP]
@@ -174,7 +184,8 @@ fa_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
     for (int j = 0; j < NC; ++j) acc[i][j] = 0.0f;
 
   const int q_last = min(q0 + BM, Tq) - 1;
-  const int n_end = causal ? min(Tk, q_last + 1) : Tk;
+  // one past the last key the tile's last query can see (0: a dead block)
+  const int n_end = causal ? max(0, min(Tk, q_pos0 + q_last - k_pos0 + 1)) : Tk;
   for (int n0 = 0; n0 < n_end; n0 += BN) {
     __syncthreads();  // the previous tile's readers of Ks, Vs and DSs are done
     load_tile(Ks, DP, kb, st.kst, n0, Tk, D);
@@ -192,7 +203,7 @@ fa_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
         const int kp = n0 + c;
         float sv;
         if (kp >= Tk) sv = -INFINITY;
-        else if (causal && kp > q0 + r) sv = NEG;
+        else if (causal && k_pos0 + kp > q_pos0 + q0 + r) sv = NEG;
         else sv = s[i][j] * scale;
         const float p = expf(sv - lse_s[r]);
         const float ds = p * (dp[i][j] - dlt_s[r]) * scale;
@@ -228,7 +239,8 @@ fa_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __r
                   const T* __restrict__ dO, const float* __restrict__ lse,
                   const float* __restrict__ delta, void* __restrict__ dk,
                   void* __restrict__ dv, int H, int Tq, int Tk, int D, Strides st,
-                  float scale, int causal, int dk_bf16, int dv_bf16, int round_ops) {
+                  float scale, int causal, int dk_bf16, int dv_bf16, int round_ops,
+                  int q_pos0, int k_pos0) {
   extern __shared__ float smem[];
   const int DP = D + 1;
   float* Ks = smem;                    // [BN][DP]
@@ -260,8 +272,10 @@ fa_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __r
 #pragma unroll
     for (int j = 0; j < NC; ++j) dk_acc[i][j] = dv_acc[i][j] = 0.0f;
 
-  // the first query tile that holds a query at or after key n0
-  const int m_start = causal ? (n0 / BM) * BM : 0;
+  // the first query tile that holds a query at or after key n0 (at or past
+  // Tq: a dead block)
+  const int first = k_pos0 + n0 - q_pos0;
+  const int m_start = causal && first > 0 ? (first / BM) * BM : 0;
   for (int m0 = m_start; m0 < Tq; m0 += BM) {
     __syncthreads();  // the previous tile's readers of Qs, dOs, Ps and DSs are done
     load_tile(Qs, DP, qb, st.qst, m0, Tq, D);
@@ -285,7 +299,7 @@ fa_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __r
         const int kp = n0 + c;
         float sv;
         if (kp >= Tk) sv = -INFINITY;
-        else if (causal && kp > m0 + r) sv = NEG;
+        else if (causal && k_pos0 + kp > q_pos0 + m0 + r) sv = NEG;
         else sv = s[i][j] * scale;
         const float p = expf(sv - lse_s[r]);
         const float ds = p * (dp[i][j] - dlt_s[r]) * scale;
@@ -332,6 +346,7 @@ struct Args {
   Strides st;
   float scale;
   int causal, bf16_0, bf16_1, round_ops;
+  int q_pos0, k_pos0;
   cudaStream_t stream;
 };
 
@@ -346,7 +361,7 @@ int launch_dq(const Args& a) {
   fa_bwd_dq_kernel<T, NC><<<grid, THREADS, smem, a.stream>>>(
       static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
       static_cast<const T*>(a.dO), a.lse, a.delta, a.g0, a.H, a.Tq, a.Tk, a.D, a.st, a.scale,
-      a.causal, a.bf16_0, a.round_ops);
+      a.causal, a.bf16_0, a.round_ops, a.q_pos0, a.k_pos0);
   return (int)cudaGetLastError();
 }
 
@@ -361,7 +376,7 @@ int launch_dkv(const Args& a) {
   fa_bwd_dkv_kernel<T, NC><<<grid, THREADS, smem, a.stream>>>(
       static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
       static_cast<const T*>(a.dO), a.lse, a.delta, a.g0, a.g1, a.H, a.Tq, a.Tk, a.D, a.st,
-      a.scale, a.causal, a.bf16_0, a.bf16_1, a.round_ops);
+      a.scale, a.causal, a.bf16_0, a.bf16_1, a.round_ops, a.q_pos0, a.k_pos0);
   return (int)cudaGetLastError();
 }
 
@@ -387,8 +402,9 @@ int launch_checked(const Args& a, int in_bf16) {
 // q, k, v, dO: [B, T, H, D] with unit stride over D and the given (batch,
 // time, head) strides in elements, all of one type (f32, or bf16 when
 // in_bf16); lse, delta: contiguous [B*H, Tq] f32.  dq: contiguous
-// [B, Tq, H, D], bf16 when dq_bf16 else f32.  Returns a cudaError_t code
-// (0 on success).
+// [B, Tq, H, D], bf16 when dq_bf16 else f32.  q_pos0 / k_pos0: global
+// positions of query 0 and key 0 for the causal mask (0 and 0 on one
+// card).  Returns a cudaError_t code (0 on success).
 extern "C" int flash_attention_bwd_dq(const void* q, const void* k, const void* v,
                                       const void* dO, const float* lse, const float* delta,
                                       void* dq, int B, int H, int Tq, int Tk, int D,
@@ -397,10 +413,11 @@ extern "C" int flash_attention_bwd_dq(const void* q, const void* k, const void* 
                                       long long vsb, long long vst, long long vsh,
                                       long long osb, long long ost, long long osh,
                                       float scale, int causal, int in_bf16, int dq_bf16,
-                                      int round_ops, void* stream) {
+                                      int round_ops, int q_pos0, int k_pos0, void* stream) {
   const Args a{q, k, v, dO, lse, delta, dq, nullptr, B, H, Tq, Tk, D,
                {qsb, qst, qsh, ksb, kst, ksh, vsb, vst, vsh, osb, ost, osh},
-               scale, causal, dq_bf16, 0, round_ops, static_cast<cudaStream_t>(stream)};
+               scale, causal, dq_bf16, 0, round_ops, q_pos0, k_pos0,
+               static_cast<cudaStream_t>(stream)};
   return launch_checked<true>(a, in_bf16);
 }
 
@@ -414,9 +431,11 @@ extern "C" int flash_attention_bwd_dkv(const void* q, const void* k, const void*
                                        long long vsb, long long vst, long long vsh,
                                        long long osb, long long ost, long long osh,
                                        float scale, int causal, int in_bf16, int dk_bf16,
-                                       int dv_bf16, int round_ops, void* stream) {
+                                       int dv_bf16, int round_ops, int q_pos0, int k_pos0,
+                                       void* stream) {
   const Args a{q, k, v, dO, lse, delta, dk, dv, B, H, Tq, Tk, D,
                {qsb, qst, qsh, ksb, kst, ksh, vsb, vst, vsh, osb, ost, osh},
-               scale, causal, dk_bf16, dv_bf16, round_ops, static_cast<cudaStream_t>(stream)};
+               scale, causal, dk_bf16, dv_bf16, round_ops, q_pos0, k_pos0,
+               static_cast<cudaStream_t>(stream)};
   return launch_checked<false>(a, in_bf16);
 }

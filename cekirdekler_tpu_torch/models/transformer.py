@@ -23,8 +23,10 @@ of ``jax.checkpoint``).  f32 products assume TF32 off on the card,
 PyTorch's default.
 
 Not covered yet, each refused with :class:`NotPortedError`: experts
-(``n_experts > 0``), pipeline stages (``pp_stages > 1``), ring and Ulysses
-attention, and a mesh.
+(``n_experts > 0``), pipeline stages (``pp_stages > 1``), and the mesh
+paths: ``attention="ring"``/``"ulysses"`` inside the model and a mesh
+(GSPMD placement over dp/fsdp/tp).  Ring and Ulysses attention themselves
+are ported (``parallel/attention.py``).
 """
 
 from __future__ import annotations
@@ -76,8 +78,10 @@ class TransformerConfig:
 def _refuse_mesh(mesh) -> None:
     if mesh is not None:
         raise NotPortedError(
-            "a mesh: sharded execution is not ported yet (ROADMAP Queue A, attention "
-            "stack: parallel/ on torch.distributed)")
+            "a mesh: the transformer's mesh paths (GSPMD placement over dp/fsdp/tp, "
+            "attention='ring'/'ulysses' inside the model) are not ported yet (ROADMAP "
+            "Queue A 9); parallel.ring_attention_sharded and ulysses_attention_sharded run "
+            "attention alone over an sp mesh")
 
 
 def _check_supported(c: TransformerConfig) -> None:
@@ -91,8 +95,9 @@ def _check_supported(c: TransformerConfig) -> None:
             "attention stack: parallel/pipeline_parallel, needs more than one card)")
     if c.attention in ("ring", "ulysses"):
         raise NotPortedError(
-            f"attention={c.attention!r}: ring and Ulysses attention are not ported yet "
-            "(ROADMAP Queue B 6-7, need more than one card)")
+            f"attention={c.attention!r}: the transformer's mesh paths are not ported yet "
+            "(ROADMAP Queue A 9); parallel.ring_attention_sharded and "
+            "ulysses_attention_sharded run attention alone over an sp mesh")
     if c.attention not in ("dense", "flash"):
         raise ValueError(f"unknown attention {c.attention!r}")
 

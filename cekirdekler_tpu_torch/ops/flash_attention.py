@@ -1,16 +1,19 @@
 """Flash attention, forward and backward: the hand-written CUDA kernels,
 their plain PyTorch versions, and the reference's block policies.
 
-Counterpart of the single-card half of ``cekirdekler_tpu/ops/flash_attention.py``:
+Counterpart of ``cekirdekler_tpu/ops/flash_attention.py``:
 ``_flash_forward`` (the Pallas kernel ``_fa_kernel`` with ``parts=False``),
 ``_flash_backward`` (``_fa_bwd_dq_kernel`` and ``_fa_bwd_dkv_kernel``), the
 ``_flash_attention_tiled`` custom_vjp (here :class:`_FlashAttention`, a
-``torch.autograd.Function``) and ``flash_attention``.  The kernels
+``torch.autograd.Function``), ``flash_attention``, and the ring-attention
+forms ``flash_attention_parts`` and ``flash_attention_bwd_parts`` (the
+same kernels with ``parts=True``).  The kernels
 (``csrc/flash_attention.cu``, ``csrc/flash_attention_bwd.cu``) take their
 own tile sizes; ``block_q`` and ``block_k`` keep the reference's contract
-(:func:`_blocks_for` degrades them by gcd and raises on degenerate tiles)
-and size the plain versions' blocks, so on the CPU the plain versions run
-the reference's own blocking.
+(:func:`_blocks_for` degrades them by gcd and raises on degenerate tiles;
+the parts forms take ``min(block, T)`` and raise where it does not divide
+T) and size the plain versions' blocks, so on the CPU the plain versions
+run the reference's own blocking.
 
 Numerics kept from the reference:
 
@@ -27,11 +30,19 @@ Numerics kept from the reference:
 - the output has q's dtype before the cast, and the gradients the
   dtypes of their primals.
 
-The ring forms (``flash_attention_parts``, ``flash_attention_bwd_parts``)
-and the BlockTuner are not ported yet (ROADMAP Queue B 6-7, Queue A).  A
-default-argument call takes :func:`default_blocks`, which is the pair the
-reference's tuner gives cold, and both gate on the same >= 128 divisor, so
-flash against dense is decided as in the reference.
+The parts forms take the global positions of the first query and key
+(``q_pos0``, ``k_pos0``) for the causal mask, return f32 whatever the input
+type, and do not stream-cast.  Where the reference leaves a tiling-dependent
+state in a row that sees no key of a live block (running max ``_NEG``,
+``p = exp(0) = 1`` for every masked key), the port keeps the empty state
+(max ``_NEG``, denominator 0, accumulator 0); every row that sees a key
+gets the reference's values, and the ring weights such a row out either
+way (ROADMAP Queue C, reference state 9).
+
+The BlockTuner is not ported (ROADMAP Queue A).  A default-argument call
+takes :func:`default_blocks`, which is the pair the reference's tuner
+gives cold, and both gate on the same >= 128 divisor, so flash against
+dense is decided as in the reference.
 """
 
 from __future__ import annotations
@@ -47,8 +58,11 @@ from ..kernel.build import LaunchCounter, build_library
 from ..parallel.attention import attention_reference
 
 __all__ = ["flash_attention", "flash_attention_plain", "flash_attention_bwd_plain",
-           "auto_block", "default_blocks", "LAUNCHES", "BWD_LAUNCHES", "PLAIN_RUNS",
-           "PLAIN_BWD_RUNS", "ROUTES", "SOURCE", "SOURCE_BWD", "KERNEL_BLOCK", "MAX_HEAD_DIM"]
+           "flash_attention_parts", "flash_attention_parts_plain",
+           "flash_attention_bwd_parts", "flash_attention_bwd_parts_plain",
+           "auto_block", "default_blocks", "LAUNCHES", "BWD_LAUNCHES", "PARTS_LAUNCHES",
+           "PARTS_DEAD", "PLAIN_RUNS", "PLAIN_BWD_RUNS", "ROUTES", "SOURCE", "SOURCE_BWD",
+           "KERNEL_BLOCK", "MAX_HEAD_DIM"]
 
 SOURCE = Path(__file__).resolve().parents[1] / "csrc" / "flash_attention.cu"
 SOURCE_BWD = Path(__file__).resolve().parents[1] / "csrc" / "flash_attention_bwd.cu"
@@ -68,14 +82,18 @@ MAX_HEAD_DIM = 128
 LAUNCHES = LaunchCounter()
 #: backward kernel launches, keyed "dq" and "dkv"
 BWD_LAUNCHES = LaunchCounter()
-#: runs of the plain forward, keyed by device type
+#: parts kernel launches, keyed "fwd", "dq" and "dkv"
+PARTS_LAUNCHES = LaunchCounter()
+#: of those, the launches whose block is wholly masked (same keys)
+PARTS_DEAD = LaunchCounter()
+#: runs of the plain forward and forward parts, keyed by device type
 PLAIN_RUNS = LaunchCounter()
-#: runs of the plain backward, keyed by device type
+#: runs of the plain backward and backward parts, keyed by device type
 PLAIN_BWD_RUNS = LaunchCounter()
 #: :func:`flash_attention` calls, keyed "tiled" or "dense" (the fallback)
 ROUTES = LaunchCounter()
 
-_lib_fn = None
+_fwd_fns = None
 _bwd_fns = None
 
 
@@ -134,18 +152,19 @@ def _stream_cast(precision: str, *tensors: torch.Tensor) -> tuple[torch.Tensor, 
     return tensors
 
 
-def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
-                          block_k: int, precision: str, out_dtype: torch.dtype
-                          ) -> tuple[torch.Tensor, torch.Tensor]:
-    """The plain version: the reference kernel's running softmax over key
-    blocks of ``block_k`` (the last one may be shorter), on q's device.
+def _softmax_state_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, q_pos0: int,
+                         k_pos0: int, causal: bool, block_k: int, round_p: bool
+                         ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The reference kernel's running softmax of q against k/v over key
+    blocks of ``block_k`` (the last one may be shorter), on q's device,
+    with key ``j`` visible to query ``i`` where ``k_pos0 + j <= q_pos0 + i``.
+    Returns the f32 ``(acc [B, H, Tq, D], m [B, H, Tq], l [B, H, Tq])``.
 
-    ``q``/``k``/``v`` are already stream-cast.  Returns ``(out, lse)``:
-    out [B, Tq, H, D] in ``out_dtype`` and lse
-    [B*H, Tq, 1] f32.  A key block wholly masked for a row leaves that
-    row's state unchanged (``p = 0``, ``alpha = 1``), which is the
-    reference's skip of dead blocks."""
-    PLAIN_RUNS.add(q.device.type)
+    A key block wholly masked for a row leaves that row's state unchanged
+    (``p = 0``, ``alpha = 1``), which is the reference's skip of dead
+    blocks; a row that has seen no key keeps the empty state (``p = 0``
+    while its max is ``_NEG``).  ``round_p`` rounds the copy of p that
+    multiplies V to bf16."""
     B, Tq, H, D = q.shape
     Tk = k.shape[1]
     scale = 1.0 / math.sqrt(D)
@@ -155,43 +174,57 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, cau
     m = torch.full((B, H, Tq), _NEG, dtype=torch.float32, device=q.device)
     l = torch.zeros((B, H, Tq), dtype=torch.float32, device=q.device)
     acc = torch.zeros((B, H, Tq, D), dtype=torch.float32, device=q.device)
-    qpos = torch.arange(Tq, device=q.device)
+    qpos = q_pos0 + torch.arange(Tq, device=q.device)
     for n0 in range(0, Tk, block_k):
         kb = k3[:, :, n0:n0 + block_k]
         vb = v3[:, :, n0:n0 + block_k]
         s = (q3 @ kb.transpose(-1, -2)) * scale
         if causal:
-            kpos = torch.arange(n0, n0 + kb.shape[2], device=q.device)
+            kpos = k_pos0 + torch.arange(n0, n0 + kb.shape[2], device=q.device)
             s = torch.where(kpos[None, :] <= qpos[:, None], s, _NEG)
         m_new = torch.maximum(m, s.amax(dim=-1))
         p = torch.exp(s - m_new[..., None])
-        p2 = p.to(torch.bfloat16).float() if precision == "default" else p
+        p = torch.where((m_new == _NEG)[..., None], 0.0, p)
+        p2 = p.to(torch.bfloat16).float() if round_p else p
         alpha = torch.exp(m - m_new)
         acc = acc * alpha[..., None] + p2 @ vb
         l = l * alpha + p.sum(dim=-1)
         m = m_new
+    return acc, m, l
+
+
+def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
+                          block_k: int, precision: str, out_dtype: torch.dtype
+                          ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The plain version: the reference kernel's running softmax over key
+    blocks of ``block_k`` (the last one may be shorter), on q's device.
+
+    ``q``/``k``/``v`` are already stream-cast.  Returns ``(out, lse)``:
+    out [B, Tq, H, D] in ``out_dtype`` and lse [B*H, Tq, 1] f32."""
+    PLAIN_RUNS.add(q.device.type)
+    B, Tq, H, D = q.shape
+    acc, m, l = _softmax_state_plain(q, k, v, 0, 0, causal, block_k, precision == "default")
     lc = torch.clamp_min(l, 1e-30)
     out = (acc / lc[..., None]).permute(0, 2, 1, 3).to(out_dtype)
     lse = (m + torch.log(lc)).reshape(B * H, Tq, 1)
     return out, lse
 
 
-def _launcher():
-    global _lib_fn
-    if _lib_fn is None:
+def _fwd_launchers():
+    global _fwd_fns
+    if _fwd_fns is None:
         lib = build_library(SOURCE.read_text(), "flash_attention")
-        fn = lib.flash_attention_fwd
-        fn.restype = ctypes.c_int
-        fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
-                       + [ctypes.c_longlong] * 9 + [ctypes.c_float]
-                       + [ctypes.c_int] * 4 + [ctypes.c_void_p])
-        _lib_fn = fn
-    return _lib_fn
+        fn, parts_fn = lib.flash_attention_fwd, lib.flash_attention_fwd_parts
+        fn.restype = parts_fn.restype = ctypes.c_int
+        head = [ctypes.c_int] * 5 + [ctypes.c_longlong] * 9 + [ctypes.c_float]
+        fn.argtypes = [ctypes.c_void_p] * 5 + head + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+        parts_fn.argtypes = [ctypes.c_void_p] * 6 + head + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+        _fwd_fns = (fn, parts_fn)
+    return _fwd_fns
 
 
-def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool, precision: str,
-            out_dtype: torch.dtype, with_lse: bool) -> tuple[torch.Tensor, torch.Tensor | None]:
-    """Launch ``csrc/flash_attention.cu`` on q's device and current stream."""
+def _check_fwd_operands(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
+    """Raise :class:`KernelCompileError` on q/k/v the forward kernel does not take."""
     B, Tq, H, D = q.shape
     Tk = k.shape[1]
     kinds = (torch.float32, torch.bfloat16)
@@ -199,8 +232,6 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool, pre
         raise KernelCompileError(
             f"flash_attention kernel: q/k/v must share one of {kinds}, got "
             f"{q.dtype}/{k.dtype}/{v.dtype}")
-    if out_dtype not in kinds:
-        raise KernelCompileError(f"flash_attention kernel: unsupported output {out_dtype}")
     if D > MAX_HEAD_DIM:
         raise KernelCompileError(
             f"flash_attention kernel: head dim {D} exceeds {MAX_HEAD_DIM}")
@@ -211,10 +242,20 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool, pre
                 f"match q {tuple(q.shape)} on {q.device}")
     if any(t.stride(3) != 1 for t in (q, k, v)):
         raise KernelCompileError("flash_attention kernel: the head dim must have stride 1")
+
+
+def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool, precision: str,
+            out_dtype: torch.dtype, with_lse: bool) -> tuple[torch.Tensor, torch.Tensor | None]:
+    """Launch ``csrc/flash_attention.cu`` on q's device and current stream."""
+    B, Tq, H, D = q.shape
+    Tk = k.shape[1]
+    _check_fwd_operands(q, k, v)
+    if out_dtype not in (torch.float32, torch.bfloat16):
+        raise KernelCompileError(f"flash_attention kernel: unsupported output {out_dtype}")
     out = torch.empty((B, Tq, H, D), dtype=out_dtype, device=q.device)
     lse = (torch.empty((B * H, Tq, 1), dtype=torch.float32, device=q.device)
            if with_lse else None)
-    fn = _launcher()
+    fn, _ = _fwd_launchers()
     with torch.cuda.device(q.device):
         rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                 None if lse is None else lse.data_ptr(), B, H, Tq, Tk, D,
@@ -254,6 +295,83 @@ def _flash_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bo
     return out
 
 
+def _parts_blocks(Tq: int, Tk: int, block_q: int, block_k: int) -> tuple[int, int]:
+    """The parts forms' blocks: ``min(block, T)``, which must divide T."""
+    bq, bk = min(block_q, Tq), min(block_k, Tk)
+    if Tq % bq or Tk % bk:
+        raise ValueError(
+            f"sequence lengths (Tq={Tq}, Tk={Tk}) must be multiples of the "
+            f"blocks (bq={bq}, bk={bk})")
+    return bq, bk
+
+
+def _dead(Tq: int, q_pos0: int, k_pos0: int, causal: bool) -> bool:
+    """Whether no query of the block sees any key: the ring's dead step."""
+    return causal and k_pos0 > q_pos0 + Tq - 1
+
+
+def flash_attention_parts_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                                q_pos0: int, k_pos0: int, causal: bool, block_k: int,
+                                precision: str
+                                ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The plain parts forward on q's device: ``(acc [B, Tq, H, D], m
+    [B, Tq, H], l [B, Tq, H])``, all f32, over key blocks of ``block_k``.
+    Under ``"default"`` p rounds to bf16 before p.V where v is bf16, as the
+    reference casts p to v's type; nothing is stream-cast."""
+    PLAIN_RUNS.add(q.device.type)
+    round_p = precision == "default" and v.dtype == torch.bfloat16
+    acc, m, l = _softmax_state_plain(q, k, v, q_pos0, k_pos0, causal, block_k, round_p)
+    return acc.permute(0, 2, 1, 3), m.permute(0, 2, 1), l.permute(0, 2, 1)
+
+
+def _launch_parts(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, q_pos0: int,
+                  k_pos0: int, causal: bool, precision: str
+                  ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Launch the parts form of ``csrc/flash_attention.cu`` on q's device
+    and current stream."""
+    B, Tq, H, D = q.shape
+    Tk = k.shape[1]
+    _check_fwd_operands(q, k, v)
+    acc = torch.empty((B, Tq, H, D), dtype=torch.float32, device=q.device)
+    m, l = (torch.empty((B, Tq, H), dtype=torch.float32, device=q.device) for _ in range(2))
+    _, fn = _fwd_launchers()
+    is_bf16 = q.dtype == torch.bfloat16
+    with torch.cuda.device(q.device):
+        rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), acc.data_ptr(), m.data_ptr(),
+                l.data_ptr(), B, H, Tq, Tk, D, *q.stride()[:3], *k.stride()[:3],
+                *v.stride()[:3], 1.0 / math.sqrt(D), int(causal), int(is_bf16),
+                int(precision == "default" and is_bf16), int(q_pos0), int(k_pos0),
+                torch.cuda.current_stream(q.device).cuda_stream)
+    if rc != 0:
+        raise KernelCompileError(f"flash_attention_parts: CUDA launch failed with error {rc}")
+    PARTS_LAUNCHES.add("fwd")
+    if _dead(Tq, q_pos0, k_pos0, causal):
+        PARTS_DEAD.add("fwd")
+    return acc, m, l
+
+
+def flash_attention_parts(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, q_pos0: int = 0,
+                          k_pos0: int = 0, causal: bool = False, block_q: int = 128,
+                          block_k: int = 128, precision: str = "highest"
+                          ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Ring-attention inner forward: the UNNORMALIZED flash accumulation of
+    q [B, Tq, H, D] against one K/V block [B, Tk, H, D], with key ``j``
+    visible to query ``i`` under ``causal`` where
+    ``k_pos0 + j <= q_pos0 + i``.  Returns ``(acc, m, l)``: acc f32
+    [B, Tq, H, D], the running max and denominator f32 [B, Tq, H], which
+    ring steps merge with the stable-softmax combine
+    (``parallel/attention.py``).  Forward only, as the reference's.  On a
+    CUDA tensor this launches the kernel or raises; on a CPU tensor it
+    runs the plain version."""
+    _, bk = _parts_blocks(q.shape[1], k.shape[1], block_q, block_k)
+    precision = _precision_str(precision)
+    if q.device.type == "cpu":
+        return flash_attention_parts_plain(q, k, v, q_pos0, k_pos0, causal, bk, precision)
+    if q.device.type == "cuda":
+        return _launch_parts(q, k, v, q_pos0, k_pos0, causal, precision)
+    raise KernelCompileError(f"flash_attention_parts: unsupported device {q.device}")
+
+
 def _round_bf16(t: torch.Tensor) -> torch.Tensor:
     return t.to(torch.bfloat16).float()
 
@@ -261,11 +379,14 @@ def _round_bf16(t: torch.Tensor) -> torch.Tensor:
 def flash_attention_bwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                               do: torch.Tensor, lse: torch.Tensor, delta: torch.Tensor,
                               causal: bool, block_q: int, block_k: int, precision: str,
-                              grad_dtypes: tuple[torch.dtype, torch.dtype, torch.dtype]
+                              grad_dtypes: tuple[torch.dtype, torch.dtype, torch.dtype],
+                              q_pos0: int = 0, k_pos0: int = 0
                               ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The plain backward: the reference kernels' FlashAttention-2
     arithmetic over query blocks of ``block_q`` and key blocks of
-    ``block_k`` (the last of each may be shorter), on q's device.
+    ``block_k`` (the last of each may be shorter), on q's device, with key
+    ``j`` visible to query ``i`` under ``causal`` where
+    ``k_pos0 + j <= q_pos0 + i`` (0 and 0 on one card).
 
     ``q``/``k``/``v``/``do`` are already stream-cast; ``lse`` and ``delta``
     hold one f32 per (b*h, query) row.  For every live (query block, key
@@ -290,15 +411,15 @@ def flash_attention_bwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         m1 = min(m0 + block_q, Tq)
         qb, dob = q3[:, :, m0:m1], do3[:, :, m0:m1]
         lb, db = lse3[:, :, m0:m1], dlt3[:, :, m0:m1]
-        qpos = torch.arange(m0, m1, device=q.device)
+        qpos = q_pos0 + torch.arange(m0, m1, device=q.device)
         for n0 in range(0, Tk, block_k):
-            if causal and n0 > m1 - 1:
+            if causal and k_pos0 + n0 > q_pos0 + m1 - 1:
                 break  # the reference's dead block: no key here is visible
             n1 = min(n0 + block_k, Tk)
             kb, vb = k3[:, :, n0:n1], v3[:, :, n0:n1]
             s = (qb @ kb.transpose(-1, -2)) * scale
             if causal:
-                kpos = torch.arange(n0, n1, device=q.device)
+                kpos = k_pos0 + torch.arange(n0, n1, device=q.device)
                 s = torch.where(kpos[None, :] <= qpos[:, None], s, _NEG)
             p = torch.exp(s - lb)
             dp = dob @ vb.transpose(-1, -2)
@@ -317,18 +438,21 @@ def _bwd_launchers():
         dq_fn, dkv_fn = lib.flash_attention_bwd_dq, lib.flash_attention_bwd_dkv
         head = [ctypes.c_int] * 5 + [ctypes.c_longlong] * 12 + [ctypes.c_float]
         dq_fn.restype = dkv_fn.restype = ctypes.c_int
-        dq_fn.argtypes = [ctypes.c_void_p] * 7 + head + [ctypes.c_int] * 4 + [ctypes.c_void_p]
-        dkv_fn.argtypes = [ctypes.c_void_p] * 8 + head + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+        dq_fn.argtypes = [ctypes.c_void_p] * 7 + head + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+        dkv_fn.argtypes = [ctypes.c_void_p] * 8 + head + [ctypes.c_int] * 7 + [ctypes.c_void_p]
         _bwd_fns = (dq_fn, dkv_fn)
     return _bwd_fns
 
 
 def _launch_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, do: torch.Tensor,
                 lse: torch.Tensor, delta: torch.Tensor, causal: bool, precision: str,
-                grad_dtypes: tuple[torch.dtype, torch.dtype, torch.dtype]
+                grad_dtypes: tuple[torch.dtype, torch.dtype, torch.dtype],
+                q_pos0: int = 0, k_pos0: int = 0, parts: bool = False
                 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Launch the two kernels of ``csrc/flash_attention_bwd.cu`` on q's
-    device and current stream: dq, then dk and dv."""
+    device and current stream: dq, then dk and dv.  ``parts`` counts the
+    launches in :data:`PARTS_LAUNCHES` (the ring's form) instead of
+    :data:`BWD_LAUNCHES`."""
     B, Tq, H, D = q.shape
     Tk = k.shape[1]
     kinds = (torch.float32, torch.bfloat16)
@@ -366,19 +490,26 @@ def _launch_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, do: torch.Ten
     shape = (B, H, Tq, Tk, D)
     flags = (int(causal), int(q.dtype == torch.bfloat16))
     rnd = int(precision == "default")
+    offs = (int(q_pos0), int(k_pos0))
+    counter = PARTS_LAUNCHES if parts else BWD_LAUNCHES
+    dead = parts and _dead(Tq, q_pos0, k_pos0, causal)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = dq_fn(*ptrs, dq.data_ptr(), *shape, *strides, 1.0 / math.sqrt(D), *flags,
-                   is_bf16[0], rnd, stream)
+                   is_bf16[0], rnd, *offs, stream)
         if rc != 0:
             raise KernelCompileError(f"flash_attention_bwd_dq: CUDA launch failed with error {rc}")
-        BWD_LAUNCHES.add("dq")
+        counter.add("dq")
+        if dead:
+            PARTS_DEAD.add("dq")
         rc = dkv_fn(*ptrs, dk.data_ptr(), dv.data_ptr(), *shape, *strides, 1.0 / math.sqrt(D),
-                    *flags, is_bf16[1], is_bf16[2], rnd, stream)
+                    *flags, is_bf16[1], is_bf16[2], rnd, *offs, stream)
         if rc != 0:
             raise KernelCompileError(
                 f"flash_attention_bwd_dkv: CUDA launch failed with error {rc}")
-        BWD_LAUNCHES.add("dkv")
+        counter.add("dkv")
+        if dead:
+            PARTS_DEAD.add("dkv")
     return dq, dk, dv
 
 
@@ -415,6 +546,53 @@ def _flash_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: torc
     if q.device.type == "cuda":
         return _launch_bwd(q, k, v, do, lse, delta, causal, precision, grad_dtypes)
     raise KernelCompileError(f"flash_attention backward: unsupported device {q.device}")
+
+
+def flash_attention_bwd_parts_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                                    do: torch.Tensor, lse: torch.Tensor, delta: torch.Tensor,
+                                    q_pos0: int, k_pos0: int, causal: bool, block_q: int,
+                                    block_k: int, precision: str
+                                    ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The plain backward parts on q's device: ``lse`` and ``delta`` are
+    [B, Tq, H] f32; the gradients come out f32."""
+    return flash_attention_bwd_plain(q, k, v, do, _row_column(lse), _row_column(delta), causal,
+                                     block_q, block_k, precision, (torch.float32,) * 3,
+                                     q_pos0, k_pos0)
+
+
+def _row_column(t: torch.Tensor) -> torch.Tensor:
+    """[B, Tq, H] -> the kernels' compact [B*H, Tq] f32 column."""
+    B, Tq, H = t.shape
+    return t.float().permute(0, 2, 1).reshape(B * H, Tq)
+
+
+def flash_attention_bwd_parts(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                              do: torch.Tensor, lse: torch.Tensor, delta: torch.Tensor,
+                              q_pos0: int = 0, k_pos0: int = 0, causal: bool = False,
+                              block_q: int = 128, block_k: int = 128,
+                              precision: str = "highest"
+                              ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Ring-attention inner backward: the gradients of q [B, Tq, H, D]
+    against one K/V block [B, Tk, H, D] from the ring-global logsumexp
+    ``lse`` and ``delta = rowsum(dO * O)`` (both [B, Tq, H] f32), with the
+    causal mask shifted by ``q_pos0``/``k_pos0`` as in
+    :func:`flash_attention_parts`.  Returns ``(dq_partial, dk_block,
+    dv_block)`` in f32 whatever the input type: the caller sums the
+    partials over ring steps and rounds once.  On a CUDA tensor this
+    launches the dq and dk/dv kernels or raises; on a CPU tensor it runs
+    the plain version."""
+    bq, bk = _parts_blocks(q.shape[1], k.shape[1], block_q, block_k)
+    # "default" rounds p and ds to the operands' type, as the reference
+    # casts them: f32 operands are not rounded
+    if _precision_str(precision) == "default" and q.dtype != torch.bfloat16:
+        precision = "highest"
+    if q.device.type == "cpu":
+        return flash_attention_bwd_parts_plain(q, k, v, do, lse, delta, q_pos0, k_pos0, causal,
+                                               bq, bk, precision)
+    if q.device.type == "cuda":
+        return _launch_bwd(q, k, v, do, _row_column(lse), _row_column(delta), causal, precision,
+                           (torch.float32,) * 3, q_pos0, k_pos0, parts=True)
+    raise KernelCompileError(f"flash_attention_bwd_parts: unsupported device {q.device}")
 
 
 class _FlashAttention(torch.autograd.Function):

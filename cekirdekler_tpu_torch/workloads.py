@@ -10,8 +10,10 @@ and load-balance convergence iterations).  Runners default to
 ``all_devices().gpus()`` and raise :class:`DeviceSelectionError` where
 there is no CUDA device; host
 lanes run only when the caller selects them.  :func:`run_transformer_forward`
-is the counterpart of ``__graft_entry__.entry()``'s forward step and
-:func:`run_transformer_train` of its dry run's train steps.
+is the counterpart of ``__graft_entry__.entry()``'s forward step,
+:func:`run_transformer_train` of its dry run's train steps, and
+:func:`run_ring_attention` of the reference's long-context ring run
+(``tests/test_parallel.py``, T = 16384 over sp = 8).
 """
 
 from __future__ import annotations
@@ -42,6 +44,7 @@ __all__ = [
     "convergence_iterations",
     "run_transformer_forward",
     "run_transformer_train",
+    "run_ring_attention",
     "REQUEST_BATCHES",
 ]
 
@@ -439,3 +442,63 @@ def run_transformer_train(model, optimizer, batch, steps: int, remat: bool | Non
             "launches": {"flash_attention": fa.LAUNCHES.count - before[0][0],
                          "flash_attention_bwd": delta(1), "plain_flash": delta(2),
                          "plain_flash_bwd": delta(3), "routes": delta(4)}}
+
+
+def run_ring_attention(mesh, B: int, T: int, H: int, D: int, dtype, causal: bool = True,
+                       flash: bool = True, grad: bool = True, seed: int = 0) -> dict:
+    """Ring attention over the ``sp`` axis of ``mesh`` on seeded q/k/v
+    [B, T, H, D] (random normal draws from a CPU ``torch.Generator``,
+    cast to ``dtype``, on the axis' first device), through
+    ``parallel.ring_attention_sharded``; with ``grad``, the gradients of
+    the loss ``sum(out**2)`` (in f32) by ``torch.autograd.grad``.
+
+    The forward and the forward + backward are one run, timed by CUDA
+    events on the card (the host clock on the CPU): the forward's time
+    ends where its output is ready.  Returns q/k/v, the output, the
+    gradients (None without ``grad``), the seconds and tokens/s (B*T over
+    the time) of the forward and of the forward + backward, the device,
+    and the run's launch counts: parts kernel launches by kernel
+    (``fwd``, ``dq``, ``dkv``), those of them on a wholly masked block,
+    and plain forward and backward runs by device type."""
+    import torch
+
+    from .ops import flash_attention as fa
+    from .parallel import ring_attention_sharded
+
+    dev = mesh.axis_devices("sp")[0]
+    gen = torch.Generator(device="cpu").manual_seed(seed)
+    q, k, v = (torch.randn(B, T, H, D, generator=gen).to(dtype).to(dev).requires_grad_(grad)
+               for _ in range(3))
+    counters = (fa.PARTS_LAUNCHES, fa.PARTS_DEAD, fa.PLAIN_RUNS, fa.PLAIN_BWD_RUNS)
+    before = [dict(c.by_key) for c in counters]
+    on_card = dev.type == "cuda"
+    if on_card:
+        marks = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+        marks[0].record()
+    t0 = time.perf_counter()
+    with torch.set_grad_enabled(grad):
+        out = ring_attention_sharded(mesh, q, k, v, causal=causal, flash=flash)
+    if on_card:
+        marks[1].record()
+    t1 = time.perf_counter()
+    grads = None
+    if grad:
+        grads = torch.autograd.grad(out.float().pow(2).sum(), (q, k, v))
+    if on_card:
+        marks[2].record()
+        marks[2].synchronize()
+        fwd, both = (marks[0].elapsed_time(marks[i]) / 1e3 for i in (1, 2))
+    else:
+        fwd, both = t1 - t0, time.perf_counter() - t0
+
+    def delta(i: int) -> dict:
+        now, was = counters[i].by_key, before[i]
+        return {k: v - was.get(k, 0) for k, v in now.items() if v != was.get(k, 0)}
+
+    return {"q": q.detach(), "k": k.detach(), "v": v.detach(), "out": out.detach(),
+            "grads": grads, "device": str(dev),
+            "seconds": {"forward": fwd, "forward_backward": both if grad else None},
+            "tokens_per_s": {"forward": B * T / fwd,
+                             "forward_backward": B * T / both if grad else None},
+            "launches": {"parts": delta(0), "dead": delta(1), "plain_flash": delta(2),
+                         "plain_flash_bwd": delta(3)}}

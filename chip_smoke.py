@@ -68,7 +68,27 @@ Phases, each of which raises on failure (the script then exits non-zero):
    are held against the CPU's (plain versions) from the same weights: f32
    at 1x1024, bf16 at 1x2048 beside the CPU's own bf16-vs-f32 gap; and
    the gradients with remat against those without it;
-8. the kernels line, then the last line ``{"ok": true, "device": ...}``.
+8. ring attention (sp mesh of virtual shards): (a) the ring's three parts
+   kernels (``flash_attention_parts``, and the dq and dk/dv kernels of
+   ``flash_attention_bwd_parts``) against their plain versions at one ring
+   step of the full-width run, 1x2048 queries against 1x2048 keys, H=8,
+   D=64, bf16 at "highest", at a diagonal, a below-diagonal and a dead
+   offset, each timed at the diagonal and the full step beside its FP32
+   bound; (b) ``workloads.run_ring_attention`` at B=1, T=16384, H=8, D=64
+   (the heads and head dim of ``TransformerConfig()``, 2048 positions a
+   shard, the model's ``max_seq``), bf16 and causal, over sp=8 on
+   ``[cuda:0] * 8``: the output and the gradients of ``sum(out**2)``
+   against the single-card flash kernels on the whole sequence within 2
+   bf16 ulps of each one's largest magnitude, and the same in f32 at
+   1x8192 over sp=4 (output within 1e-5, gradients within 5e-4); (c) with
+   every count set to 0 before the sp=8 run, each parts kernel launched 64
+   times, 28 of them on dead blocks, and no plain version on the card; (d)
+   Ulysses at the same width against the same oracle, and the einsum
+   ring's forward against the flash ring's; (e) the ring's forward and
+   forward + backward ms and tokens/s beside the single-card kernels'.  A
+   virtual mesh's time is the sum of its shards' work on one card, not the
+   time of an sp mesh of eight cards;
+9. the kernels line, then the last line ``{"ok": true, "device": ...}``.
 
 Exits non-zero without printing a result when no CUDA device is present,
 or when the package is not beside this script.
@@ -117,8 +137,11 @@ def chain(a, b):
     return torch.where(a > b, a * b - 1.5, torch.abs(b) * 0.5)
 
 
+_T0 = time.perf_counter()
+
+
 def phase(name: str) -> None:
-    print(f"== phase: {name}", flush=True)
+    print(f"== phase: {name} (at {time.perf_counter() - _T0:.1f} s)", flush=True)
 
 
 def gpu_line() -> str:
@@ -211,6 +234,54 @@ def profiled_ms(fn, reps: int, names: tuple[str, ...] = ()) -> dict[str, float]:
     if not all(out.values()):
         raise AssertionError(f"the profiler shows no device time for a kernel: {out}")
     return out
+
+
+PARTS_OPS_PER_D = {"fwd": 4, "dq": 6, "dkv": 8}
+
+
+def live_pairs(Tq: int, Tk: int, q_pos0: int, k_pos0: int, causal: bool) -> int:
+    """(query, key) pairs of one block that the mask leaves visible: key
+    ``j`` is visible to query ``i`` where ``k_pos0 + j <= q_pos0 + i``."""
+    if not causal:
+        return Tq * Tk
+    return int(np.clip(q_pos0 - k_pos0 + 1 + np.arange(Tq), 0, Tk).sum())
+
+
+def parts_bound(kind: str, B: int, Tq: int, Tk: int, H: int, D: int, q_pos0: int, k_pos0: int,
+                causal: bool, in_size: int) -> tuple[float, str]:
+    """Least time (ms) of one ring step's parts kernel and what binds it.
+    Operations: ``PARTS_OPS_PER_D[kind] * D`` per live pair and head (4 for
+    the forward's q.k and p.v; 6 for dq's s, dp and dq; 8 for dk/dv's s,
+    dp, dk and dv, as :func:`flash_bwd_bound` counts them) at the FP32
+    peak: the ring runs them at "highest", f32 arithmetic whatever the
+    input type.  Bytes: the inputs read once (q, k, v, and for the backward
+    dO, of ``in_size`` bytes an element, and its f32 lse and delta rows)
+    and the f32 outputs written once (acc, m and l; dq; dk and dv)."""
+    ops = float(PARTS_OPS_PER_D[kind]) * D * B * H * live_pairs(Tq, Tk, q_pos0, k_pos0, causal)
+    rows, q_el, k_el = B * Tq * H, B * Tq * H * D, B * Tk * H * D
+    if kind == "fwd":
+        nbytes = in_size * (q_el + 2 * k_el) + 4 * (q_el + 2 * rows)
+    else:
+        out_el = q_el if kind == "dq" else 2 * k_el
+        nbytes = in_size * (2 * q_el + 2 * k_el) + 4 * (2 * rows + out_el)
+    by_ops, by_bytes = ops / FP32_OPS_PER_S * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+    return (by_ops, "operations") if by_ops >= by_bytes else (by_bytes, "bytes")
+
+
+def gate_ring_launches(launches: dict, n: int, causal: bool) -> dict[str, int]:
+    """The launch counts of one ring forward + backward over ``n``
+    positions (``workloads.run_ring_attention``'s ``launches``): each
+    parts kernel ``n * n`` times, ``n (n - 1) / 2`` of them on dead blocks
+    when causal, and no plain version on the card.  Returns the launches
+    by kernel."""
+    kinds = ("fwd", "dq", "dkv")
+    want = dict.fromkeys(kinds, n * n)
+    want_dead = dict.fromkeys(kinds, n * (n - 1) // 2) if causal else {}
+    plain = (launches["plain_flash"].get("cuda", 0), launches["plain_flash_bwd"].get("cuda", 0))
+    if launches["parts"] != want or launches["dead"] != want_dead or plain != (0, 0):
+        raise AssertionError(f"ring launch counts {launches}: want parts {want}, dead "
+                             f"{want_dead} and no plain run on the card")
+    return dict(launches["parts"])
 
 
 def bf16_ulps(t, n: float = 2.0) -> float:
@@ -346,6 +417,230 @@ def check_flash_bwd(fa, dev) -> tuple[dict, dict]:
                          bound_by=bound_dkv[1], **common))
         del q, k, v, do, out, lse, qs, ks, vs, got, want, qt, kt, vt, sdpa
     return rows
+
+
+def _within(got, want, tol: float) -> float:
+    """Max abs error of ``got`` against ``want``; raises above ``tol``."""
+    import torch
+
+    got = got.detach()
+    err = float((got.float() - want.float()).abs().max())
+    if not bool(torch.isfinite(got).all()) or err > tol:
+        raise AssertionError(f"max abs err {err} > {tol}")
+    return err
+
+
+def check_ring_parts(fa, dev, T: int = 2048) -> dict[str, dict]:
+    """Phase 8 (a): the three parts kernels against their plain versions
+    (key blocks at the kernels' tile width) at one ring step of the
+    full-width run: 1x2048 queries against 1x2048 keys, H=8, D=64, bf16 at
+    "highest", at a diagonal (q_pos0 = k_pos0 = 3*2048), a below-diagonal
+    (5*2048 against 2*2048) and a dead offset (2048 against 3*2048).
+    Tolerances: acc, m and l within 1e-5 of each one's largest magnitude on
+    the rows that see a key (f32 arithmetic on both sides; the sums differ
+    only in order), the empty rows' state exactly; the gradients within
+    1e-5 of each one's largest magnitude, from the lse and delta of the
+    plain diagonal step (every row sees a key, as the ring's global ones
+    do).  Each kernel is timed at the diagonal and the full step (the
+    forward by CUDA events, the two backward kernels from a profiler
+    trace) beside its plain version and its FP32 bound.  Returns the
+    kernels-line rows, from the full step: 28 of the ring's 36 live steps
+    are full ones."""
+    import torch
+
+    H, D = 8, 64
+    g = torch.Generator().manual_seed(2026)
+    q, k, v, do = (torch.randn(1, T, H, D, generator=g).to(torch.bfloat16).to(dev)
+                   for _ in range(4))
+    kb = fa.KERNEL_BLOCK
+    acc, m, l = fa.flash_attention_parts_plain(q, k, v, 3 * T, 3 * T, True, kb, "highest")
+    lse = m + torch.log(l)
+    delta = (do.float() * (acc / l[..., None]).to(torch.bfloat16).float()).sum(dim=-1)
+    steps = {"diagonal": (3 * T, 3 * T), "full": (5 * T, 2 * T), "dead": (T, 3 * T)}
+    rows = {}
+    for step, (q_pos0, k_pos0) in steps.items():
+        got = fa.flash_attention_parts(q, k, v, q_pos0, k_pos0, True, 512, 512)
+        want = fa.flash_attention_parts_plain(q, k, v, q_pos0, k_pos0, True, kb, "highest")
+        torch.cuda.synchronize()
+        live = want[1] > -1e29
+        errs = {}
+        for name, a, w in zip(("acc", "m", "l"), got, want):
+            sel = live[..., None].expand_as(a) if name == "acc" else live
+            if not torch.equal(a[~sel], w[~sel]):
+                raise AssertionError(f"parts kernel ({step}): {name} of the rows that see no "
+                                     "key is not the empty state")
+            if bool(sel.any()):
+                try:
+                    errs[name] = _within(a[sel], w[sel], 1e-5 * float(w[sel].abs().max()))
+                except AssertionError as exc:
+                    raise AssertionError(f"parts kernel vs plain ({step}) {name}: {exc}") from None
+        bwd = fa.flash_attention_bwd_parts(q, k, v, do, lse, delta, q_pos0, k_pos0, True, 512,
+                                           512)
+        want_b = fa.flash_attention_bwd_parts_plain(q, k, v, do, lse, delta, q_pos0, k_pos0,
+                                                    True, kb, kb, "highest")
+        torch.cuda.synchronize()
+        for name, a, w in zip(("dq", "dk", "dv"), bwd, want_b):
+            try:
+                errs[name] = _within(a, w, 1e-5 * float(w.abs().max()))
+            except AssertionError as exc:
+                raise AssertionError(f"backward parts kernels vs plain ({step}) {name}: "
+                                     f"{exc}") from None
+        print(f"ring step 1x{T}x{H}x{D} bf16 highest, {step} (q_pos0 {q_pos0}, k_pos0 {k_pos0}): "
+              f"max abs err {json.dumps(errs)}")
+        if step == "dead":
+            continue
+
+        def fwd():
+            return fa.flash_attention_parts(q, k, v, q_pos0, k_pos0, True, 512, 512)
+
+        def bwd_call():
+            return fa.flash_attention_bwd_parts(q, k, v, do, lse, delta, q_pos0, k_pos0, True,
+                                                512, 512)
+
+        fwd_ms = cuda_ms(fwd, 10)
+        each = profiled_ms(bwd_call, 10, ("fa_bwd_dq_kernel", "fa_bwd_dkv_kernel"))
+        plain_fwd = cuda_ms(lambda: fa.flash_attention_parts_plain(
+            q, k, v, q_pos0, k_pos0, True, kb, "highest"), 2, warmup=1)
+        plain_bwd = cuda_ms(lambda: fa.flash_attention_bwd_parts_plain(
+            q, k, v, do, lse, delta, q_pos0, k_pos0, True, kb, kb, "highest"), 1, warmup=1)
+        bounds = {kind: parts_bound(kind, 1, T, T, H, D, q_pos0, k_pos0, True, 2)
+                  for kind in ("fwd", "dq", "dkv")}
+        print(f"ring step {step}: forward parts kernel {fwd_ms:.4f} ms (bound "
+              f"{bounds['fwd'][0]:.4f}, {bounds['fwd'][1]}), dq kernel "
+              f"{each['fa_bwd_dq_kernel']:.4f} ms (bound {bounds['dq'][0]:.4f}), dk/dv kernel "
+              f"{each['fa_bwd_dkv_kernel']:.4f} ms (bound {bounds['dkv'][0]:.4f}); plain "
+              f"forward {plain_fwd:.4f} ms, plain backward {plain_bwd:.4f} ms; library: none "
+              "(no PyTorch call gives the unnormalized parts or the ring-global partial "
+              "gradients)")
+        if step == "full":
+            rows = {
+                "flash_attention_parts": dict(
+                    max_abs_err=max(errs["acc"], errs["m"], errs["l"]), ms=fwd_ms,
+                    plain_ms=plain_fwd, bound_ms=bounds["fwd"][0], bound_by=bounds["fwd"][1],
+                    library_ms=None),
+                "flash_attention_bwd_parts_dq": dict(
+                    max_abs_err=errs["dq"], ms=each["fa_bwd_dq_kernel"], plain_ms=plain_bwd,
+                    bound_ms=bounds["dq"][0], bound_by=bounds["dq"][1], library_ms=None),
+                "flash_attention_bwd_parts_dkv": dict(
+                    max_abs_err=max(errs["dk"], errs["dv"]), ms=each["fa_bwd_dkv_kernel"],
+                    plain_ms=plain_bwd, bound_ms=bounds["dkv"][0], bound_by=bounds["dkv"][1],
+                    library_ms=None),
+            }
+    return rows
+
+
+def _single_card(fa, q, k, v) -> tuple:
+    """The oracle: the single-card flash kernels on the whole sequence,
+    forward and the gradients of ``sum(out**2)``, timed by CUDA events
+    (forward, forward + backward)."""
+    import torch
+
+    qkv = [t.detach().requires_grad_(True) for t in (q, k, v)]
+    marks = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+    marks[0].record()
+    out = fa.flash_attention(*qkv, True, 512, 512, "highest")
+    marks[1].record()
+    grads = torch.autograd.grad(out.float().pow(2).sum(), qkv)
+    marks[2].record()
+    marks[2].synchronize()
+    return out.detach(), grads, marks[0].elapsed_time(marks[1]), marks[0].elapsed_time(marks[2])
+
+
+def _ring_counters(fa) -> tuple:
+    return (fa.LAUNCHES, fa.BWD_LAUNCHES, fa.PARTS_LAUNCHES, fa.PARTS_DEAD, fa.PLAIN_RUNS,
+            fa.PLAIN_BWD_RUNS, fa.ROUTES)
+
+
+def check_ring(wl, fa, par, dev, card: str, T: int = 16384) -> dict[str, int]:
+    """Phase 8 (b)-(e); returns the parts kernels' launches on the sp=8
+    run, by kernel.  The f32 case runs at ``T // 2`` over sp=4."""
+    import torch
+
+    B, H, D, n = 1, 8, 64, 8
+    mesh = par.make_mesh([dev] * n, sp=n)
+    wl.run_ring_attention(mesh, 1, T // 16, H, D, torch.bfloat16, seed=1)  # warm-up, not counted
+    for counter in _ring_counters(fa):
+        counter.reset()
+    r = wl.run_ring_attention(mesh, B, T, H, D, torch.bfloat16, causal=True, flash=True,
+                              grad=True, seed=5)
+    seen = {c: dict(getattr(fa, c).by_key) for c in ("PARTS_LAUNCHES", "PARTS_DEAD",
+                                                   "PLAIN_RUNS", "PLAIN_BWD_RUNS")}
+    print(f"ring {B}x{T}x{H}x{D} bf16 causal over sp={n} on [{dev}] * {n}: launch counts "
+          f"{r['launches']}; counters after the run {seen}")
+    launches = gate_ring_launches(r["launches"], n, True)
+    if fa.LAUNCHES.count or fa.BWD_LAUNCHES.count or seen["PARTS_LAUNCHES"] != launches:
+        raise AssertionError("the ring ran other kernels than its parts kernels, or its "
+                             f"counts disagree: {seen}")
+    out_s, grads_s, fwd_s, both_s = _single_card(fa, r["q"], r["k"], r["v"])
+    worst = {}
+    for name, a, w in zip(("out", "dq", "dk", "dv"), (r["out"], *r["grads"]),
+                          (out_s, *grads_s)):
+        tol = bf16_ulps(w.float())
+        try:
+            worst[name] = _within(a, w, tol) / (tol / 2.0)
+        except AssertionError as exc:
+            raise AssertionError(f"ring sp={n} vs single-card flash, {name}: {exc}") from None
+    sec = r["seconds"]
+    print(f"ring sp={n} vs single-card flash: worst error in bf16 ulps of the largest "
+          f"magnitude {json.dumps(worst)} (limit 2)")
+    print(f"ring sp={n} {B}x{T}x{H}x{D} bf16 causal (virtual shards, one card; the sum of "
+          f"the shards' work, not an 8-card time): forward {sec['forward'] * 1e3:.3f} ms "
+          f"({r['tokens_per_s']['forward']:.1f} tokens/s), forward + backward "
+          f"{sec['forward_backward'] * 1e3:.3f} ms "
+          f"({r['tokens_per_s']['forward_backward']:.1f} tokens/s); single-card flash "
+          f"forward {fwd_s:.3f} ms ({B * T / fwd_s * 1e3:.1f} tokens/s), forward + backward "
+          f"{both_s:.3f} ms ({B * T / both_s * 1e3:.1f} tokens/s); CUDA events, on {card}")
+
+    # (d) Ulysses at the same width, and the einsum ring's forward
+    for counter in _ring_counters(fa):
+        counter.reset()
+    qkv = [t.detach().requires_grad_(True) for t in (r["q"], r["k"], r["v"])]
+    out_u = par.ulysses_attention_sharded(mesh, *qkv, causal=True, flash=True)
+    grads_u = torch.autograd.grad(out_u.float().pow(2).sum(), qkv)
+    torch.cuda.synchronize()
+    counts = (fa.LAUNCHES.count, dict(fa.BWD_LAUNCHES.by_key), fa.PARTS_LAUNCHES.count,
+              fa.PLAIN_RUNS.by_key.get("cuda", 0), fa.PLAIN_BWD_RUNS.by_key.get("cuda", 0))
+    if counts != (n, {"dq": n, "dkv": n}, 0, 0, 0):
+        raise AssertionError(f"Ulysses launch counts (forward, backward, parts, plain, plain "
+                             f"backward) {counts}: want one forward and one backward per "
+                             "position and nothing else")
+    worst_u = {}
+    for name, a, w in zip(("out", "dq", "dk", "dv"), (out_u, *grads_u), (out_s, *grads_s)):
+        tol = bf16_ulps(w.float())
+        try:
+            worst_u[name] = _within(a, w, tol) / (tol / 2.0)
+        except AssertionError as exc:
+            raise AssertionError(f"Ulysses sp={n} vs single-card flash, {name}: {exc}") from None
+    with torch.no_grad():
+        out_e = par.ring_attention_sharded(mesh, r["q"], r["k"], r["v"], causal=True,
+                                           flash=False)
+    tol = bf16_ulps(r["out"].float())
+    try:
+        err_e = _within(out_e, r["out"], tol) / (tol / 2.0)
+    except AssertionError as exc:
+        raise AssertionError(f"einsum ring vs flash ring forward: {exc}") from None
+    print(f"Ulysses sp={n} vs single-card flash: worst error in bf16 ulps {json.dumps(worst_u)} "
+          f"(limit 2), launch counts {counts}; einsum ring forward vs flash ring: {err_e} "
+          "bf16 ulps (limit 2)")
+    del r, out_s, grads_s, out_u, grads_u, out_e, qkv
+
+    # f32 at 1x8192 over sp=4
+    mesh4 = par.make_mesh([dev] * 4, sp=4)
+    r = wl.run_ring_attention(mesh4, 1, T // 2, H, D, torch.float32, causal=True, flash=True,
+                              grad=True, seed=6)
+    out_s, grads_s, _, _ = _single_card(fa, r["q"], r["k"], r["v"])
+    errs = {}
+    for name, a, w in zip(("out", "dq", "dk", "dv"), (r["out"], *r["grads"]),
+                          (out_s, *grads_s)):
+        try:
+            errs[name] = _within(a, w, 1e-5 if name == "out" else 5e-4)
+        except AssertionError as exc:
+            raise AssertionError(f"f32 ring sp=4 vs single-card flash, {name}: {exc}") from None
+    print(f"ring sp=4 1x{T // 2}x{H}x{D} f32 causal vs single-card flash: max abs err "
+          f"{json.dumps(errs)} (limits 1e-5 output, 5e-4 gradients); forward "
+          f"{r['seconds']['forward'] * 1e3:.3f} ms, forward + backward "
+          f"{r['seconds']['forward_backward'] * 1e3:.3f} ms")
+    return launches
 
 
 def _loss_and_grads(model, batch) -> tuple[float, dict]:
@@ -800,6 +1095,7 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     import cekirdekler_tpu_torch as ck
+    from cekirdekler_tpu_torch import parallel as par
     from cekirdekler_tpu_torch import workloads as wl
     from cekirdekler_tpu_torch.hardware import rate_prior
     from cekirdekler_tpu_torch.kernel import build, cuda_backend, lang, registry
@@ -1050,6 +1346,13 @@ def main() -> int:
     (rows["flash_attention_bwd_dq"]["launches"],
      rows["flash_attention_bwd_dkv"]["launches"]) = check_training(wl, fa_op, card)
 
+    phase("ring attention (sp mesh of virtual shards)")
+    rows.update(check_ring_parts(fa_op, dev))
+    ring_launches = check_ring(wl, fa_op, par, dev, card)
+    rows["flash_attention_parts"]["launches"] = ring_launches["fwd"]
+    rows["flash_attention_bwd_parts_dq"]["launches"] = ring_launches["dq"]
+    rows["flash_attention_bwd_parts_dkv"]["launches"] = ring_launches["dkv"]
+
     phase("summary")
     meta = {
         "emitter:streamAdd": ("cuda", EMITTER_SOURCE, EMITTER_REPLACES),
@@ -1066,6 +1369,14 @@ def main() -> int:
                                    "cekirdekler_tpu/ops/flash_attention.py:661"),
         "flash_attention_bwd_dkv": ("cuda", "cekirdekler_tpu_torch/csrc/flash_attention_bwd.cu",
                                     "cekirdekler_tpu/ops/flash_attention.py:661"),
+        "flash_attention_parts": ("cuda", "cekirdekler_tpu_torch/csrc/flash_attention.cu",
+                                  "cekirdekler_tpu/ops/flash_attention.py:420"),
+        "flash_attention_bwd_parts_dq": (
+            "cuda", "cekirdekler_tpu_torch/csrc/flash_attention_bwd.cu",
+            "cekirdekler_tpu/ops/flash_attention.py:745"),
+        "flash_attention_bwd_parts_dkv": (
+            "cuda", "cekirdekler_tpu_torch/csrc/flash_attention_bwd.cu",
+            "cekirdekler_tpu/ops/flash_attention.py:745"),
     }
     kernels = []
     for name, (route, source, replaces) in meta.items():

@@ -217,3 +217,67 @@ def test_gate_moves_counts_moves_after_barriers(ranges, moves):
 def test_gate_moves_fails_a_move_between_barriers():
     with pytest.raises(AssertionError, match="between barriers at calls \\[5\\]"):
         chip_smoke.gate_moves([[8, 8]] * 5 + [[6, 10]] * 3, 4)
+
+
+# -- the ring phase's bounds and launch gate ---------------------------------
+
+@pytest.mark.parametrize("q_pos0, k_pos0, causal, want", [
+    (6144, 6144, True, 2048 * 2049 // 2),   # the diagonal step
+    (10240, 4096, True, 2048 * 2048),       # a step fully below it
+    (2048, 6144, True, 0),                  # a dead step
+    (8, 40, True, sum(max(0, min(2048, i - 31)) for i in range(2048))),  # off the tiles
+    (2048, 6144, False, 2048 * 2048),       # no mask, no dead step
+])
+def test_live_pairs(q_pos0, k_pos0, causal, want):
+    assert chip_smoke.live_pairs(2048, 2048, q_pos0, k_pos0, causal) == want
+
+
+@pytest.mark.parametrize("kind, ops_per_d, in_tensors, out_f32", [
+    ("fwd", 4, 3, "acc, m, l"),
+    ("dq", 6, 4, "dq"),
+    ("dkv", 8, 4, "dk, dv"),
+])
+def test_parts_bound_counts(kind, ops_per_d, in_tensors, out_f32):
+    """A full ring step of the full-width run (1x2048 against 1x2048,
+    H=8, D=64, bf16 in, "highest") is bound by its operations at the FP32
+    peak: ``ops_per_d * D`` per pair and head, 33.55 M pairs; a dead step,
+    which has no pair, by its bytes."""
+    ms, by = chip_smoke.parts_bound(kind, 1, 2048, 2048, 8, 64, 10240, 4096, True, 2)
+    assert by == "operations"
+    ops = ops_per_d * 64 * 8 * 2048 * 2048
+    assert ms == pytest.approx(ops / chip_smoke.FP32_OPS_PER_S * 1e3)
+    el, rows = 2048 * 8 * 64, 2048 * 8
+    outs = {"fwd": el + 2 * rows, "dq": el, "dkv": 2 * el}[kind]
+    lse_delta = 0 if kind == "fwd" else 2 * rows
+    nbytes = 2 * in_tensors * el + 4 * (outs + lse_delta)
+    dead_ms, dead_by = chip_smoke.parts_bound(kind, 1, 2048, 2048, 8, 64, 2048, 6144, True, 2)
+    assert dead_by == "bytes"
+    assert dead_ms == pytest.approx(nbytes / chip_smoke.HBM_BYTES_PER_S * 1e3)
+    diag, _ = chip_smoke.parts_bound(kind, 1, 2048, 2048, 8, 64, 6144, 6144, True, 2)
+    assert diag == pytest.approx(ms * 2049 / 4096)
+
+
+def _ring_launches(n=8, parts=64, dead=28, plain=0, plain_bwd=0):
+    kinds = ("fwd", "dq", "dkv")
+    return {"parts": dict.fromkeys(kinds, parts), "dead": dict.fromkeys(kinds, dead),
+            "plain_flash": {"cuda": plain} if plain else {"cpu": 3},
+            "plain_flash_bwd": {"cuda": plain_bwd} if plain_bwd else {}}
+
+
+def test_gate_ring_launches_passes_the_ring():
+    assert chip_smoke.gate_ring_launches(_ring_launches(), 8, True) == \
+        {"fwd": 64, "dq": 64, "dkv": 64}
+    full = _ring_launches(n=4, parts=16)
+    full["dead"] = {}
+    assert chip_smoke.gate_ring_launches(full, 4, False)["fwd"] == 16
+
+
+@pytest.mark.parametrize("bad", [
+    dict(parts=63),             # a step that did not launch
+    dict(dead=27),              # a dead step counted live
+    dict(plain=1),              # the plain version ran on the card
+    dict(plain_bwd=8),          # the plain backward ran on the card
+])
+def test_gate_ring_launches_fails(bad):
+    with pytest.raises(AssertionError, match="ring launch counts"):
+        chip_smoke.gate_ring_launches(_ring_launches(**bad), 8, True)

@@ -66,6 +66,16 @@ def test_port_has_sources():
         assert (PORT / "csrc" / name).is_file(), name
 
 
+@pytest.mark.parametrize("name", ["mesh.py", "collectives.py", "attention.py"])
+def test_parallel_modules_are_scanned(name):
+    """The sequence-parallel tier's modules are among the scanned files
+    and import torch, not JAX."""
+    path = PORT / "parallel" / name
+    assert path in FILES
+    names = _imported_names(path)
+    assert "torch" in names and not any(_forbidden(m) for m in names)
+
+
 @pytest.mark.parametrize("path", FILES, ids=lambda p: str(p.relative_to(ROOT)))
 def test_source_imports_no_jax(path):
     bad = [m for m in _imported_names(path) if _forbidden(m)]

@@ -142,8 +142,8 @@ def test_params_from_jax_refuses_misshapen_and_moe_trees(jax_params):
 @pytest.mark.parametrize("kw,match", [
     (dict(n_experts=4), "models/moe"),
     (dict(pp_stages=2), "pipeline"),
-    (dict(attention="ring"), "Queue B 6-7"),
-    (dict(attention="ulysses"), "Queue B 6-7"),
+    (dict(attention="ring"), "Queue A 9"),
+    (dict(attention="ulysses"), "Queue A 9"),
 ], ids=["moe", "pp", "ring", "ulysses"])
 def test_uncovered_configs_are_refused(kw, match):
     with pytest.raises(NotPortedError, match=match):

@@ -8,8 +8,10 @@ Counterpart of ``cekirdekler_tpu/ops/flash_attention.py``:
 ``torch.autograd.Function``), ``flash_attention``, and the ring-attention
 forms ``flash_attention_parts`` and ``flash_attention_bwd_parts`` (the
 same kernels with ``parts=True``).  The kernels
-(``csrc/flash_attention.cu``, ``csrc/flash_attention_bwd.cu``) take their
-own tile sizes; ``block_q`` and ``block_k`` keep the reference's contract
+(``csrc/flash_attention.cu``; for the backward
+``csrc/flash_attention_bwd_tc.cu`` on bf16 at ``"default"`` and
+``csrc/flash_attention_bwd.cu`` otherwise, see :func:`_bwd_route`) take
+their own tile sizes; ``block_q`` and ``block_k`` keep the reference's contract
 (:func:`_blocks_for` degrades them by gcd and raises on degenerate tiles;
 the parts forms take ``min(block, T)`` and raise where it does not divide
 T) and size the plain versions' blocks, so on the CPU the plain versions
@@ -61,11 +63,12 @@ __all__ = ["flash_attention", "flash_attention_plain", "flash_attention_bwd_plai
            "flash_attention_parts", "flash_attention_parts_plain",
            "flash_attention_bwd_parts", "flash_attention_bwd_parts_plain",
            "auto_block", "default_blocks", "LAUNCHES", "BWD_LAUNCHES", "PARTS_LAUNCHES",
-           "PARTS_DEAD", "PLAIN_RUNS", "PLAIN_BWD_RUNS", "ROUTES", "SOURCE", "SOURCE_BWD",
-           "KERNEL_BLOCK", "MAX_HEAD_DIM"]
+           "PARTS_DEAD", "PLAIN_RUNS", "PLAIN_BWD_RUNS", "ROUTES", "BWD_ROUTES", "SOURCE",
+           "SOURCE_BWD", "SOURCE_BWD_TC", "KERNEL_BLOCK", "MAX_HEAD_DIM"]
 
 SOURCE = Path(__file__).resolve().parents[1] / "csrc" / "flash_attention.cu"
 SOURCE_BWD = Path(__file__).resolve().parents[1] / "csrc" / "flash_attention_bwd.cu"
+SOURCE_BWD_TC = Path(__file__).resolve().parents[1] / "csrc" / "flash_attention_bwd_tc.cu"
 
 _NEG = -1e30  # finite "-inf": exp(_NEG - m) == 0 without nan hazards
 
@@ -92,9 +95,12 @@ PLAIN_RUNS = LaunchCounter()
 PLAIN_BWD_RUNS = LaunchCounter()
 #: :func:`flash_attention` calls, keyed "tiled" or "dense" (the fallback)
 ROUTES = LaunchCounter()
+#: backward kernel launches (single-card and parts), keyed by :func:`_bwd_route`
+BWD_ROUTES = LaunchCounter()
 
 _fwd_fns = None
 _bwd_fns = None
+_bwd_tc_fns = None
 
 
 def auto_block(T: int, target: int = 512, floor: int = 8) -> int | None:
@@ -444,15 +450,46 @@ def _bwd_launchers():
     return _bwd_fns
 
 
+def _bwd_tc_launchers():
+    global _bwd_tc_fns
+    if _bwd_tc_fns is None:
+        lib = build_library(SOURCE_BWD_TC.read_text(), "flash_attention_bwd_tc")
+        dq_fn, dkv_fn = lib.flash_attention_bwd_dq_tc, lib.flash_attention_bwd_dkv_tc
+        head = [ctypes.c_int] * 5 + [ctypes.c_longlong] * 12 + [ctypes.c_float]
+        dq_fn.restype = dkv_fn.restype = ctypes.c_int
+        dq_fn.argtypes = [ctypes.c_void_p] * 7 + head + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+        dkv_fn.argtypes = [ctypes.c_void_p] * 8 + head + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+        _bwd_tc_fns = (dq_fn, dkv_fn)
+    return _bwd_tc_fns
+
+
+def _bwd_route(dtype: torch.dtype, precision: str) -> str:
+    """Which backward kernels take q/k/v/dO of ``dtype`` (as the kernels see
+    them, after the stream cast) at ``precision``: ``"tc"``, the tensor-core
+    kernels of ``csrc/flash_attention_bwd_tc.cu``, for bf16 at
+    ``"default"``, where every operand of the five products is bf16; else
+    ``"fp32"``, the FP32 kernels of ``csrc/flash_attention_bwd.cu``."""
+    return "tc" if dtype == torch.bfloat16 and precision == "default" else "fp32"
+
+
+def _vector_loads(tensors: tuple[torch.Tensor, ...], D: int) -> bool:
+    """Whether the tensor-core kernels may copy rows of ``tensors`` 16 bytes
+    at a time: D and every (batch, time, head) stride a multiple of 8
+    elements and every pointer 16-byte aligned (bf16)."""
+    return D % 8 == 0 and all(
+        t.data_ptr() % 16 == 0 and all(s % 8 == 0 for s in t.stride()[:3]) for t in tensors)
+
+
 def _launch_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, do: torch.Tensor,
                 lse: torch.Tensor, delta: torch.Tensor, causal: bool, precision: str,
                 grad_dtypes: tuple[torch.dtype, torch.dtype, torch.dtype],
                 q_pos0: int = 0, k_pos0: int = 0, parts: bool = False
                 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Launch the two kernels of ``csrc/flash_attention_bwd.cu`` on q's
-    device and current stream: dq, then dk and dv.  ``parts`` counts the
-    launches in :data:`PARTS_LAUNCHES` (the ring's form) instead of
-    :data:`BWD_LAUNCHES`."""
+    """Launch the two backward kernels on q's device and current stream: dq,
+    then dk and dv, from ``csrc/flash_attention_bwd_tc.cu`` or
+    ``csrc/flash_attention_bwd.cu`` as :func:`_bwd_route` says.  ``parts``
+    counts the launches in :data:`PARTS_LAUNCHES` (the ring's form) instead
+    of :data:`BWD_LAUNCHES`; every launch also counts in :data:`BWD_ROUTES`."""
     B, Tq, H, D = q.shape
     Tk = k.shape[1]
     kinds = (torch.float32, torch.bfloat16)
@@ -483,31 +520,40 @@ def _launch_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, do: torch.Ten
     dq, dk, dv = (torch.empty((B, T, H, D), dtype=dt, device=q.device)
                   for T, dt in zip((Tq, Tk, Tk), grad_dtypes))
     is_bf16 = [int(dt == torch.bfloat16) for dt in grad_dtypes]
-    dq_fn, dkv_fn = _bwd_launchers()
+    route = _bwd_route(q.dtype, precision)
+    if route == "tc":
+        dq_fn, dkv_fn = _bwd_tc_launchers()
+        # p' and ds' always round there; the mode flag picks 16-byte copies
+        flags = (int(causal),)
+        mode = (int(_vector_loads((q, k, v, do), D)),)
+    else:
+        dq_fn, dkv_fn = _bwd_launchers()
+        flags = (int(causal), int(q.dtype == torch.bfloat16))
+        mode = (int(precision == "default"),)
     strides = (*q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *do.stride()[:3])
     ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
             delta.data_ptr())
     shape = (B, H, Tq, Tk, D)
-    flags = (int(causal), int(q.dtype == torch.bfloat16))
-    rnd = int(precision == "default")
     offs = (int(q_pos0), int(k_pos0))
     counter = PARTS_LAUNCHES if parts else BWD_LAUNCHES
     dead = parts and _dead(Tq, q_pos0, k_pos0, causal)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = dq_fn(*ptrs, dq.data_ptr(), *shape, *strides, 1.0 / math.sqrt(D), *flags,
-                   is_bf16[0], rnd, *offs, stream)
+                   is_bf16[0], *mode, *offs, stream)
         if rc != 0:
             raise KernelCompileError(f"flash_attention_bwd_dq: CUDA launch failed with error {rc}")
         counter.add("dq")
+        BWD_ROUTES.add(route)
         if dead:
             PARTS_DEAD.add("dq")
         rc = dkv_fn(*ptrs, dk.data_ptr(), dv.data_ptr(), *shape, *strides, 1.0 / math.sqrt(D),
-                    *flags, is_bf16[1], is_bf16[2], rnd, *offs, stream)
+                    *flags, is_bf16[1], is_bf16[2], *mode, *offs, stream)
         if rc != 0:
             raise KernelCompileError(
                 f"flash_attention_bwd_dkv: CUDA launch failed with error {rc}")
         counter.add("dkv")
+        BWD_ROUTES.add(route)
         if dead:
             PARTS_DEAD.add("dkv")
     return dq, dk, dv
@@ -566,6 +612,15 @@ def _row_column(t: torch.Tensor) -> torch.Tensor:
     return t.float().permute(0, 2, 1).reshape(B * H, Tq)
 
 
+def _parts_bwd_precision(dtype: torch.dtype, precision: str) -> str:
+    """The backward parts' precision for operands of ``dtype``: "default"
+    rounds p and ds to the operands' type, as the reference casts them, so
+    f32 operands are not rounded and run at "highest"."""
+    if _precision_str(precision) == "default" and dtype != torch.bfloat16:
+        return "highest"
+    return precision
+
+
 def flash_attention_bwd_parts(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                               do: torch.Tensor, lse: torch.Tensor, delta: torch.Tensor,
                               q_pos0: int = 0, k_pos0: int = 0, causal: bool = False,
@@ -582,10 +637,7 @@ def flash_attention_bwd_parts(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     launches the dq and dk/dv kernels or raises; on a CPU tensor it runs
     the plain version."""
     bq, bk = _parts_blocks(q.shape[1], k.shape[1], block_q, block_k)
-    # "default" rounds p and ds to the operands' type, as the reference
-    # casts them: f32 operands are not rounded
-    if _precision_str(precision) == "default" and q.dtype != torch.bfloat16:
-        precision = "highest"
+    precision = _parts_bwd_precision(q.dtype, precision)
     if q.device.type == "cpu":
         return flash_attention_bwd_parts_plain(q, k, v, do, lse, delta, q_pos0, k_pos0, causal,
                                                bq, bk, precision)

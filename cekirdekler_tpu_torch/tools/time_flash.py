@@ -4,10 +4,11 @@ Times the forward kernel (``_flash_forward``) and the backward's dq and
 dk/dv kernels (``_flash_backward``) at 4x2048x8x64, causal, bf16 at
 "default" (the flagship transformer's train step), by CUDA events over
 ``--reps`` calls after two untimed ones, and each backward kernel from a
-``torch.profiler`` trace of as many calls.  Prints the card's name and
-power limit, then one JSON line.  ``--root DIR`` imports the package from
-the checkout at DIR, so two checkouts compare on one card in one call,
-in turns (A, B, B, A).  Needs a CUDA device.  From the repository root::
+``torch.profiler`` trace of as many calls (by the name prefixes
+``fa_bwd_dq`` / ``fa_bwd_dkv``, which the FP32 and the tensor-core kernels
+share).  Prints the card's name and power limit, then one JSON line.
+``--root DIR`` imports the package from the checkout at DIR, so two
+checkouts compare on one card in one call, in turns (A, B, B, A).  Needs a CUDA device.  From the repository root::
 
     python cekirdekler_tpu_torch/tools/time_flash.py [--root DIR] [--reps 20]
 """
@@ -22,14 +23,20 @@ import sys
 from pathlib import Path
 
 
-def _device_ms(prof, name: str, reps: int) -> float:
+def _device_ms(prof, prefix: str, reps: int) -> float:
+    """Mean device ms per call of the kernels whose names hold ``prefix``
+    (``fa_bwd_dq`` matches the FP32 ``fa_bwd_dq_kernel`` and the tensor-core
+    ``fa_bwd_dq_tc_kernel``, so a parent checkout and the change both
+    read); raises when the trace holds none."""
     total = 0.0
     for evt in prof.key_averages():
-        if name in evt.key:
+        if prefix in evt.key:
             for attr in ("self_device_time_total", "self_cuda_time_total"):
                 if hasattr(evt, attr):
                     total += float(getattr(evt, attr))
                     break
+    if total <= 0.0:
+        raise RuntimeError(f"time_flash: the trace shows no device time for {prefix}*")
     return total / 1e3 / reps
 
 
@@ -79,8 +86,8 @@ def main(argv: list[str] | None = None) -> int:
         for _ in range(args.reps):
             bwd()
         torch.cuda.synchronize()
-    res["dq_ms"] = _device_ms(prof, "fa_bwd_dq_kernel", args.reps)
-    res["dkv_ms"] = _device_ms(prof, "fa_bwd_dkv_kernel", args.reps)
+    res["dq_ms"] = _device_ms(prof, "fa_bwd_dq", args.reps)
+    res["dkv_ms"] = _device_ms(prof, "fa_bwd_dkv", args.reps)
     print(card)
     print(json.dumps(res))
     return 0

@@ -13,8 +13,11 @@ Phases, each of which raises on failure (the script then exits non-zero):
    held against its plain PyTorch version on the same inputs (stated
    tolerances), timed beside the plain version and, where one exists, the
    one PyTorch call computing the same function; the flash backward's two
-   kernels at 4x2048x8x64 causal bf16, 4x1024 causal f32 and 4x2048
-   non-causal bf16, each kernel timed from a ``torch.profiler`` trace;
+   kernels at 4x2048x8x64 causal bf16 and 4x2048 non-causal bf16 (both at
+   "default": the tensor-core kernels of ``csrc/flash_attention_bwd_tc.cu``)
+   and 4x1024 causal f32 (the FP32 kernels), each kernel timed from a
+   ``torch.profiler`` trace under its own name, and two calls of each case
+   equal bit for bit;
    The elementwise kernel (``ops/elementwise.py``) over 2^24 elements:
    ``saxpy`` in f32 and bf16, ``map_blocks(torch.maximum)`` and a
    three-op chain, each bit-exact against its plain version, and one
@@ -61,7 +64,8 @@ Phases, each of which raises on failure (the script then exits non-zero):
    (``__graft_entry__``'s dry-run optimizer) for 8 steps on one seeded
    4x2049 batch (T = 2048): the loss is finite at every step and lower at
    the last than at the first, and with every count set to 0 before them
-   each step launched the forward, dq and dk/dv kernels once per layer and
+   each step launched the forward, dq and dk/dv kernels once per layer,
+   every dq and dk/dv launch on the tensor-core route (``BWD_ROUTES``), and
    no plain flash ran; one step with ``remat=True`` launches the forward
    twice per layer; one step on a 2x97 batch takes the dense route and
    launches no flash kernel.  One step's loss and gradients on the card
@@ -82,7 +86,8 @@ Phases, each of which raises on failure (the script then exits non-zero):
    bf16 ulps of each one's largest magnitude, and the same in f32 at
    1x8192 over sp=4 (output within 1e-5, gradients within 5e-4); (c) with
    every count set to 0 before the sp=8 run, each parts kernel launched 64
-   times, 28 of them on dead blocks, and no plain version on the card; (d)
+   times, 28 of them on dead blocks, the backward's on the FP32 route, and
+   no plain version on the card; (d)
    Ulysses at the same width against the same oracle, and the einsum
    ring's forward against the flash ring's; (e) the ring's forward and
    forward + backward ms and tokens/s beside the single-card kernels'.  A
@@ -346,9 +351,12 @@ def check_flash_bwd(fa, dev) -> tuple[dict, dict]:
     """The flash backward's dq and dk/dv kernels against the plain backward
     (blocks at the kernels' tile width) on the card, from the forward
     kernel's output and lse, at the transformer's shapes (H=8, D=64).  f32
-    at "highest" within 1e-5 of each gradient's largest magnitude, bf16 at
-    "default" within 2 bf16 ulps there.  Each kernel is timed from a
-    profiler trace, the pair and the plain backward by CUDA events, and
+    at "highest" within 1e-5 of each gradient's largest magnitude (the FP32
+    kernels), bf16 at "default" within 2 bf16 ulps there (the tensor-core
+    kernels, whose f32 sums run in another order).  Each case runs on the
+    route ``_bwd_route`` names, and a second call gives the same bits.
+    Each kernel is timed from a profiler trace under its own name, the
+    pair and the plain backward by CUDA events, and
     the library as the device time of ``torch.autograd.grad`` through one
     ``scaled_dot_product_attention`` output (its backward alone, from a
     profiler trace: timed by CUDA events it is bound by the host).
@@ -382,8 +390,19 @@ def check_flash_bwd(fa, dev) -> tuple[dict, dict]:
                                                 fa._delta(out, do), causal, kb, kb, prec,
                                                 (dtype,) * 3)
 
-        got, want = bwd(), plain()
+        route = fa._bwd_route(qs.dtype, prec)
+        names = (("fa_bwd_dq_tc_kernel", "fa_bwd_dkv_tc_kernel") if route == "tc"
+                 else ("fa_bwd_dq_kernel", "fa_bwd_dkv_kernel"))
+        routes = fa.BWD_ROUTES.by_key.get(route, 0)
+        got, again, want = bwd(), bwd(), plain()
         torch.cuda.synchronize()
+        if fa.BWD_ROUTES.by_key.get(route, 0) - routes != 4:
+            raise AssertionError(f"flash backward ({label}) left the {route} route: "
+                                 f"{dict(fa.BWD_ROUTES.by_key)}")
+        for name, a, b in zip(("dq", "dk", "dv"), got, again):
+            bits = torch.int16 if a.element_size() == 2 else torch.int32
+            if not torch.equal(a.view(bits), b.view(bits)):
+                raise AssertionError(f"flash backward {name} ({label}): two calls differ")
         errs = {}
         for name, a, w in zip(("dq", "dk", "dv"), got, want):
             err = float((a.float() - w.float()).abs().max())
@@ -393,7 +412,7 @@ def check_flash_bwd(fa, dev) -> tuple[dict, dict]:
                                      f"err {err} > {tol}")
             errs[name] = (err, tol)
         pair_ms = cuda_ms(bwd, 10)
-        each = profiled_ms(bwd, 10, ("fa_bwd_dq_kernel", "fa_bwd_dkv_kernel"))
+        each = profiled_ms(bwd, 10, names)
         plain_ms = cuda_ms(plain, 2, warmup=1)
         qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_(True) for t in (q, k, v))
         sdpa = F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal)
@@ -402,20 +421,21 @@ def check_flash_bwd(fa, dev) -> tuple[dict, dict]:
         whole, _ = flash_bwd_bound(B, T, H, D, causal, dtype)
         bound_dq = flash_bwd_bound(B, T, H, D, causal, dtype, ops_per_d=6, tensors=5)
         bound_dkv = flash_bwd_bound(B, T, H, D, causal, dtype, ops_per_d=8, tensors=6)
-        print(f"flash backward {label}: dq kernel {each['fa_bwd_dq_kernel']:.4f} ms (bound "
-              f"{bound_dq[0]:.4f}), dkv kernel {each['fa_bwd_dkv_kernel']:.4f} ms (bound "
+        print(f"flash backward {label} ({route} route, two calls equal bit for bit): "
+              f"{names[0]} {each[names[0]]:.4f} ms (bound "
+              f"{bound_dq[0]:.4f}), {names[1]} {each[names[1]]:.4f} ms (bound "
               f"{bound_dkv[0]:.4f}); backward by CUDA events {pair_ms:.4f} ms against its bound "
               f"{whole:.4f} ms; the two kernels and delta by the profiler {each['total']:.4f} ms; "
               f"plain {plain_ms:.4f} ms; SDPA backward {library_ms:.4f} ms; max abs err "
               + ", ".join(f"{n} {e} (tol {t})" for n, (e, t) in errs.items()))
         if rows is None:
             common = dict(plain_ms=plain_ms, library_ms=library_ms)
-            rows = (dict(max_abs_err=errs["dq"][0], ms=each["fa_bwd_dq_kernel"],
+            rows = (dict(max_abs_err=errs["dq"][0], ms=each[names[0]],
                          bound_ms=bound_dq[0], bound_by=bound_dq[1], **common),
                     dict(max_abs_err=max(errs["dk"][0], errs["dv"][0]),
-                         ms=each["fa_bwd_dkv_kernel"], bound_ms=bound_dkv[0],
+                         ms=each[names[1]], bound_ms=bound_dkv[0],
                          bound_by=bound_dkv[1], **common))
-        del q, k, v, do, out, lse, qs, ks, vs, got, want, qt, kt, vt, sdpa
+        del q, k, v, do, out, lse, qs, ks, vs, got, again, want, qt, kt, vt, sdpa
     return rows
 
 
@@ -548,7 +568,7 @@ def _single_card(fa, q, k, v) -> tuple:
 
 def _ring_counters(fa) -> tuple:
     return (fa.LAUNCHES, fa.BWD_LAUNCHES, fa.PARTS_LAUNCHES, fa.PARTS_DEAD, fa.PLAIN_RUNS,
-            fa.PLAIN_BWD_RUNS, fa.ROUTES)
+            fa.PLAIN_BWD_RUNS, fa.ROUTES, fa.BWD_ROUTES)
 
 
 def check_ring(wl, fa, par, dev, card: str, T: int = 16384) -> dict[str, int]:
@@ -564,13 +584,17 @@ def check_ring(wl, fa, par, dev, card: str, T: int = 16384) -> dict[str, int]:
     r = wl.run_ring_attention(mesh, B, T, H, D, torch.bfloat16, causal=True, flash=True,
                               grad=True, seed=5)
     seen = {c: dict(getattr(fa, c).by_key) for c in ("PARTS_LAUNCHES", "PARTS_DEAD",
-                                                   "PLAIN_RUNS", "PLAIN_BWD_RUNS")}
+                                                   "PLAIN_RUNS", "PLAIN_BWD_RUNS",
+                                                   "BWD_ROUTES")}
     print(f"ring {B}x{T}x{H}x{D} bf16 causal over sp={n} on [{dev}] * {n}: launch counts "
           f"{r['launches']}; counters after the run {seen}")
     launches = gate_ring_launches(r["launches"], n, True)
     if fa.LAUNCHES.count or fa.BWD_LAUNCHES.count or seen["PARTS_LAUNCHES"] != launches:
         raise AssertionError("the ring ran other kernels than its parts kernels, or its "
                              f"counts disagree: {seen}")
+    if seen["BWD_ROUTES"] != {"fp32": launches["dq"] + launches["dkv"]}:
+        raise AssertionError(f"the ring's backward parts at \"highest\" left the FP32 kernels: "
+                             f"{seen['BWD_ROUTES']}")
     out_s, grads_s, fwd_s, both_s = _single_card(fa, r["q"], r["k"], r["v"])
     worst = {}
     for name, a, w in zip(("out", "dq", "dk", "dv"), (r["out"], *r["grads"]),
@@ -670,7 +694,8 @@ def check_training(wl, fa, card: str) -> tuple[int, int]:
     opt = adamw(model, 1e-3)
     rng = np.random.default_rng(11)
     batch = {"tokens": torch.from_numpy(rng.integers(0, cfg.vocab, (4, 2049))).cuda()}
-    counters = (fa.LAUNCHES, fa.BWD_LAUNCHES, fa.PLAIN_RUNS, fa.PLAIN_BWD_RUNS, fa.ROUTES)
+    counters = (fa.LAUNCHES, fa.BWD_LAUNCHES, fa.PLAIN_RUNS, fa.PLAIN_BWD_RUNS, fa.ROUTES,
+                fa.BWD_ROUTES)
 
     def run(steps, b, remat=None):
         for counter in counters:
@@ -692,6 +717,12 @@ def check_training(wl, fa, card: str) -> tuple[int, int]:
         raise AssertionError(f"train launch counts (forward, backward, plain forward, plain "
                              f"backward, routes) {seen}, want {want}")
     launches = (seen[1]["dq"], seen[1]["dkv"])
+    routes = dict(fa.BWD_ROUTES.by_key)
+    print(f"train steps 4x2048: backward launches by route {routes} (want all "
+          f"{2 * steps * n} on tc)")
+    if routes != {"tc": 2 * steps * n}:
+        raise AssertionError(f"train backward routes {routes}: want every dq and dk/dv launch "
+                             "on the tensor-core kernels")
 
     tr, seen = run(1, batch, remat=True)
     print(f"one remat step: loss {tr['losses'][0]}, {tr['tokens_per_s'][0]:.1f} tokens/s; "
@@ -1127,7 +1158,9 @@ def main() -> int:
     }
     jobs = {"mandelbrot.cu": (mandel_op.SOURCE.read_text(), "mandelbrot"),
             "flash_attention.cu": (fa_op.SOURCE.read_text(), "flash_attention"),
-            "flash_attention_bwd.cu": (fa_op.SOURCE_BWD.read_text(), "flash_attention_bwd")}
+            "flash_attention_bwd.cu": (fa_op.SOURCE_BWD.read_text(), "flash_attention_bwd"),
+            "flash_attention_bwd_tc.cu": (fa_op.SOURCE_BWD_TC.read_text(),
+                                          "flash_attention_bwd_tc")}
     for name, kdef in programs.items():
         reason = cuda_backend.unsupported_reason(kdef)
         if reason is not None:
@@ -1365,9 +1398,11 @@ def main() -> int:
                         "cekirdekler_tpu/ops/elementwise.py:27"),
         "flash_attention": ("cuda", "cekirdekler_tpu_torch/csrc/flash_attention.cu",
                             "cekirdekler_tpu/ops/flash_attention.py:351"),
-        "flash_attention_bwd_dq": ("cuda", "cekirdekler_tpu_torch/csrc/flash_attention_bwd.cu",
+        "flash_attention_bwd_dq": ("cuda",
+                                   "cekirdekler_tpu_torch/csrc/flash_attention_bwd_tc.cu",
                                    "cekirdekler_tpu/ops/flash_attention.py:661"),
-        "flash_attention_bwd_dkv": ("cuda", "cekirdekler_tpu_torch/csrc/flash_attention_bwd.cu",
+        "flash_attention_bwd_dkv": ("cuda",
+                                    "cekirdekler_tpu_torch/csrc/flash_attention_bwd_tc.cu",
                                     "cekirdekler_tpu/ops/flash_attention.py:661"),
         "flash_attention_parts": ("cuda", "cekirdekler_tpu_torch/csrc/flash_attention.cu",
                                   "cekirdekler_tpu/ops/flash_attention.py:420"),

@@ -62,7 +62,7 @@ def _relative_escapes(path: Path) -> list[str]:
 def test_port_has_sources():
     assert len(FILES) > 15, FILES
     for name in ("mandelbrot.cu", "flash_attention.cu", "flash_attention_bwd.cu",
-                 "elementwise.cu"):
+                 "flash_attention_bwd_tc.cu", "elementwise.cu"):
         assert (PORT / "csrc" / name).is_file(), name
 
 

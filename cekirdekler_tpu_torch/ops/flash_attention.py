@@ -7,11 +7,15 @@ Counterpart of ``cekirdekler_tpu/ops/flash_attention.py``:
 ``_flash_attention_tiled`` custom_vjp (here :class:`_FlashAttention`, a
 ``torch.autograd.Function``), ``flash_attention``, and the ring-attention
 forms ``flash_attention_parts`` and ``flash_attention_bwd_parts`` (the
-same kernels with ``parts=True``).  The kernels
-(``csrc/flash_attention.cu``; for the backward
-``csrc/flash_attention_bwd_tc.cu`` on bf16 at ``"default"`` and
-``csrc/flash_attention_bwd.cu`` otherwise, see :func:`_bwd_route`) take
-their own tile sizes; ``block_q`` and ``block_k`` keep the reference's contract
+same kernels with ``parts=True``).  The single-card forward and every
+backward take the route :func:`_route` names from the operands' dtype
+after the stream cast and the precision: bf16 at ``"default"`` runs the
+tensor-core kernels (``csrc/flash_attention_tc.cu`` forward,
+``csrc/flash_attention_bwd_tc.cu`` backward), every other case the FP32
+ones (``csrc/flash_attention.cu``, ``csrc/flash_attention_bwd.cu``); the
+parts forward always runs the FP32 ``fa_fwd_parts_kernel``.  The kernels
+take their own tile sizes; ``block_q`` and ``block_k`` keep the
+reference's contract
 (:func:`_blocks_for` degrades them by gcd and raises on degenerate tiles;
 the parts forms take ``min(block, T)`` and raise where it does not divide
 T) and size the plain versions' blocks, so on the CPU the plain versions
@@ -64,9 +68,10 @@ __all__ = ["flash_attention", "flash_attention_plain", "flash_attention_bwd_plai
            "flash_attention_bwd_parts", "flash_attention_bwd_parts_plain",
            "auto_block", "default_blocks", "LAUNCHES", "BWD_LAUNCHES", "PARTS_LAUNCHES",
            "PARTS_DEAD", "PLAIN_RUNS", "PLAIN_BWD_RUNS", "ROUTES", "BWD_ROUTES", "SOURCE",
-           "SOURCE_BWD", "SOURCE_BWD_TC", "KERNEL_BLOCK", "MAX_HEAD_DIM"]
+           "SOURCE_TC", "SOURCE_BWD", "SOURCE_BWD_TC", "KERNEL_BLOCK", "MAX_HEAD_DIM"]
 
 SOURCE = Path(__file__).resolve().parents[1] / "csrc" / "flash_attention.cu"
+SOURCE_TC = Path(__file__).resolve().parents[1] / "csrc" / "flash_attention_tc.cu"
 SOURCE_BWD = Path(__file__).resolve().parents[1] / "csrc" / "flash_attention_bwd.cu"
 SOURCE_BWD_TC = Path(__file__).resolve().parents[1] / "csrc" / "flash_attention_bwd_tc.cu"
 
@@ -81,7 +86,8 @@ KERNEL_BLOCK = 64
 #: the largest head dimension the kernel takes
 MAX_HEAD_DIM = 128
 
-#: forward kernel launches (the wrapper adds one per launch on the card)
+#: forward kernel launches (the wrapper adds one per launch on the card),
+#: keyed by :func:`_route`
 LAUNCHES = LaunchCounter()
 #: backward kernel launches, keyed "dq" and "dkv"
 BWD_LAUNCHES = LaunchCounter()
@@ -95,10 +101,11 @@ PLAIN_RUNS = LaunchCounter()
 PLAIN_BWD_RUNS = LaunchCounter()
 #: :func:`flash_attention` calls, keyed "tiled" or "dense" (the fallback)
 ROUTES = LaunchCounter()
-#: backward kernel launches (single-card and parts), keyed by :func:`_bwd_route`
+#: backward kernel launches (single-card and parts), keyed by :func:`_route`
 BWD_ROUTES = LaunchCounter()
 
 _fwd_fns = None
+_fwd_tc_fn = None
 _bwd_fns = None
 _bwd_tc_fns = None
 
@@ -229,6 +236,17 @@ def _fwd_launchers():
     return _fwd_fns
 
 
+def _fwd_tc_launcher():
+    global _fwd_tc_fn
+    if _fwd_tc_fn is None:
+        fn = build_library(SOURCE_TC.read_text(), "flash_attention_tc").flash_attention_fwd_tc
+        fn.restype = ctypes.c_int
+        fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_longlong] * 9
+                       + [ctypes.c_float] + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+        _fwd_tc_fn = fn
+    return _fwd_tc_fn
+
+
 def _check_fwd_operands(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
     """Raise :class:`KernelCompileError` on q/k/v the forward kernel does not take."""
     B, Tq, H, D = q.shape
@@ -251,27 +269,41 @@ def _check_fwd_operands(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> No
 
 
 def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool, precision: str,
-            out_dtype: torch.dtype, with_lse: bool) -> tuple[torch.Tensor, torch.Tensor | None]:
-    """Launch ``csrc/flash_attention.cu`` on q's device and current stream."""
+            out_dtype: torch.dtype, with_lse: bool, route: str | None = None
+            ) -> tuple[torch.Tensor, torch.Tensor | None]:
+    """Launch the forward kernel on q's device and current stream:
+    ``csrc/flash_attention_tc.cu`` or ``csrc/flash_attention.cu`` as
+    :func:`_route` says (``route`` overrides it, for timing the FP32 kernel
+    on bf16 operands), counted in :data:`LAUNCHES` under the route."""
     B, Tq, H, D = q.shape
     Tk = k.shape[1]
     _check_fwd_operands(q, k, v)
     if out_dtype not in (torch.float32, torch.bfloat16):
         raise KernelCompileError(f"flash_attention kernel: unsupported output {out_dtype}")
+    route = route or _route(q.dtype, precision)
+    if route == "tc":
+        if q.dtype != torch.bfloat16:
+            raise KernelCompileError(
+                f"flash_attention tc kernel: q/k/v must be bf16, got {q.dtype}")
+        fn = _fwd_tc_launcher()
+        # p' always rounds there; the last flag picks 16-byte copies
+        flags = (int(causal), int(out_dtype == torch.bfloat16),
+                 int(_vector_loads((q, k, v), D)))
+    else:
+        fn, _ = _fwd_launchers()
+        flags = (int(causal), int(q.dtype == torch.bfloat16), int(out_dtype == torch.bfloat16),
+                 int(precision == "default"))
     out = torch.empty((B, Tq, H, D), dtype=out_dtype, device=q.device)
     lse = (torch.empty((B * H, Tq, 1), dtype=torch.float32, device=q.device)
            if with_lse else None)
-    fn, _ = _fwd_launchers()
     with torch.cuda.device(q.device):
         rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                 None if lse is None else lse.data_ptr(), B, H, Tq, Tk, D,
                 *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], 1.0 / math.sqrt(D),
-                int(causal), int(q.dtype == torch.bfloat16),
-                int(out_dtype == torch.bfloat16), int(precision == "default"),
-                torch.cuda.current_stream(q.device).cuda_stream)
+                *flags, torch.cuda.current_stream(q.device).cuda_stream)
     if rc != 0:
         raise KernelCompileError(f"flash_attention: CUDA launch failed with error {rc}")
-    LAUNCHES.add()
+    LAUNCHES.add(route)
     return out, lse
 
 
@@ -463,12 +495,13 @@ def _bwd_tc_launchers():
     return _bwd_tc_fns
 
 
-def _bwd_route(dtype: torch.dtype, precision: str) -> str:
-    """Which backward kernels take q/k/v/dO of ``dtype`` (as the kernels see
-    them, after the stream cast) at ``precision``: ``"tc"``, the tensor-core
-    kernels of ``csrc/flash_attention_bwd_tc.cu``, for bf16 at
-    ``"default"``, where every operand of the five products is bf16; else
-    ``"fp32"``, the FP32 kernels of ``csrc/flash_attention_bwd.cu``."""
+def _route(dtype: torch.dtype, precision: str) -> str:
+    """Which kernels take operands of ``dtype`` (as the kernels see them,
+    after the stream cast) at ``precision``, forward and backward alike:
+    ``"tc"``, the tensor-core kernels (``csrc/flash_attention_tc.cu``,
+    ``csrc/flash_attention_bwd_tc.cu``), for bf16 at ``"default"``, where
+    every operand of every product is bf16; else ``"fp32"``, the FP32
+    kernels (``csrc/flash_attention.cu``, ``csrc/flash_attention_bwd.cu``)."""
     return "tc" if dtype == torch.bfloat16 and precision == "default" else "fp32"
 
 
@@ -487,7 +520,7 @@ def _launch_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, do: torch.Ten
                 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Launch the two backward kernels on q's device and current stream: dq,
     then dk and dv, from ``csrc/flash_attention_bwd_tc.cu`` or
-    ``csrc/flash_attention_bwd.cu`` as :func:`_bwd_route` says.  ``parts``
+    ``csrc/flash_attention_bwd.cu`` as :func:`_route` says.  ``parts``
     counts the launches in :data:`PARTS_LAUNCHES` (the ring's form) instead
     of :data:`BWD_LAUNCHES`; every launch also counts in :data:`BWD_ROUTES`."""
     B, Tq, H, D = q.shape
@@ -520,7 +553,7 @@ def _launch_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, do: torch.Ten
     dq, dk, dv = (torch.empty((B, T, H, D), dtype=dt, device=q.device)
                   for T, dt in zip((Tq, Tk, Tk), grad_dtypes))
     is_bf16 = [int(dt == torch.bfloat16) for dt in grad_dtypes]
-    route = _bwd_route(q.dtype, precision)
+    route = _route(q.dtype, precision)
     if route == "tc":
         dq_fn, dkv_fn = _bwd_tc_launchers()
         # p' and ds' always round there; the mode flag picks 16-byte copies

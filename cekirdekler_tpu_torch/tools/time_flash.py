@@ -2,11 +2,11 @@
 
 Times the forward kernel (``_flash_forward``) and the backward's dq and
 dk/dv kernels (``_flash_backward``) at 4x2048x8x64, causal, bf16 at
-"default" (the flagship transformer's train step), by CUDA events over
-``--reps`` calls after two untimed ones, and each backward kernel from a
-``torch.profiler`` trace of as many calls (by the name prefixes
-``fa_bwd_dq`` / ``fa_bwd_dkv``, which the FP32 and the tensor-core kernels
-share).  Prints the card's name and power limit, then one JSON line.
+"default" (the flagship transformer's train step), and the forward also
+non-causal, by CUDA events over ``--reps`` calls after two untimed ones,
+and each kernel from a ``torch.profiler`` trace of as many calls (by the
+name prefixes ``fa_fwd``, ``fa_bwd_dq`` and ``fa_bwd_dkv``, which the FP32
+and the tensor-core kernels share).  Prints the card's name and power limit, then one JSON line.
 ``--root DIR`` imports the package from the checkout at DIR, so two
 checkouts compare on one card in one call, in turns (A, B, B, A).  Needs a CUDA device.  From the repository root::
 
@@ -26,8 +26,9 @@ from pathlib import Path
 def _device_ms(prof, prefix: str, reps: int) -> float:
     """Mean device ms per call of the kernels whose names hold ``prefix``
     (``fa_bwd_dq`` matches the FP32 ``fa_bwd_dq_kernel`` and the tensor-core
-    ``fa_bwd_dq_tc_kernel``, so a parent checkout and the change both
-    read); raises when the trace holds none."""
+    ``fa_bwd_dq_tc_kernel``, ``fa_fwd`` the FP32 ``fa_fwd_kernel`` and the
+    tensor-core ``fa_fwd_tc_kernel``, so a parent checkout and the change
+    both read); raises when the trace holds none."""
     total = 0.0
     for evt in prof.key_averages():
         if prefix in evt.key:
@@ -66,12 +67,15 @@ def main(argv: list[str] | None = None) -> int:
     def fwd():
         return fa._flash_forward(q, k, v, True, 512, 512, "default")
 
+    def fwd_full():
+        return fa._flash_forward(q, k, v, False, 512, 512, "default")
+
     def bwd():
         return fa._flash_backward(qs, ks, vs, out, lse, do, True, 512, 512, "default",
                                   (torch.bfloat16,) * 3)
 
     res = {"root": str(Path(args.root).resolve()), "source": fa.__file__, "card": card}
-    for name, fn in (("forward_ms", fwd), ("backward_ms", bwd)):
+    for name, fn in (("forward_ms", fwd), ("forward_full_ms", fwd_full), ("backward_ms", bwd)):
         for _ in range(2):
             fn()
         torch.cuda.synchronize()
@@ -82,6 +86,11 @@ def main(argv: list[str] | None = None) -> int:
         end.record()
         torch.cuda.synchronize()
         res[name] = start.elapsed_time(end) / args.reps
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(args.reps):
+            fwd()
+        torch.cuda.synchronize()
+    res["fwd_kernel_ms"] = _device_ms(prof, "fa_fwd", args.reps)
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(args.reps):
             bwd()

@@ -12,9 +12,15 @@ Phases, each of which raises on failure (the script then exits non-zero):
 3. kernels: each kernel's wrapper on the card at the main path's shapes,
    held against its plain PyTorch version on the same inputs (stated
    tolerances), timed beside the plain version and, where one exists, the
-   one PyTorch call computing the same function; the flash backward's two
-   kernels at 4x2048x8x64 causal bf16 and 4x2048 non-causal bf16 (both at
-   "default": the tensor-core kernels of ``csrc/flash_attention_bwd_tc.cu``)
+   one PyTorch call computing the same function; the flash forward at
+   4x2048x8x64 causal bf16 (with and without the lse) and 4x2048
+   non-causal bf16 at "default" (the tensor-core kernel of
+   ``csrc/flash_attention_tc.cu``, two calls equal bit for bit, the FP32
+   kernel timed beside it on the same inputs) and 4x1024 causal f32 at
+   "highest" (the FP32 kernel), each on its asserted route; the flash
+   backward's two kernels at 4x2048x8x64 causal bf16 and 4x2048
+   non-causal bf16 (both at "default": the tensor-core kernels of
+   ``csrc/flash_attention_bwd_tc.cu``)
    and 4x1024 causal f32 (the FP32 kernels), each kernel timed from a
    ``torch.profiler`` trace under its own name, and two calls of each case
    equal bit for bit;
@@ -56,8 +62,8 @@ Phases, each of which raises on failure (the script then exits non-zero):
    count set to 0 it answers four request batches (4x2048, 8x1024, 16x256
    and 4x96, which takes the dense fallback); then the counts are read:
    the flash kernel launched once per layer for each of the three tiled
-   batches, the dense fallback ran only for the T=96 batch, and the plain
-   flash version never ran.  One 1x2048 batch's logits are held against
+   batches, every launch on the tensor-core route, the dense fallback ran
+   only for the T=96 batch, and the plain flash version never ran.  One 1x2048 batch's logits are held against
    the same weights on the CPU (plain versions), and an f32 model's at
    1x1024;
 7. transformer train: the same model trained with ``adamw(model, 1e-3)``
@@ -65,10 +71,10 @@ Phases, each of which raises on failure (the script then exits non-zero):
    4x2049 batch (T = 2048): the loss is finite at every step and lower at
    the last than at the first, and with every count set to 0 before them
    each step launched the forward, dq and dk/dv kernels once per layer,
-   every dq and dk/dv launch on the tensor-core route (``BWD_ROUTES``), and
-   no plain flash ran; one step with ``remat=True`` launches the forward
-   twice per layer; one step on a 2x97 batch takes the dense route and
-   launches no flash kernel.  One step's loss and gradients on the card
+   every launch on the tensor-core route (``LAUNCHES`` and ``BWD_ROUTES``
+   by key), and no plain flash ran; one step with ``remat=True`` launches
+   the forward twice per layer, on the same route; one step on a 2x97
+   batch takes the dense route and launches no flash kernel.  One step's loss and gradients on the card
    are held against the CPU's (plain versions) from the same weights: f32
    at 1x1024, bf16 at 1x2048 beside the CPU's own bf16-vs-f32 gap; and
    the gradients with remat against those without it;
@@ -295,31 +301,50 @@ def bf16_ulps(t, n: float = 2.0) -> float:
 
 
 def check_flash(fa, dev) -> dict:
-    """The flash kernel against its plain version (key blocks at the
-    kernel's tile width) on the card at the transformer's shapes (H=8,
+    """The flash forward kernel against its plain version (key blocks at
+    the kernel's tile width) on the card at the transformer's shapes (H=8,
     D=64).  f32 at "highest" within 1e-5, bf16 at "default" within 2 bf16
     ulps of the output's largest magnitude, the lse within 1e-5.  Each case
-    is timed beside the plain version and ``scaled_dot_product_attention``;
-    returns the kernels-line row of the first (the 4x2048 causal bf16
-    forward of the model's tiled batch)."""
+    runs on the route ``_route`` names (the tensor-core kernel of
+    ``csrc/flash_attention_tc.cu`` for bf16 at "default", the FP32 kernel
+    of ``csrc/flash_attention.cu`` for f32 at "highest"), and a tc case's
+    second call gives the same bits.  Each case is timed beside the plain
+    version and ``scaled_dot_product_attention``, and the first also by the
+    FP32 kernel on the same bf16 inputs; returns the kernels-line row of
+    the first (the 4x2048 causal bf16 forward of the model's tiled batch)."""
     import torch
     import torch.nn.functional as F
 
     g = torch.Generator().manual_seed(2024)
     H, D = 8, 64
-    cases = (  # label, B, T, causal, dtype, precision, with_lse
-        ("4x2048 causal bf16 default", 4, 2048, True, torch.bfloat16, "default", False),
-        ("4x2048 causal bf16 default + lse", 4, 2048, True, torch.bfloat16, "default", True),
-        ("4x1024 causal f32 highest", 4, 1024, True, torch.float32, "highest", False),
-        ("4x2048 full bf16 default", 4, 2048, False, torch.bfloat16, "default", False),
+    cases = (  # label, B, T, causal, dtype, precision, with_lse, route
+        ("4x2048 causal bf16 default", 4, 2048, True, torch.bfloat16, "default", False, "tc"),
+        ("4x2048 causal bf16 default + lse", 4, 2048, True, torch.bfloat16, "default", True,
+         "tc"),
+        ("4x1024 causal f32 highest", 4, 1024, True, torch.float32, "highest", False, "fp32"),
+        ("4x2048 full bf16 default", 4, 2048, False, torch.bfloat16, "default", False, "tc"),
     )
     row = None
-    for label, B, T, causal, dtype, prec, with_lse in cases:
+    for label, B, T, causal, dtype, prec, with_lse, route in cases:
         q, k, v = (torch.randn(B, T, H, D, generator=g).to(dtype).to(dev) for _ in range(3))
+        before = dict(fa.LAUNCHES.by_key)
         res = fa._flash_forward(q, k, v, causal, 512, 512, prec, with_lse=with_lse)
         out = res[0] if with_lse else res
         want, want_lse = fa.flash_attention_plain(q, k, v, causal, fa.KERNEL_BLOCK, prec, dtype)
         torch.cuda.synchronize()
+        launched = {key: n - before.get(key, 0) for key, n in fa.LAUNCHES.by_key.items()
+                    if n != before.get(key, 0)}
+        if launched != {route: 1}:
+            raise AssertionError(f"flash forward ({label}) launched {launched}, want one on "
+                                 f"the {route} route")
+        if route == "tc":
+            again = fa._flash_forward(q, k, v, causal, 512, 512, prec, with_lse=with_lse)
+            pairs = ((res[0], again[0]), (res[1], again[1])) if with_lse else ((res, again),)
+            for a, b in pairs:
+                bits = torch.int16 if a.element_size() == 2 else torch.int32
+                if not torch.equal(a.view(bits), b.view(bits)):
+                    raise AssertionError(f"flash forward ({label}): two calls differ")
+            del again
         err = float((out.float() - want.float()).abs().max())
         tol = 1e-5 if dtype == torch.float32 else bf16_ulps(want)
         if not bool(torch.isfinite(out).all()) or err > tol:
@@ -337,9 +362,20 @@ def check_flash(fa, dev) -> dict:
         library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt,
                                                                    is_causal=causal), 10)
         bound_ms, bound_by = flash_bound(B, T, T, H, D, causal, dtype)
-        print(f"flash {label}: kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  sdpa "
-              f"{library_ms:.4f} ms  bound {bound_ms:.4f} ms ({bound_by})  max_abs_err {err} "
-              f"(tol {tol})" + ("" if lse_err is None else f"  lse err {lse_err}"))
+        fp32 = ""
+        if row is None:
+            # the FP32 kernel on the same bf16 inputs, as the route was before
+            old, _ = fa._launch(q, k, v, causal, prec, dtype, False, route="fp32")
+            old_ms = cuda_ms(lambda: fa._launch(q, k, v, causal, prec, dtype, False,
+                                                route="fp32"), 10)
+            fp32 = (f"  FP32 kernel {old_ms:.4f} ms (max_abs_err "
+                    f"{float((old.float() - want.float()).abs().max())})")
+            del old
+        print(f"flash {label} ({route} route"
+              + (", two calls equal bit for bit" if route == "tc" else "")
+              + f"): kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  sdpa {library_ms:.4f} ms  bound "
+              f"{bound_ms:.4f} ms ({bound_by})  max_abs_err {err} (tol {tol})"
+              + ("" if lse_err is None else f"  lse err {lse_err}") + fp32)
         if row is None:
             row = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
                        bound_ms=bound_ms, bound_by=bound_by)
@@ -354,7 +390,7 @@ def check_flash_bwd(fa, dev) -> tuple[dict, dict]:
     at "highest" within 1e-5 of each gradient's largest magnitude (the FP32
     kernels), bf16 at "default" within 2 bf16 ulps there (the tensor-core
     kernels, whose f32 sums run in another order).  Each case runs on the
-    route ``_bwd_route`` names, and a second call gives the same bits.
+    route ``_route`` names, and a second call gives the same bits.
     Each kernel is timed from a profiler trace under its own name, the
     pair and the plain backward by CUDA events, and
     the library as the device time of ``torch.autograd.grad`` through one
@@ -390,7 +426,7 @@ def check_flash_bwd(fa, dev) -> tuple[dict, dict]:
                                                 fa._delta(out, do), causal, kb, kb, prec,
                                                 (dtype,) * 3)
 
-        route = fa._bwd_route(qs.dtype, prec)
+        route = fa._route(qs.dtype, prec)
         names = (("fa_bwd_dq_tc_kernel", "fa_bwd_dkv_tc_kernel") if route == "tc"
                  else ("fa_bwd_dq_kernel", "fa_bwd_dkv_kernel"))
         routes = fa.BWD_ROUTES.by_key.get(route, 0)
@@ -701,7 +737,7 @@ def check_training(wl, fa, card: str) -> tuple[int, int]:
         for counter in counters:
             counter.reset()
         tr = wl.run_transformer_train(model, opt, b, steps, remat=remat)
-        seen = (fa.LAUNCHES.count, dict(fa.BWD_LAUNCHES.by_key), fa.PLAIN_RUNS.count,
+        seen = (dict(fa.LAUNCHES.by_key), dict(fa.BWD_LAUNCHES.by_key), fa.PLAIN_RUNS.count,
                 fa.PLAIN_BWD_RUNS.count, dict(fa.ROUTES.by_key))
         return tr, seen
 
@@ -712,28 +748,28 @@ def check_training(wl, fa, card: str) -> tuple[int, int]:
         print(f"train step {i}: {tps:.1f} tokens/s ({sec * 1e3:.3f} ms, CUDA events) on {card}")
     if not all(np.isfinite(tr["losses"])) or not tr["losses"][-1] < tr["losses"][0]:
         raise AssertionError(f"train losses not finite or not falling: {tr['losses']}")
-    want = (steps * n, {"dq": steps * n, "dkv": steps * n}, 0, 0, {"tiled": steps * n})
+    want = ({"tc": steps * n}, {"dq": steps * n, "dkv": steps * n}, 0, 0, {"tiled": steps * n})
     if seen != want or tr["launches"]["flash_attention"] != steps * n:
-        raise AssertionError(f"train launch counts (forward, backward, plain forward, plain "
-                             f"backward, routes) {seen}, want {want}")
+        raise AssertionError(f"train launch counts (forward by route, backward, plain forward, "
+                             f"plain backward, routes) {seen}, want {want}")
     launches = (seen[1]["dq"], seen[1]["dkv"])
     routes = dict(fa.BWD_ROUTES.by_key)
-    print(f"train steps 4x2048: backward launches by route {routes} (want all "
-          f"{2 * steps * n} on tc)")
+    print(f"train steps 4x2048: forward launches by route {seen[0]} (want all {steps * n} on "
+          f"tc), backward launches by route {routes} (want all {2 * steps * n} on tc)")
     if routes != {"tc": 2 * steps * n}:
         raise AssertionError(f"train backward routes {routes}: want every dq and dk/dv launch "
                              "on the tensor-core kernels")
 
     tr, seen = run(1, batch, remat=True)
     print(f"one remat step: loss {tr['losses'][0]}, {tr['tokens_per_s'][0]:.1f} tokens/s; "
-          f"launch counts {tr['launches']}")
-    want = (2 * n, {"dq": n, "dkv": n}, 0, 0, {"tiled": 2 * n})
+          f"launch counts {tr['launches']}; forward launches by route {seen[0]}")
+    want = ({"tc": 2 * n}, {"dq": n, "dkv": n}, 0, 0, {"tiled": 2 * n})
     if seen != want:
         raise AssertionError(f"remat step launch counts {seen}, want {want}")
     short = {"tokens": torch.from_numpy(rng.integers(0, cfg.vocab, (2, 97))).cuda()}
     tr, seen = run(1, short)
     print(f"one 2x96 step (dense route): loss {tr['losses'][0]}; launch counts {tr['launches']}")
-    if seen != (0, {}, 0, 0, {"dense": n}) or not np.isfinite(tr["losses"][0]):
+    if seen != ({}, {}, 0, 0, {"dense": n}) or not np.isfinite(tr["losses"][0]):
         raise AssertionError(f"2x96 step: launch counts {seen}, want the dense route only")
 
     # remat recomputes each block from the same inputs: the same gradients
@@ -795,8 +831,8 @@ def check_transformer(wl, fa, card: str) -> int:
         counter.reset()
     tr = wl.run_transformer_forward(model, batches, keep="argmax")
     launches = tr["launches"]
-    print(f"transformer launch counts: {launches}; flash LAUNCHES {fa.LAUNCHES.count}, "
-          f"plain runs {dict(fa.PLAIN_RUNS.by_key)}")
+    print(f"transformer launch counts: {launches}; flash LAUNCHES {fa.LAUNCHES.count} by route "
+          f"{dict(fa.LAUNCHES.by_key)}, plain runs {dict(fa.PLAIN_RUNS.by_key)}")
     tiled = sum(fa.default_blocks(t) is not None for _, t in wl.REQUEST_BATCHES)
     want = cfg.n_layers * tiled
     if fa.LAUNCHES.count != want or launches["flash_attention"] != want:
@@ -805,6 +841,9 @@ def check_transformer(wl, fa, card: str) -> int:
     if launches["routes"] != {"tiled": want, "dense": cfg.n_layers}:
         raise AssertionError(f"attention routes {launches['routes']}: want {want} tiled and "
                              f"the dense fallback once per layer for the T=96 batch only")
+    if dict(fa.LAUNCHES.by_key) != {"tc": want}:
+        raise AssertionError(f"flash forward routes {dict(fa.LAUNCHES.by_key)}: want all {want} "
+                             "on the tensor-core kernel")
     if fa.PLAIN_RUNS.count != 0:
         raise AssertionError(f"plain flash ran on the transformer path: {fa.PLAIN_RUNS.by_key}")
     for (b, t), ids, tps, sec in zip(wl.REQUEST_BATCHES, tr["outputs"], tr["tokens_per_s"],
@@ -1158,6 +1197,7 @@ def main() -> int:
     }
     jobs = {"mandelbrot.cu": (mandel_op.SOURCE.read_text(), "mandelbrot"),
             "flash_attention.cu": (fa_op.SOURCE.read_text(), "flash_attention"),
+            "flash_attention_tc.cu": (fa_op.SOURCE_TC.read_text(), "flash_attention_tc"),
             "flash_attention_bwd.cu": (fa_op.SOURCE_BWD.read_text(), "flash_attention_bwd"),
             "flash_attention_bwd_tc.cu": (fa_op.SOURCE_BWD_TC.read_text(),
                                           "flash_attention_bwd_tc")}
@@ -1396,7 +1436,7 @@ def main() -> int:
                        "cekirdekler_tpu/ops/mandelbrot.py:81"),
         "elementwise": ("cuda", "cekirdekler_tpu_torch/csrc/elementwise.cu",
                         "cekirdekler_tpu/ops/elementwise.py:27"),
-        "flash_attention": ("cuda", "cekirdekler_tpu_torch/csrc/flash_attention.cu",
+        "flash_attention": ("cuda", "cekirdekler_tpu_torch/csrc/flash_attention_tc.cu",
                             "cekirdekler_tpu/ops/flash_attention.py:351"),
         "flash_attention_bwd_dq": ("cuda",
                                    "cekirdekler_tpu_torch/csrc/flash_attention_bwd_tc.cu",

@@ -1,6 +1,6 @@
 """Which kernels the flash backward takes, and what its card gate allows.
 
-``ops/flash_attention._bwd_route`` sends bf16 q/k/v/dO at ``"default"`` to
+``ops/flash_attention._route`` sends bf16 q/k/v/dO at ``"default"`` to
 the tensor-core kernels (``csrc/flash_attention_bwd_tc.cu``) and every other
 case to the FP32 kernels (``csrc/flash_attention_bwd.cu``).  The kernels run
 only on the card (``tests/test_torch_card.py``); here, on the CPU, the
@@ -43,7 +43,7 @@ def test_bwd_route(dtype, precision, route):
     """bf16 at "default" takes the tensor-core kernels, the rest the FP32
     ones.  (The single-card backward stream-casts f32 to bf16 under
     "default" before it routes, so an f32 model at "default" reaches "tc".)"""
-    assert fa._bwd_route(dtype, precision) == route
+    assert fa._route(dtype, precision) == route
 
 
 @pytest.mark.parametrize("dtype, precision, route", [
@@ -55,7 +55,7 @@ def test_bwd_route(dtype, precision, route):
 def test_parts_backward_route(dtype, precision, route):
     """The parts form demotes "default" to "highest" on f32 operands (they
     are not rounded), so only bf16 at "default" reaches the tensor cores."""
-    assert fa._bwd_route(dtype, fa._parts_bwd_precision(dtype, precision)) == route
+    assert fa._route(dtype, fa._parts_bwd_precision(dtype, precision)) == route
 
 
 def test_parts_backward_precision_refuses_unknown():

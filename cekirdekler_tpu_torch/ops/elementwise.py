@@ -20,10 +20,14 @@ Types: ``float32`` and ``int32`` compute in their own type; ``bfloat16``
 and ``float16`` compute each op in f32 and round to the storage type
 after every op, as PyTorch's eager ops do, with a Python scalar in an
 arithmetic op taken at f32 and one in a comparison rounded to the storage
-type first (PyTorch's CPU rules).  Mixed input dtypes promote as PyTorch
-promotes them; the result has ``arrays[0].dtype``.  Constants are printed
-as exact hex-float literals, and the build keeps products unfused
-(``-fmad=false``), so ``y + a*x`` rounds ``a*x`` as the plain version does.
+type first (PyTorch's CPU rules).  On the card the roundings are the
+conversion instructions PyTorch's CUDA kernels use, so a NaN stores as
+0x7fff; the host build rounds in software and stores a NaN as ATen's
+vectorized CPU conversion does (bf16 0xffff).  Mixed input dtypes
+promote as PyTorch promotes them; the result has ``arrays[0].dtype``.
+Constants are printed as exact hex-float literals, and the build keeps
+products unfused (``-fmad=false``), so ``y + a*x`` rounds ``a*x`` as the
+plain version does.
 
 Like ``jax.jit``, the trace is cached per function object: a global that
 ``fn`` reads is baked in when ``fn`` is first traced.
@@ -72,6 +76,7 @@ _ITEMSIZE = {"f32": 4, "i32": 4, "bf16": 2, "f16": 2}
 _ROUND = {"bf16": "ck_rbf16", "f16": "ck_rf16"}
 _LOAD = {"f32": "{}", "i32": "{}", "bf16": "ck_bf16_value({})", "f16": "ck_f16_value({})"}
 _STORE = {"f32": "{}", "i32": "{}", "bf16": "ck_bf16_bits({})", "f16": "ck_f16_bits({})"}
+_PAIR = {"bf16": "ck_bf16x2_bits", "f16": "ck_f16x2_bits"}  # two stored values, one cvt
 
 
 # ---------------------------------------------------------------------------
@@ -267,7 +272,9 @@ class _Emitter:
         conv = f"((float)({code}))"  # from an int or a bool
         return f"{_ROUND[t]}({conv})" if t in _ROUND else conv
 
-    def node(self, n: _Node) -> str:
+    def node(self, n: _Node, final: bool = False) -> str:
+        """``n`` as a named value; ``final`` leaves out a bf16/f16 root's
+        last rounding, which the store's conversion makes."""
         key = id(n)
         if key in self.names:
             return self.names[key]
@@ -300,7 +307,7 @@ class _Emitter:
                     fn = {"abs": "fabsf", "exp": "expf", "tanh": "tanhf", "max": "ck_fmax",
                           "min": "ck_fmin"}[n.op]
                     code = f"{fn}({', '.join(args)})"
-                if t in _ROUND and n.op not in ("neg", "abs", "max", "min"):
+                if t in _ROUND and n.op not in ("neg", "abs", "max", "min") and not final:
                     code = f"{_ROUND[t]}({code})"
         name = f"t{len(self.names)}"
         self.lines.append(f"  const {_COMPUTE_C[t]} {name} = {code};")
@@ -310,27 +317,53 @@ class _Emitter:
 
 def _emit(root: _Node, dtypes: tuple[str, ...], out: str) -> str:
     em = _Emitter()
-    result = em.value(root, out)
+    # a bf16/f16 result is rounded once, by the store's conversion
+    if root.dtype == out:
+        result = em.node(root, final=True)
+    else:
+        result = em.value(root, "f32" if out in _ROUND else out)
     params = ", ".join(f"{_COMPUTE_C[t]} a{i}" for i, t in enumerate(dtypes))
     vec = 16 // max(_ITEMSIZE[t] for t in (*dtypes, out))
-    loads_v = [f"  const CkVec<{_STORAGE_C[t]}, {vec}> v{i} = "
-               f"ck_vload<{_STORAGE_C[t]}, {vec}>(a.in[{i}], i);" for i, t in enumerate(dtypes)]
-    call_v = ", ".join(_LOAD[t].format(f"v{i}.v[k]") for i, t in enumerate(dtypes))
+    so = _STORAGE_C[out]
+    ptrs = [f"  const {_STORAGE_C[t]}* __restrict__ p{i} = (const {_STORAGE_C[t]}*)a.in[{i}];"
+            for i, t in enumerate(dtypes)]
+    regs = " ".join(f"CkVec<{_STORAGE_C[t]}, {vec}> x{i}[U];" for i, t in enumerate(dtypes))
+    loads = [f"    x{i}[u] = ck_vload<{_STORAGE_C[t]}, {vec}>(p{i}, (v + u * nt) * CK_VEC);"
+             for i, t in enumerate(dtypes)]
+
+    def call(k: str) -> str:
+        args = ", ".join(_LOAD[t].format(f"x{i}[u].v[{k}]") for i, t in enumerate(dtypes))
+        return f"ck_fn({args})"
+
+    if out in _PAIR:
+        compute = (f"    for (int k = 0; k < {vec}; k += 2) "
+                   f"{_PAIR[out]}(&r.v[k], {call('k')}, {call('k + 1')});")
+    else:
+        compute = f"    for (int k = 0; k < {vec}; ++k) r.v[k] = {_STORE[out].format(call('k'))};"
     call_1 = ", ".join(_LOAD[t].format(f"((const {_STORAGE_C[t]}*)a.in[{i}])[i]")
                        for i, t in enumerate(dtypes))
-    so = _STORAGE_C[out]
     return "\n".join([
         f"#define CK_VEC {vec}",
         f"CK_D {_COMPUTE_C[out]} ck_fn({params}) {{",
         *em.lines,
         f"  return {result};",
         "}",
-        "CK_D void ck_vec(const CkArgs& a, long long i) {",
-        *loads_v,
-        f"  CkVec<{so}, {vec}> r;",
+        "template <int U>",
+        "CK_D void ck_vecs(const CkArgs& a, long long v, long long nt) {",
+        *ptrs,
+        f"  {so}* __restrict__ po = ({so}*)a.out;",
+        f"  {regs}",
         "#pragma unroll",
-        f"  for (int k = 0; k < {vec}; ++k) r.v[k] = {_STORE[out].format(f'ck_fn({call_v})')};",
-        f"  ck_vstore<{so}, {vec}>(a.out, i, r);",
+        "  for (int u = 0; u < U; ++u) {",
+        *loads,
+        "  }",
+        "#pragma unroll",
+        "  for (int u = 0; u < U; ++u) {",
+        f"    CkVec<{so}, {vec}> r;",
+        "#pragma unroll",
+        compute,
+        f"    ck_vstore<{so}, {vec}>(po, (v + u * nt) * CK_VEC, r);",
+        "  }",
         "}",
         "CK_D void ck_one(const CkArgs& a, long long i) {",
         f"  (({so}*)a.out)[i] = {_STORE[out].format(f'ck_fn({call_1})')};",
@@ -396,31 +429,22 @@ def launcher(source: str, compiler: str = "nvcc") -> Callable:
         fn = lib.ew_launch
         fn.restype = ctypes.c_int
         fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
-                       ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p]
+                       ctypes.c_int, ctypes.c_void_p]
         _launchers[key] = fn
     return fn
 
 
-def block_rows_for(n: int, block_rows: int) -> int:
-    """The block height the TPU kernel takes for ``n`` elements: at most
-    ``block_rows``, halved until it divides ``n / 128``."""
-    rows_total = n // _LANES
-    rows = min(block_rows, rows_total)
-    while rows_total % rows != 0:
-        rows //= 2
-    return max(rows, 1)
-
-
-def run(launch: Callable, out: torch.Tensor, arrays, block_rows: int, stream) -> None:
+def run(launch: Callable, out: torch.Tensor, arrays, stream) -> None:
     """Launch ``ew_launch`` over ``arrays`` into ``out`` (all contiguous,
     one device, ``out.numel()`` elements): vector loads when every pointer
     is aligned to 16 bytes' worth of its widest element, else scalar."""
-    n = out.numel()
-    width = 16 // max(t.element_size() for t in (*arrays, out))
-    vec = int(all(t.data_ptr() % (width * t.element_size()) == 0 for t in (*arrays, out)))
-    ptrs = (ctypes.c_void_p * max(1, len(arrays)))(*[t.data_ptr() for t in arrays])
-    rc = launch(out.data_ptr(), ptrs, len(arrays), n, block_rows_for(n, block_rows) * _LANES,
-                vec, stream)
+    tensors = (*arrays, out)
+    sizes = [t.element_size() for t in tensors]
+    ptrs = [t.data_ptr() for t in tensors]
+    width = 16 // max(sizes)
+    vec = int(all(p % (width * z) == 0 for p, z in zip(ptrs, sizes)))
+    ins = (ctypes.c_void_p * max(1, len(arrays)))(*ptrs[:-1])
+    rc = launch(ptrs[-1], ins, len(arrays), out.numel(), vec, stream)
     if rc != 0:
         raise KernelCompileError(f"map_blocks: elementwise kernel launch failed with error {rc}")
 
@@ -457,14 +481,19 @@ def map_blocks(fn: Callable, *arrays: torch.Tensor, block_rows: int = 256,
     that length and dtype on the same device, which may be one of the
     inputs but may not partly overlap one.  On CUDA tensors this launches
     the elementwise kernel on the current stream or raises; on CPU tensors
-    it runs :func:`map_blocks_plain`.  ``block_rows`` sets the kernel's
-    tile (``block_rows * 128`` elements, reduced to divide the length, as
-    the TPU kernel's block); the result does not depend on it."""
+    it runs :func:`map_blocks_plain`.  ``block_rows`` is the TPU kernel's
+    block height, kept for the JAX package's signature: the card's kernel
+    sizes its grid from the SM count instead, and the result depends on
+    neither."""
     n = _validate(arrays)
     dev = arrays[0].device
-    if any(a.device != dev for a in arrays):
-        raise KernelCompileError("map_blocks: all arrays must lie on one device")
-    dtypes = tuple(a.dtype for a in arrays)
+    dtypes, contiguous = [], True
+    for a in arrays:  # one pass over the inputs: device, dtype, layout
+        if a.device != dev:
+            raise KernelCompileError("map_blocks: all arrays must lie on one device")
+        dtypes.append(a.dtype)
+        contiguous = contiguous and a.is_contiguous()
+    dtypes = tuple(dtypes)
     src = _source_for(fn, dtypes)  # the op table holds on every device
     if out is not None:
         if (tuple(out.shape) != (n,) or out.dtype != dtypes[0] or out.device != dev
@@ -478,11 +507,11 @@ def map_blocks(fn: Callable, *arrays: torch.Tensor, block_rows: int = 256,
         return r if out is None else out.copy_(r)
     if dev.type != "cuda":
         raise KernelCompileError(f"map_blocks: unsupported device {dev}")
-    if not all(a.is_contiguous() for a in arrays):
+    if not contiguous:
         raise KernelCompileError("map_blocks: the kernel takes contiguous tensors")
     if out is None:
         out = torch.empty(n, dtype=dtypes[0], device=dev)
-    run(launcher(src), out, arrays, block_rows, torch.cuda.current_stream(dev).cuda_stream)
+    run(launcher(src), out, arrays, torch.cuda.current_stream(dev).cuda_stream)
     LAUNCHES.add()
     return out
 

@@ -24,16 +24,23 @@ Phases, each of which raises on failure (the script then exits non-zero):
    and 4x1024 causal f32 (the FP32 kernels), each kernel timed from a
    ``torch.profiler`` trace under its own name, and two calls of each case
    equal bit for bit;
-   The elementwise kernel (``ops/elementwise.py``) over 2^24 elements:
-   ``saxpy`` in f32 and bf16, ``map_blocks(torch.maximum)`` and a
-   three-op chain, each bit-exact against its plain version, and one
-   ``block_rows`` other than 256 giving the same result;
+   the emitted streamAdd and saxpy at 2^24 and 2^20 floats, bit-exact and
+   on the emitter's streaming form, and the emitted mandelbrot and n-body;
+   the elementwise kernel (``ops/elementwise.py``) over 2^24 and 2^20
+   elements: ``saxpy`` in f32 and bf16, ``map_blocks(torch.maximum)`` and
+   a three-op chain, each bit-exact against its plain version, and one
+   ``block_rows`` other than 256 giving the same result.  The emitted and
+   elementwise kernels are timed by the profiler (their own device time,
+   the kernels line's ``ms``) beside the CUDA-event mean of the wrapper's
+   calls, and the PyTorch call by the profiler;
 4. main path: with every launch count set to 0, the BASELINE workloads
    through ``ClArray.compute`` on the GPU lane — mandelbrot 2048x2048x256
    by the C-subset route and by the hand kernel (images equal
    ``mandelbrot_host`` exactly), n-body at n = 8192 (the ±0.01 host check),
    streamAdd and saxpy — then the counts are read: every kernel of the path
-   must have launched, and the torch lowering must not have run;
+   must have launched, streamAdd and saxpy only on the emitter's streaming
+   form and mandelbrot and n-body only on its item form
+   (``cuda_backend.FORMS``), and the torch lowering must not have run;
    enqueue mode, each path with the counts set to 0 just before it and read
    just after: (b) a ``@kernel`` saxpy over the elementwise kernel
    (``workloads.saxpy_kernel``) at 2^24 floats, 64 calls, ``barrier()``,
@@ -245,6 +252,66 @@ def profiled_ms(fn, reps: int, names: tuple[str, ...] = ()) -> dict[str, float]:
     if not all(out.values()):
         raise AssertionError(f"the profiler shows no device time for a kernel: {out}")
     return out
+
+
+def kernel_ms(fn, prefix: str, reps: int) -> tuple[float, float]:
+    """(device ms of one ``fn()``'s kernels whose names hold ``prefix``,
+    from a profiler trace; the CUDA-event mean ms of back-to-back calls,
+    which also holds the host's gaps between launches)."""
+    return profiled_ms(fn, reps, (prefix,))[prefix], cuda_ms(fn, reps)
+
+
+def gate_forms(forms: dict, want: dict[str, str]) -> None:
+    """Each named emitted kernel launched on the form ``want`` names, and
+    never on the other (``cuda_backend.FORMS``, keyed (name, form))."""
+    for name, form in want.items():
+        other = "item" if form == "stream" else "stream"
+        if forms.get((name, form), 0) <= 0 or forms.get((name, other), 0) != 0:
+            raise AssertionError(f"emitted {name} should launch on the {form} form only: "
+                                 f"{forms}")
+
+
+def check_emitter_stream(cuda_backend, emitted, dev, n: int) -> dict[str, dict]:
+    """The emitted streamAdd and saxpy at ``n`` floats against the torch
+    lowering on the card, bit for bit, on the streaming form; each timed by
+    the profiler (its kernel) and by CUDA events (the wrapper's calls),
+    beside the one PyTorch call computing it (the profiler's device time).
+    Returns their kernels-line rows."""
+    import torch
+
+    g = torch.Generator(device="cpu").manual_seed(1234 + n)
+    a, b = (torch.rand(n, generator=g).to(dev) for _ in range(2))
+    alpha = 1.5
+    cases = (  # name, arrays for the kernel, for the plain version, values, library call
+        ("streamAdd", (a, b, torch.zeros(n, device=dev)), (a, b, torch.zeros(n, device=dev)),
+         (), lambda out: torch.add(a, b, out=out)),
+        ("saxpy", (a, b.clone()), (a, b.clone()), (alpha,),
+         lambda out: out.add_(a, alpha=alpha)),
+    )
+    rows = {}
+    for name, on_k, on_p, values, library in cases:
+        kfn, pfn = emitted(name, n)
+        cuda_backend.FORMS.reset()
+        kfn(0, on_k, values)
+        pfn(0, on_p, values)
+        torch.cuda.synchronize()
+        gate_forms(dict(cuda_backend.FORMS.by_key), {name: "stream"})
+        if not torch.equal(on_k[-1], on_p[-1]):
+            err = float((on_k[-1] - on_p[-1]).abs().max())
+            raise AssertionError(f"emitted {name} at {n} vs plain: max abs err {err}")
+        ms, event_ms = kernel_ms(lambda: kfn(0, on_k, values), "ck_kernel", 20)
+        scratch = on_p[-1].clone()
+        rows[f"emitter:{name}"] = r = dict(
+            max_abs_err=0.0, ms=ms, event_ms=event_ms,
+            plain_ms=cuda_ms(lambda: pfn(0, on_p, values), 5),
+            library_ms=profiled_ms(lambda: library(scratch), 20)["total"],
+            library_event_ms=cuda_ms(lambda: library(scratch), 20),
+            bound_ms=12.0 * n / HBM_BYTES_PER_S * 1e3, bound_by="bytes", n=n)
+        print(f"emitted {name} n={n} (streaming form): kernel {ms:.4f} ms (CUDA events "
+              f"{event_ms:.4f} ms), library {r['library_ms']:.4f} ms (CUDA events "
+              f"{r['library_event_ms']:.4f} ms), plain {r['plain_ms']:.4f} ms, bound "
+              f"{r['bound_ms']:.4f} ms (bytes), bit-exact")
+    return rows
 
 
 PARTS_OPS_PER_D = {"fwd": 4, "dq": 6, "dkv": 8}
@@ -959,49 +1026,57 @@ def check_balancer(ck, wl, lanes, priors: list[float]) -> None:
 
 def check_elementwise(ew) -> dict:
     """The elementwise kernel against its plain version on the card over
-    2^24 elements (4 x 64 MiB in f32, beyond the 50 MB L2): saxpy in f32
-    and bf16, ``torch.maximum`` and the three-op ``chain``, bit-exact, and
-    saxpy with ``block_rows=64`` equal to the default's.  Each is timed
-    beside its plain version and the one PyTorch call computing it, against
-    the bytes bound (every input read once, the output written once).
-    Returns the kernels-line row of saxpy in f32, the main path's."""
+    2^24 elements (4 x 64 MiB in f32, beyond the 50 MB L2) and 2^20 (held
+    in L2): saxpy in f32 and bf16, ``torch.maximum`` and the three-op
+    ``chain``, bit-exact, and saxpy with ``block_rows=64`` equal to the
+    default's.  Each is timed by the profiler (the ``ew_`` kernel) and by
+    CUDA events (the wrapper's calls), beside its plain version and the one
+    PyTorch call computing it (the profiler's device time), against the
+    bytes bound (every input read once, the output written once).  Returns
+    the kernels-line row of saxpy in f32 at 2^24, the main path's."""
     import torch
 
-    g = torch.Generator().manual_seed(4321)
-    n = 1 << 24
-    x, y = (torch.randn(n, generator=g).cuda() for _ in range(2))
-    x16, y16 = x.to(torch.bfloat16), y.to(torch.bfloat16)
-
-    def saxpy_plain(a, b):
-        return ew.map_blocks_plain(lambda xb, yb: yb + ALPHA * xb, a, b)
-
-    cases = (  # label, kernel, plain, library, bytes per element
-        ("saxpy f32", lambda: ew.saxpy(ALPHA, x, y), lambda: saxpy_plain(x, y),
-         lambda: torch.add(y, x, alpha=ALPHA), 12),
-        ("saxpy bf16", lambda: ew.saxpy(ALPHA, x16, y16), lambda: saxpy_plain(x16, y16),
-         lambda: torch.add(y16, x16, alpha=ALPHA), 6),
-        ("maximum f32", lambda: ew.map_blocks(torch.maximum, x, y),
-         lambda: ew.map_blocks_plain(torch.maximum, x, y), lambda: torch.maximum(x, y), 12),
-        ("chain f32", lambda: ew.map_blocks(chain, x, y),
-         lambda: ew.map_blocks_plain(chain, x, y), None, 12),
-    )
     row = None
-    for label, kern, plain, library, per_elem in cases:
-        got, want = kern(), plain()
-        torch.cuda.synchronize()
-        err = float((got.float() - want.float()).abs().max())
-        if not torch.equal(got, want):
-            raise AssertionError(f"elementwise kernel vs plain ({label}): max abs err {err}")
-        r = dict(max_abs_err=err, ms=cuda_ms(kern, 20), plain_ms=cuda_ms(plain, 5),
-                 library_ms=None if library is None else cuda_ms(library, 20),
-                 bound_ms=float(per_elem) * n / HBM_BYTES_PER_S * 1e3, bound_by="bytes")
-        lib = "-" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
-        print(f"elementwise {label} 2^24: kernel {r['ms']:.4f} ms  plain {r['plain_ms']:.4f} ms"
-              f"  library {lib} ms  bound {r['bound_ms']:.4f} ms (bytes)  max_abs_err {err}")
-        row = row or r
-    tall = ew.saxpy(ALPHA, x, y, block_rows=64)
-    if not torch.equal(tall, ew.saxpy(ALPHA, x, y)):
-        raise AssertionError("elementwise saxpy with block_rows=64 differs from block_rows=256")
+    for log2 in (24, 20):
+        n = 1 << log2
+        g = torch.Generator().manual_seed(4321 + log2)
+        x, y = (torch.randn(n, generator=g).cuda() for _ in range(2))
+        x16, y16 = x.to(torch.bfloat16), y.to(torch.bfloat16)
+
+        def saxpy_plain(a, b):
+            return ew.map_blocks_plain(lambda xb, yb: yb + ALPHA * xb, a, b)
+
+        cases = (  # label, kernel, plain, library, bytes per element
+            ("saxpy f32", lambda: ew.saxpy(ALPHA, x, y), lambda: saxpy_plain(x, y),
+             lambda: torch.add(y, x, alpha=ALPHA), 12),
+            ("saxpy bf16", lambda: ew.saxpy(ALPHA, x16, y16), lambda: saxpy_plain(x16, y16),
+             lambda: torch.add(y16, x16, alpha=ALPHA), 6),
+            ("maximum f32", lambda: ew.map_blocks(torch.maximum, x, y),
+             lambda: ew.map_blocks_plain(torch.maximum, x, y), lambda: torch.maximum(x, y), 12),
+            ("chain f32", lambda: ew.map_blocks(chain, x, y),
+             lambda: ew.map_blocks_plain(chain, x, y), None, 12),
+        )
+        for label, kern, plain, library, per_elem in cases:
+            got, want = kern(), plain()
+            torch.cuda.synchronize()
+            err = float((got.float() - want.float()).abs().max())
+            if not torch.equal(got, want):
+                raise AssertionError(f"elementwise kernel vs plain ({label}, 2^{log2}): "
+                                     f"max abs err {err}")
+            ms, event_ms = kernel_ms(kern, "ew_", 20)
+            r = dict(max_abs_err=err, ms=ms, event_ms=event_ms, plain_ms=cuda_ms(plain, 5),
+                     library_ms=None if library is None else profiled_ms(library, 20)["total"],
+                     library_event_ms=None if library is None else cuda_ms(library, 20),
+                     bound_ms=float(per_elem) * n / HBM_BYTES_PER_S * 1e3, bound_by="bytes")
+            lib = ("-" if library is None else
+                   f"{r['library_ms']:.4f} ms (CUDA events {r['library_event_ms']:.4f} ms)")
+            print(f"elementwise {label} 2^{log2}: kernel {ms:.4f} ms (CUDA events "
+                  f"{event_ms:.4f} ms)  plain {r['plain_ms']:.4f} ms  library {lib}  bound "
+                  f"{r['bound_ms']:.4f} ms (bytes)  max_abs_err {err}")
+            row = row or r
+        tall = ew.saxpy(ALPHA, x, y, block_rows=64)
+        if not torch.equal(tall, ew.saxpy(ALPHA, x, y)):
+            raise AssertionError("elementwise saxpy with block_rows=64 differs from block_rows=256")
     return row
 
 
@@ -1230,38 +1305,12 @@ def main() -> int:
         pfn, _ = build_kernel_fn(kdef, n, local, n)
         return kfn, pfn
 
-    # streamAdd and saxpy: 2^24 floats (3 x 64 MiB, beyond the 50 MB L2)
-    n = 1 << 24
-    a = torch.rand(n, generator=g).to(dev)
-    b = torch.rand(n, generator=g).to(dev)
-    kfn, pfn = emitted("streamAdd", n)
-    c_k, c_p = torch.zeros(n, device=dev), torch.zeros(n, device=dev)
-    kfn(0, (a, b, c_k))
-    pfn(0, (a, b, c_p))
-    err = float((c_k - c_p).abs().max())
-    if err != 0.0:
-        raise AssertionError(f"streamAdd kernel vs plain: max abs err {err}")
-    rows["emitter:streamAdd"] = dict(
-        max_abs_err=err, ms=cuda_ms(lambda: kfn(0, (a, b, c_k)), 20),
-        plain_ms=cuda_ms(lambda: pfn(0, (a, b, c_p)), 5),
-        library_ms=cuda_ms(lambda: torch.add(a, b, out=c_p), 20),
-        bound_ms=12.0 * n / HBM_BYTES_PER_S * 1e3, bound_by="bytes", n=n)
-
-    alpha = 1.5
-    kfn, pfn = emitted("saxpy", n)
-    y_k, y_p = b.clone(), b.clone()
-    kfn(0, (a, y_k), (alpha,))
-    pfn(0, (a, y_p), (alpha,))
-    err = float((y_k - y_p).abs().max())
-    if err != 0.0:
-        raise AssertionError(f"saxpy kernel vs plain: max abs err {err}")
-    y_l = b.clone()
-    rows["emitter:saxpy"] = dict(
-        max_abs_err=err, ms=cuda_ms(lambda: kfn(0, (a, y_k), (alpha,)), 20),
-        plain_ms=cuda_ms(lambda: pfn(0, (a, y_p), (alpha,)), 5),
-        library_ms=cuda_ms(lambda: torch.add(y_l, a, alpha=alpha), 20),
-        bound_ms=12.0 * n / HBM_BYTES_PER_S * 1e3, bound_by="bytes", n=n)
-    del a, b, c_k, c_p, y_k, y_p, y_l
+    # streamAdd and saxpy: 2^24 floats (3 x 64 MiB, beyond the 50 MB L2), the
+    # rows of the kernels line, and 2^20 (held in L2); both on the streaming form
+    for log2 in (24, 20):
+        got = check_emitter_stream(cuda_backend, emitted, dev, 1 << log2)
+        if log2 == 24:
+            rows.update(got)
 
     # mandelbrot 2048 x 2048, max_iter 256 (C-subset kernel and hand kernel)
     W = H = 2048
@@ -1278,8 +1327,9 @@ def main() -> int:
     escapes = float(o_p.double().sum())
     mandel_bound = max(escapes * MANDEL_OPS_PER_ITER / FP32_OPS_PER_S,
                        4.0 * npx / HBM_BYTES_PER_S) * 1e3
+    ms, event_ms = kernel_ms(lambda: kfn(0, (o_k,), vals), "ck_kernel", 5)
     rows["emitter:mandelbrot"] = dict(
-        max_abs_err=err, ms=cuda_ms(lambda: kfn(0, (o_k,), vals), 5),
+        max_abs_err=err, ms=ms, event_ms=event_ms,
         plain_ms=cuda_ms(lambda: pfn(0, (o_p,), vals), 1, warmup=0),
         library_ms=None, bound_ms=mandel_bound, bound_by="operations",
         escape_sum=escapes)
@@ -1323,8 +1373,9 @@ def main() -> int:
     err = max(float((k - p).abs().max()) for k, p in zip(v_k, v_p))
     for k, p in zip(v_k, v_p):
         torch.testing.assert_close(k, p, rtol=1e-5, atol=1e-6)
+    ms, event_ms = kernel_ms(lambda: kfn(0, (*pos, *v_k), (nb, 0.0001)), "ck_kernel", 10)
     rows["emitter:nBody"] = dict(
-        max_abs_err=err, ms=cuda_ms(lambda: kfn(0, (*pos, *v_k), (nb, 0.0001)), 10),
+        max_abs_err=err, ms=ms, event_ms=event_ms,
         plain_ms=nbody_plain_ms, library_ms=None,
         bound_ms=max(nb * nb * NBODY_OPS_PER_PAIR / FP32_OPS_PER_S,
                      (6 + 3) * 4.0 * nb / HBM_BYTES_PER_S) * 1e3,
@@ -1335,7 +1386,8 @@ def main() -> int:
     rows["flash_attention_bwd_dq"], rows["flash_attention_bwd_dkv"] = check_flash_bwd(fa_op, dev)
     for name, r in rows.items():
         lib = "-" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
-        print(f"{name:20s} kernel {r['ms']:.4f} ms  plain {r['plain_ms']:.4f} ms  "
+        ev = f" (CUDA events {r['event_ms']:.4f} ms)" if "event_ms" in r else ""
+        print(f"{name:20s} kernel {r['ms']:.4f} ms{ev}  plain {r['plain_ms']:.4f} ms  "
               f"library {lib} ms  bound {r['bound_ms']:.4f} ms ({r['bound_by']})  "
               f"max_abs_err {r['max_abs_err']}")
 
@@ -1343,6 +1395,7 @@ def main() -> int:
     gpus = ck.all_devices().gpus()
     ref_img = wl.mandelbrot_host(W, H, -2.0, -1.25, 2.5 / W, 2.5 / H, iters)
     cuda_backend.LAUNCHES.reset()
+    cuda_backend.FORMS.reset()
     mandel_op.LAUNCHES.reset()
     registry.reset_launch_counts()
     res = {}
@@ -1365,16 +1418,19 @@ def main() -> int:
                    fast=True)
     y = ck.ClArray(np.ones(1 << 24, dtype=np.float32), name="y", fast=True)
     with ck.NumberCruncher(gpus, SAXPY_SRC) as cr:
-        x.next_param(y).compute(cr, 7004, "saxpy", 1 << 24, 256, values=(alpha,))
-    if not np.array_equal(y.host(), np.float32(alpha) * x.host() + np.float32(1.0)):
+        x.next_param(y).compute(cr, 7004, "saxpy", 1 << 24, 256, values=(ALPHA,))
+    if not np.array_equal(y.host(), np.float32(ALPHA) * x.host() + np.float32(1.0)):
         raise AssertionError("saxpy through compute() mismatch")
     counts = dict(cuda_backend.LAUNCHES.by_key)
     counts["mandelbrot.cu"] = mandel_op.LAUNCHES.count
     routes = dict(registry.launch_counts)
-    print(f"launch counts on the main path: {counts}; routes {routes}")
+    forms = dict(cuda_backend.FORMS.by_key)
+    print(f"launch counts on the main path: {counts}; routes {routes}; emitter forms {forms}")
     for name in ("mandelbrot", "nBody", "streamAdd", "saxpy", "mandelbrot.cu"):
         if counts.get(name, 0) <= 0:
             raise AssertionError(f"kernel {name} never launched on the main path")
+    gate_forms(forms, {"streamAdd": "stream", "saxpy": "stream", "mandelbrot": "item",
+                       "nBody": "item"})
     if routes["torch"] != 0 or routes["cuda"] <= 0:
         raise AssertionError(f"main path left the CUDA route: {routes}")
     rows["emitter:mandelbrot"]["launches"] = counts["mandelbrot"]

@@ -281,3 +281,20 @@ def test_gate_ring_launches_passes_the_ring():
 def test_gate_ring_launches_fails(bad):
     with pytest.raises(AssertionError, match="ring launch counts"):
         chip_smoke.gate_ring_launches(_ring_launches(**bad), 8, True)
+
+
+def test_gate_forms_passes_the_main_path():
+    forms = {("streamAdd", "stream"): 3, ("saxpy", "stream"): 1, ("mandelbrot", "item"): 14,
+             ("nBody", "item"): 10}
+    chip_smoke.gate_forms(forms, {"streamAdd": "stream", "saxpy": "stream",
+                                  "mandelbrot": "item", "nBody": "item"})
+
+
+@pytest.mark.parametrize("forms", [
+    {("streamAdd", "stream"): 3, ("streamAdd", "item"): 1},  # one launch on the item form
+    {("streamAdd", "item"): 3},                              # never on the streaming form
+    {},                                                      # never launched
+], ids=["mixed", "item-only", "none"])
+def test_gate_forms_fails(forms):
+    with pytest.raises(AssertionError, match="streaming|stream form"):
+        chip_smoke.gate_forms(forms, {"streamAdd": "stream"})

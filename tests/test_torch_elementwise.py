@@ -24,6 +24,7 @@ import torch
 from cekirdekler_tpu.ops import elementwise as ref
 from cekirdekler_tpu_torch.errors import KernelCompileError
 from cekirdekler_tpu_torch.ops import elementwise as ew
+from tests.test_torch_card import conversion_inputs
 
 
 def _pair(n: int, seed: int, dtype=np.float32):
@@ -232,17 +233,17 @@ def _host_inputs(dtype, n: int, seed: int):
 def test_emitted_kernel_on_the_host_equals_plain(name, fn, dtype):
     """The same spliced source the card builds, compiled with g++: the
     vector path on aligned tensors and the scalar path on a view one
-    element in, at two block heights."""
+    element in, at a length whose vectors leave the grid's three threads
+    a remainder after their steps of CK_U vectors."""
     launch = ew.launcher(ew.kernel_source(fn, (dtype, dtype)), compiler="g++")
-    n = 128 * 50
-    for view in (0, 1):
-        base = _host_inputs(dtype, n + view, len(name))
-        x, y = (t[view:] for t in base)
-        want = ew.map_blocks_plain(fn, x, y)
-        for rows in (256, 3):
+    for n in (128 * 50, 128 * 3):
+        for view in (0, 1):
+            base = _host_inputs(dtype, n + view, len(name))
+            x, y = (t[view:] for t in base)
+            want = ew.map_blocks_plain(fn, x, y)
             out = torch.empty(n, dtype=dtype)
-            ew.run(launch, out, (x, y), rows, None)
-            assert torch.equal(out, want), (view, rows)
+            ew.run(launch, out, (x, y), None)
+            assert torch.equal(out, want), (n, view)
 
 
 @pytest.mark.parametrize("fn", [lambda a: torch.exp(a * 0.5), torch.tanh], ids=["exp", "tanh"])
@@ -251,7 +252,7 @@ def test_emitted_transcendentals_within_two_ulp_on_the_host(fn):
     launch = ew.launcher(ew.kernel_source(fn, (torch.float32,)), compiler="g++")
     x, _ = _host_inputs(torch.float32, 4096, 10)
     out = torch.empty(4096)
-    ew.run(launch, out, (x,), 256, None)
+    ew.run(launch, out, (x,), None)
     got, want = out.numpy(), ew.map_blocks_plain(fn, x).numpy()
     ulp = np.spacing(np.maximum(np.abs(got), np.abs(want)))
     assert float(np.max(np.abs(got - want) / ulp)) <= 2.0
@@ -262,3 +263,59 @@ def test_constants_are_exact_hex_literals():
     assert f"{float(np.float32(0.1)).hex()}f" in src
     assert "(3)" not in src  # a float expression takes the constant as a float
     assert f"{float(3).hex()}f" in src
+
+
+@pytest.mark.parametrize("pad", [0, 1], ids=["vector", "scalar"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16], ids=str)
+def test_host_conversions_equal_torch_to(dtype, pad):
+    """The host build's f32 -> bf16 / f16 rounding (in software, in pairs
+    on the vector path) equals torch's ``.to()`` on the CPU bit for bit on
+    crafted values: ties to even, subnormals, +-inf, NaNs, the largest
+    finite values, f16 overflow."""
+    launch = ew.launcher(ew.kernel_source(lambda a: a, (torch.float32,), dtype), compiler="g++")
+    x = conversion_inputs()
+    xs = torch.cat([torch.zeros(pad), x])[pad:]
+    out = torch.empty(x.numel() + pad, dtype=dtype)[pad:]
+    ew.run(launch, out, (xs,), None)
+    assert torch.equal(out.view(torch.int16), xs.to(dtype).view(torch.int16))
+
+
+@pytest.mark.parametrize("k", [1, 3, 5, 37])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.int32], ids=str)
+def test_host_build_out_is_an_input(dtype, k):
+    """``out`` exactly the first input (the kernel's pointers are
+    ``__restrict__``), at lengths of 128·k with k odd, so the grid's
+    threads end on partial steps of CK_U vectors."""
+    launch = ew.launcher(ew.kernel_source(_chain_port, (dtype, dtype)), compiler="g++")
+    x, y = _host_inputs(dtype, 128 * k, k)
+    want = ew.map_blocks_plain(_chain_port, x, y)
+    ew.run(launch, x, (x, y), None)
+    assert torch.equal(x, want)
+
+
+@pytest.mark.parametrize("unroll", [2, 4])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+def test_unrolled_host_variants_equal_plain(dtype, unroll):
+    """The sweep's variants load 2 or 4 vectors of each input before they
+    compute (the shipped kernel loads one): their host builds equal the
+    plain version at lengths that leave the grid's threads partial steps."""
+    from cekirdekler_tpu_torch.tools import sweep_stream
+
+    src = sweep_stream.elementwise_variant(ew.kernel_source(_chain_port, (dtype, dtype)),
+                                           unroll, 256, False)
+    launch = ew.launcher(src, compiler="g++")
+    for k in (1, 7, 37):
+        x, y = _host_inputs(dtype, 128 * k, k)
+        out = torch.empty(128 * k, dtype=dtype)
+        ew.run(launch, out, (x, y), None)
+        assert torch.equal(out, ew.map_blocks_plain(_chain_port, x, y)), k
+
+
+def test_a_bf16_result_is_rounded_once_by_the_store():
+    """The root's own rounding is left to the store's conversion, which
+    converts the vector's values in pairs; the ops inside still round."""
+    src = ew.kernel_source(lambda x, y: y + 1.5 * x, (torch.bfloat16, torch.bfloat16))
+    fn = src[src.index("ck_fn("):src.index("template <int U>")]
+    assert fn.count("ck_rbf16(") == 1 and "return t3;" in fn
+    assert "ck_bf16x2_bits(&r.v[k]" in src
+    assert "__restrict__ p0" in src and "__restrict__ po" in src

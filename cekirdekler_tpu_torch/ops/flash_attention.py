@@ -12,8 +12,12 @@ backward take the route :func:`_route` names from the operands' dtype
 after the stream cast and the precision: bf16 at ``"default"`` runs the
 tensor-core kernels (``csrc/flash_attention_tc.cu`` forward,
 ``csrc/flash_attention_bwd_tc.cu`` backward), every other case the FP32
-ones (``csrc/flash_attention.cu``, ``csrc/flash_attention_bwd.cu``); the
-parts forward always runs the FP32 ``fa_fwd_parts_kernel``.  The kernels
+ones (``csrc/flash_attention.cu``, ``csrc/flash_attention_bwd.cu``).  The
+ring's parts kernels take the route :func:`_parts_route` names per kernel:
+for bf16 at the ring's ``"highest"`` the forward and dk/dv run the
+tensor-core kernels of ``csrc/flash_attention_parts_tc.cu``, whose f32
+operand (p, pT, dsT) enters the products as three bf16 terms (``"tc3"``),
+and dq the FP32 kernel.  The kernels
 take their own tile sizes; ``block_q`` and ``block_k`` keep the
 reference's contract
 (:func:`_blocks_for` degrades them by gcd and raises on degenerate tiles;
@@ -67,13 +71,15 @@ __all__ = ["flash_attention", "flash_attention_plain", "flash_attention_bwd_plai
            "flash_attention_parts", "flash_attention_parts_plain",
            "flash_attention_bwd_parts", "flash_attention_bwd_parts_plain",
            "auto_block", "default_blocks", "LAUNCHES", "BWD_LAUNCHES", "PARTS_LAUNCHES",
-           "PARTS_DEAD", "PLAIN_RUNS", "PLAIN_BWD_RUNS", "ROUTES", "BWD_ROUTES", "SOURCE",
-           "SOURCE_TC", "SOURCE_BWD", "SOURCE_BWD_TC", "KERNEL_BLOCK", "MAX_HEAD_DIM"]
+           "PARTS_DEAD", "PARTS_FWD_ROUTES", "PLAIN_RUNS", "PLAIN_BWD_RUNS", "ROUTES",
+           "BWD_ROUTES", "SOURCE", "SOURCE_TC", "SOURCE_BWD", "SOURCE_BWD_TC",
+           "SOURCE_PARTS_TC", "KERNEL_BLOCK", "MAX_HEAD_DIM"]
 
 SOURCE = Path(__file__).resolve().parents[1] / "csrc" / "flash_attention.cu"
 SOURCE_TC = Path(__file__).resolve().parents[1] / "csrc" / "flash_attention_tc.cu"
 SOURCE_BWD = Path(__file__).resolve().parents[1] / "csrc" / "flash_attention_bwd.cu"
 SOURCE_BWD_TC = Path(__file__).resolve().parents[1] / "csrc" / "flash_attention_bwd_tc.cu"
+SOURCE_PARTS_TC = Path(__file__).resolve().parents[1] / "csrc" / "flash_attention_parts_tc.cu"
 
 _NEG = -1e30  # finite "-inf": exp(_NEG - m) == 0 without nan hazards
 
@@ -101,13 +107,17 @@ PLAIN_RUNS = LaunchCounter()
 PLAIN_BWD_RUNS = LaunchCounter()
 #: :func:`flash_attention` calls, keyed "tiled" or "dense" (the fallback)
 ROUTES = LaunchCounter()
-#: backward kernel launches (single-card and parts), keyed by :func:`_route`
+#: backward kernel launches (single-card and parts), keyed by the route each
+#: kernel took (:func:`_route`, or :func:`_parts_route` for the parts)
 BWD_ROUTES = LaunchCounter()
+#: parts forward launches, keyed by :func:`_parts_route`
+PARTS_FWD_ROUTES = LaunchCounter()
 
 _fwd_fns = None
 _fwd_tc_fn = None
 _bwd_fns = None
 _bwd_tc_fns = None
+_parts_tc_fns = None
 
 
 def auto_block(T: int, target: int = 512, floor: int = 8) -> int | None:
@@ -363,26 +373,40 @@ def flash_attention_parts_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tenso
 
 
 def _launch_parts(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, q_pos0: int,
-                  k_pos0: int, causal: bool, precision: str
+                  k_pos0: int, causal: bool, precision: str, route: str | None = None
                   ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Launch the parts form of ``csrc/flash_attention.cu`` on q's device
-    and current stream."""
+    """Launch the parts forward on q's device and current stream: the
+    kernel of ``csrc/flash_attention_parts_tc.cu`` or the FP32 one of
+    ``csrc/flash_attention.cu``, as :func:`_parts_route` says (``route``
+    overrides it, for timing the FP32 kernel on the same operands), counted
+    in :data:`PARTS_FWD_ROUTES` under the route."""
     B, Tq, H, D = q.shape
     Tk = k.shape[1]
     _check_fwd_operands(q, k, v)
+    route = route or _parts_route("fwd", q.dtype, precision)
+    is_bf16 = q.dtype == torch.bfloat16
+    if route == "tc3":
+        if not is_bf16:
+            raise KernelCompileError(
+                f"flash_attention_parts {route} kernel: q/k/v must be bf16, got {q.dtype}")
+        fn, _ = _parts_tc_launchers()
+        flags = (int(causal), int(_vector_loads((q, k, v), D)))
+    elif route == "fp32":
+        _, fn = _fwd_launchers()
+        flags = (int(causal), int(is_bf16), int(precision == "default" and is_bf16))
+    else:
+        raise KernelCompileError(f"flash_attention_parts: no {route} kernel")
     acc = torch.empty((B, Tq, H, D), dtype=torch.float32, device=q.device)
     m, l = (torch.empty((B, Tq, H), dtype=torch.float32, device=q.device) for _ in range(2))
-    _, fn = _fwd_launchers()
-    is_bf16 = q.dtype == torch.bfloat16
     with torch.cuda.device(q.device):
         rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), acc.data_ptr(), m.data_ptr(),
                 l.data_ptr(), B, H, Tq, Tk, D, *q.stride()[:3], *k.stride()[:3],
-                *v.stride()[:3], 1.0 / math.sqrt(D), int(causal), int(is_bf16),
-                int(precision == "default" and is_bf16), int(q_pos0), int(k_pos0),
+                *v.stride()[:3], 1.0 / math.sqrt(D), *flags, int(q_pos0), int(k_pos0),
                 torch.cuda.current_stream(q.device).cuda_stream)
     if rc != 0:
         raise KernelCompileError(f"flash_attention_parts: CUDA launch failed with error {rc}")
     PARTS_LAUNCHES.add("fwd")
+    PARTS_FWD_ROUTES.add(route)
     if _dead(Tq, q_pos0, k_pos0, causal):
         PARTS_DEAD.add("fwd")
     return acc, m, l
@@ -505,6 +529,45 @@ def _route(dtype: torch.dtype, precision: str) -> str:
     return "tc" if dtype == torch.bfloat16 and precision == "default" else "fp32"
 
 
+def _parts_route(kind: str, dtype: torch.dtype, precision: str) -> str:
+    """Which kernel takes the ring's parts kernel ``kind`` (``"fwd"``,
+    ``"dq"`` or ``"dkv"``) for operands of ``dtype`` at ``precision`` (the
+    backward's after :func:`_parts_bwd_precision`):
+
+    - ``"tc3"``, ``csrc/flash_attention_parts_tc.cu``: the forward and dk/dv
+      for bf16 at ``"highest"``, the ring's precision; q.k and dO.v are
+      exact bf16 products, and p, pT and dsT enter their products as three
+      bf16 terms, so the tensor cores keep f32 accuracy;
+    - ``"tc"``, ``csrc/flash_attention_bwd_tc.cu``: dq and dk/dv for bf16
+      at ``"default"``, where p and ds round to bf16 as the reference
+      rounds them;
+    - ``"fp32"``, the FP32 kernels: dq at ``"highest"``, the forward at
+      ``"default"`` (its bf16 p' on the CUDA cores), and f32 operands
+      everywhere (a split of f32 q and k would take six products)."""
+    if kind not in ("fwd", "dq", "dkv"):
+        raise ValueError(f"parts kernel kind must be 'fwd', 'dq' or 'dkv', got {kind!r}")
+    precision = _precision_str(precision)
+    if dtype != torch.bfloat16:
+        return "fp32"
+    if precision == "highest":
+        return "fp32" if kind == "dq" else "tc3"
+    return "fp32" if kind == "fwd" else "tc"
+
+
+def _parts_tc_launchers():
+    global _parts_tc_fns
+    if _parts_tc_fns is None:
+        lib = build_library(SOURCE_PARTS_TC.read_text(), "flash_attention_parts_tc")
+        fwd_fn, dkv_fn = lib.flash_attention_fwd_parts_tc, lib.flash_attention_bwd_dkv_parts_tc
+        fwd_fn.restype = dkv_fn.restype = ctypes.c_int
+        fwd_fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_longlong] * 9
+                           + [ctypes.c_float] + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+        dkv_fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 + [ctypes.c_longlong] * 12
+                           + [ctypes.c_float] + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+        _parts_tc_fns = (fwd_fn, dkv_fn)
+    return _parts_tc_fns
+
+
 def _vector_loads(tensors: tuple[torch.Tensor, ...], D: int) -> bool:
     """Whether the tensor-core kernels may copy rows of ``tensors`` 16 bytes
     at a time: D and every (batch, time, head) stride a multiple of 8
@@ -516,13 +579,17 @@ def _vector_loads(tensors: tuple[torch.Tensor, ...], D: int) -> bool:
 def _launch_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, do: torch.Tensor,
                 lse: torch.Tensor, delta: torch.Tensor, causal: bool, precision: str,
                 grad_dtypes: tuple[torch.dtype, torch.dtype, torch.dtype],
-                q_pos0: int = 0, k_pos0: int = 0, parts: bool = False
+                q_pos0: int = 0, k_pos0: int = 0, parts: bool = False,
+                routes: tuple[str, str] | None = None
                 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Launch the two backward kernels on q's device and current stream: dq,
-    then dk and dv, from ``csrc/flash_attention_bwd_tc.cu`` or
-    ``csrc/flash_attention_bwd.cu`` as :func:`_route` says.  ``parts``
-    counts the launches in :data:`PARTS_LAUNCHES` (the ring's form) instead
-    of :data:`BWD_LAUNCHES`; every launch also counts in :data:`BWD_ROUTES`."""
+    then dk and dv, each on its own route: :func:`_route` for both on one
+    card, :func:`_parts_route` per kernel for the ring's ``parts`` form
+    (``routes``, a (dq, dk/dv) pair, overrides them, for timing the FP32
+    kernels on the same operands).  ``parts`` counts the launches in
+    :data:`PARTS_LAUNCHES` (the ring's form) instead of
+    :data:`BWD_LAUNCHES`; every launch also counts in :data:`BWD_ROUTES`
+    under its route."""
     B, Tq, H, D = q.shape
     Tk = k.shape[1]
     kinds = (torch.float32, torch.bfloat16)
@@ -550,19 +617,13 @@ def _launch_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, do: torch.Ten
             lse.device != q.device or delta.device != q.device:
         raise KernelCompileError(
             "flash_attention backward kernels: lse and delta must be f32 on q's device")
+    if routes is None:
+        routes = ((_parts_route("dq", q.dtype, precision), _parts_route("dkv", q.dtype, precision))
+                  if parts else (_route(q.dtype, precision),) * 2)
     dq, dk, dv = (torch.empty((B, T, H, D), dtype=dt, device=q.device)
                   for T, dt in zip((Tq, Tk, Tk), grad_dtypes))
     is_bf16 = [int(dt == torch.bfloat16) for dt in grad_dtypes]
-    route = _route(q.dtype, precision)
-    if route == "tc":
-        dq_fn, dkv_fn = _bwd_tc_launchers()
-        # p' and ds' always round there; the mode flag picks 16-byte copies
-        flags = (int(causal),)
-        mode = (int(_vector_loads((q, k, v, do), D)),)
-    else:
-        dq_fn, dkv_fn = _bwd_launchers()
-        flags = (int(causal), int(q.dtype == torch.bfloat16))
-        mode = (int(precision == "default"),)
+    vec = int(_vector_loads((q, k, v, do), D))
     strides = (*q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *do.stride()[:3])
     ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
             delta.data_ptr())
@@ -572,23 +633,34 @@ def _launch_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, do: torch.Ten
     dead = parts and _dead(Tq, q_pos0, k_pos0, causal)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        rc = dq_fn(*ptrs, dq.data_ptr(), *shape, *strides, 1.0 / math.sqrt(D), *flags,
-                   is_bf16[0], *mode, *offs, stream)
-        if rc != 0:
-            raise KernelCompileError(f"flash_attention_bwd_dq: CUDA launch failed with error {rc}")
-        counter.add("dq")
-        BWD_ROUTES.add(route)
-        if dead:
-            PARTS_DEAD.add("dq")
-        rc = dkv_fn(*ptrs, dk.data_ptr(), dv.data_ptr(), *shape, *strides, 1.0 / math.sqrt(D),
-                    *flags, is_bf16[1], is_bf16[2], *mode, *offs, stream)
-        if rc != 0:
-            raise KernelCompileError(
-                f"flash_attention_bwd_dkv: CUDA launch failed with error {rc}")
-        counter.add("dkv")
-        BWD_ROUTES.add(route)
-        if dead:
-            PARTS_DEAD.add("dkv")
+        for kind, route, outs, out_bf16 in (("dq", routes[0], (dq,), is_bf16[:1]),
+                                            ("dkv", routes[1], (dk, dv), is_bf16[1:])):
+            which = int(kind == "dkv")
+            if route == "tc" and q.dtype == torch.bfloat16:
+                # p' and ds' always round there
+                fn = _bwd_tc_launchers()[which]
+                flags = (int(causal), *out_bf16, vec)
+            elif route == "fp32":
+                fn = _bwd_launchers()[which]
+                flags = (int(causal), int(q.dtype == torch.bfloat16), *out_bf16,
+                         int(precision == "default"))
+            elif route == "tc3" and kind == "dkv" and q.dtype == torch.bfloat16 \
+                    and not any(out_bf16):
+                fn = _parts_tc_launchers()[1]
+                flags = (int(causal), vec)
+            else:
+                raise KernelCompileError(
+                    f"flash_attention_bwd_{kind}: no {route} kernel for {q.dtype} operands "
+                    f"and {grad_dtypes} gradients")
+            rc = fn(*ptrs, *(t.data_ptr() for t in outs), *shape, *strides, 1.0 / math.sqrt(D),
+                    *flags, *offs, stream)
+            if rc != 0:
+                raise KernelCompileError(
+                    f"flash_attention_bwd_{kind}: CUDA launch failed with error {rc}")
+            counter.add(kind)
+            BWD_ROUTES.add(route)
+            if dead:
+                PARTS_DEAD.add(kind)
     return dq, dk, dv
 
 

@@ -23,12 +23,7 @@ import json
 import subprocess
 import time
 
-
-def _device_us(evt) -> float:
-    for name in ("self_device_time_total", "self_cuda_time_total"):
-        if hasattr(evt, name):
-            return float(getattr(evt, name))
-    return 0.0
+from .trace_window import by_name, open_window
 
 
 def main(argv: list[str] | None = None) -> int:
@@ -51,17 +46,13 @@ def main(argv: list[str] | None = None) -> int:
                                  readback=args.readback)
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            open_window()
             t0 = time.perf_counter()
             res = workloads.run_mandelbrot(lanes, iters=args.iters, warmup=0,
                                            use_cuda_kernel=hand, readback=args.readback)
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - t0) * 1e3
-        rows = []
-        for evt in prof.key_averages():
-            us = _device_us(evt)
-            if us > 0 and getattr(evt, "device_type", None) != torch.autograd.DeviceType.CPU:
-                rows.append((evt.key, us / 1e3, evt.count))
-        rows.sort(key=lambda r: -r[1])
+        rows = by_name(prof)
         busy_ms = sum(r[1] for r in rows)
         print(json.dumps({
             "card": card, "route": route, "readback": args.readback, "iters": args.iters,

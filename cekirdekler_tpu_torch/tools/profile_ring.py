@@ -18,7 +18,7 @@ import json
 import subprocess
 import time
 
-from .profile_main_path import _device_us
+from .trace_window import by_name, open_window
 
 
 def main(argv: list[str] | None = None) -> int:
@@ -41,16 +41,12 @@ def main(argv: list[str] | None = None) -> int:
     run_ring_attention(mesh, 1, 1024, 8, 64, torch.bfloat16, seed=1)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        open_window()
         t0 = time.perf_counter()
         r = run_ring_attention(mesh, 1, args.T, 8, 64, torch.bfloat16, seed=5)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    rows = []
-    for evt in prof.key_averages():
-        us = _device_us(evt)
-        if us > 0 and getattr(evt, "device_type", None) != torch.autograd.DeviceType.CPU:
-            rows.append((evt.key, us / 1e3, evt.count))
-    rows.sort(key=lambda row: -row[1])
+    rows = by_name(prof)
     busy_ms = sum(row[1] for row in rows)
     print(card)
     print(json.dumps({

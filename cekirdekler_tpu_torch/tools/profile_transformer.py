@@ -21,7 +21,7 @@ import json
 import subprocess
 import time
 
-from .profile_main_path import _device_us
+from .trace_window import by_name, open_window
 
 
 def main(argv: list[str] | None = None) -> int:
@@ -40,16 +40,12 @@ def main(argv: list[str] | None = None) -> int:
         fn()
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            open_window()
             t0 = time.perf_counter()
             fn()
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - t0) * 1e3
-        rows = []
-        for evt in prof.key_averages():
-            us = _device_us(evt)
-            if us > 0 and getattr(evt, "device_type", None) != torch.autograd.DeviceType.CPU:
-                rows.append((evt.key, us / 1e3, evt.count))
-        rows.sort(key=lambda r: -r[1])
+        rows = by_name(prof)
         busy_ms = sum(r[1] for r in rows)
         print(json.dumps({
             "card": card, label[0]: label[1], "wall_ms": wall_ms, "device_busy_ms": busy_ms,

@@ -36,6 +36,11 @@ import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
+try:
+    from . import trace_window
+except ImportError:  # run as a script: this directory is on the path
+    import trace_window
+
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 ALPHA = 1.5
 SAXPY_SRC = """
@@ -53,41 +58,18 @@ def chain(a, b):
     return torch.where(a > b, a * b - 1.5, torch.abs(b) * 0.5)
 
 
-def _device_ms(prof, prefix: str | None, reps: int) -> float:
-    """Mean device ms per call of the kernels whose names hold ``prefix``
-    (every device activity when ``prefix`` is None); raises when the
-    trace holds none."""
-    import torch
-
-    total = 0.0
-    for evt in prof.key_averages():
-        if getattr(evt, "device_type", None) == torch.autograd.DeviceType.CPU:
-            continue
-        if prefix is not None and prefix not in evt.key:
-            continue
-        for attr in ("self_device_time_total", "self_cuda_time_total"):
-            if hasattr(evt, attr):
-                total += float(getattr(evt, attr))
-                break
-    if total <= 0.0:
-        raise RuntimeError(f"time_stream: the trace shows no device time for {prefix}*")
-    return total / 1e3 / reps
-
-
 def profiled_ms(fn, prefix: str | None, reps: int) -> float:
-    """:func:`_device_ms` of a ``torch.profiler`` trace of ``reps`` calls
-    of ``fn``, after three untraced ones."""
+    """Device ms per call of the kernels whose names hold ``prefix`` (every
+    device activity when ``prefix`` is None), from a ``torch.profiler``
+    trace of ``reps`` calls of ``fn`` after three untraced ones, read by
+    ``trace_window``; raises when the trace holds none."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    return _device_ms(prof, prefix, reps)
+    ms = trace_window.traced_ms(fn, reps, () if prefix is None else (prefix,))
+    return ms["total" if prefix is None else prefix]
 
 
 def _time(fn, prefix: str | None, reps: int) -> dict:

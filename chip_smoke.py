@@ -90,8 +90,11 @@ Phases, each of which raises on failure (the script then exits non-zero):
    ``flash_attention_bwd_parts``) against their plain versions at one ring
    step of the full-width run, 1x2048 queries against 1x2048 keys, H=8,
    D=64, bf16 at "highest", at a diagonal, a below-diagonal and a dead
-   offset, each timed at the diagonal and the full step beside its FP32
-   bound; (b) ``workloads.run_ring_attention`` at B=1, T=16384, H=8, D=64
+   offset: the forward and dk/dv on the split tensor-core kernels of
+   ``csrc/flash_attention_parts_tc.cu`` (route ``tc3``), dq on the FP32
+   kernel, as ``_parts_route`` says, two calls equal bit for bit; each
+   timed at the diagonal and the full step beside the FP32 kernel on the
+   same operands, its bound on its route and its FP32 bound; (b) ``workloads.run_ring_attention`` at B=1, T=16384, H=8, D=64
    (the heads and head dim of ``TransformerConfig()``, 2048 positions a
    shard, the model's ``max_seq``), bf16 and causal, over sp=8 on
    ``[cuda:0] * 8``: the output and the gradients of ``sum(out**2)``
@@ -99,8 +102,9 @@ Phases, each of which raises on failure (the script then exits non-zero):
    bf16 ulps of each one's largest magnitude, and the same in f32 at
    1x8192 over sp=4 (output within 1e-5, gradients within 5e-4); (c) with
    every count set to 0 before the sp=8 run, each parts kernel launched 64
-   times, 28 of them on dead blocks, the backward's on the FP32 route, and
-   no plain version on the card; (d)
+   times, 28 of them on dead blocks, the forward and dk/dv on ``tc3`` and
+   dq on ``fp32``, and no plain version on the card; the f32 run only on
+   the FP32 kernels; (d)
    Ulysses at the same width against the same oracle, and the einsum
    ring's forward against the flash ring's; (e) the ring's forward and
    forward + backward ms and tokens/s beside the single-card kernels'.  A
@@ -226,32 +230,16 @@ def flash_bwd_bound(B: int, T: int, H: int, D: int, causal: bool, dtype, ops_per
 def profiled_ms(fn, reps: int, names: tuple[str, ...] = ()) -> dict[str, float]:
     """Mean device time (ms) per ``fn()`` call of each kernel whose name
     holds one of ``names``, and of all device activity (``"total"``),
-    from a ``torch.profiler`` trace of ``reps`` calls; raises when the
-    trace shows no device time for one of them.  Unlike CUDA events
-    around the calls, this leaves out the host's gaps between launches."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
+    from a ``torch.profiler`` trace of ``reps`` calls, read as
+    ``tools/trace_window.py`` reads every trace (a window opened by lead
+    kernels; a named kernel's records a whole number a call, up to half a
+    call's lost, each lost one read at the mean of the rest); raises
+    when the trace shows no device time for one of them.  Unlike CUDA
+    events around the calls, this leaves out the host's gaps between
+    launches."""
+    from cekirdekler_tpu_torch.tools.trace_window import traced_ms
 
-    from cekirdekler_tpu_torch.tools.profile_main_path import _device_us
-
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    out = dict.fromkeys((*names, "total"), 0.0)
-    for evt in prof.key_averages():
-        if getattr(evt, "device_type", None) == torch.autograd.DeviceType.CPU:
-            continue
-        ms = _device_us(evt) / 1e3 / reps
-        out["total"] += ms
-        for name in names:
-            if name in evt.key:
-                out[name] += ms
-    if not all(out.values()):
-        raise AssertionError(f"the profiler shows no device time for a kernel: {out}")
-    return out
+    return traced_ms(fn, reps, names)
 
 
 def kernel_ms(fn, prefix: str, reps: int) -> tuple[float, float]:
@@ -315,6 +303,10 @@ def check_emitter_stream(cuda_backend, emitted, dev, n: int) -> dict[str, dict]:
 
 
 PARTS_OPS_PER_D = {"fwd": 4, "dq": 6, "dkv": 8}
+# the split kernels' tensor-core work per live pair, head and column: q.k
+# once and p.v three times (forward); sT, dpT once and pT.dO, dsT.Q three
+# times each (dk/dv); 2 operations a product
+SPLIT_OPS_PER_D = {"fwd": 8, "dkv": 16}
 
 
 def live_pairs(Tq: int, Tk: int, q_pos0: int, k_pos0: int, causal: bool) -> int:
@@ -326,23 +318,29 @@ def live_pairs(Tq: int, Tk: int, q_pos0: int, k_pos0: int, causal: bool) -> int:
 
 
 def parts_bound(kind: str, B: int, Tq: int, Tk: int, H: int, D: int, q_pos0: int, k_pos0: int,
-                causal: bool, in_size: int) -> tuple[float, str]:
-    """Least time (ms) of one ring step's parts kernel and what binds it.
-    Operations: ``PARTS_OPS_PER_D[kind] * D`` per live pair and head (4 for
-    the forward's q.k and p.v; 6 for dq's s, dp and dq; 8 for dk/dv's s,
-    dp, dk and dv, as :func:`flash_bwd_bound` counts them) at the FP32
-    peak: the ring runs them at "highest", f32 arithmetic whatever the
-    input type.  Bytes: the inputs read once (q, k, v, and for the backward
-    dO, of ``in_size`` bytes an element, and its f32 lse and delta rows)
-    and the f32 outputs written once (acc, m and l; dq; dk and dv)."""
-    ops = float(PARTS_OPS_PER_D[kind]) * D * B * H * live_pairs(Tq, Tk, q_pos0, k_pos0, causal)
+                causal: bool, in_size: int, route: str = "fp32") -> tuple[float, str]:
+    """Least time (ms) of one ring step's parts kernel on ``route`` and what
+    binds it.  Operations per live pair and head: on ``"fp32"``,
+    ``PARTS_OPS_PER_D[kind] * D`` (4 for the forward's q.k and p.v; 6 for
+    dq's s, dp and dq; 8 for dk/dv's s, dp, dk and dv, as
+    :func:`flash_bwd_bound` counts them) at the FP32 peak, the ring's
+    "highest" as f32 arithmetic; on ``"tc3"``, the split kernels' tensor-core
+    work ``SPLIT_OPS_PER_D[kind] * D`` at the bf16 peak.  Bytes: the inputs
+    read once (q, k, v, and for the backward dO, of ``in_size`` bytes an
+    element, and its f32 lse and delta rows) and the f32 outputs written
+    once (acc, m and l; dq; dk and dv)."""
+    pairs = B * H * live_pairs(Tq, Tk, q_pos0, k_pos0, causal)
+    if route == "tc3":
+        ops, rate = float(SPLIT_OPS_PER_D[kind]) * D * pairs, BF16_OPS_PER_S
+    else:
+        ops, rate = float(PARTS_OPS_PER_D[kind]) * D * pairs, FP32_OPS_PER_S
     rows, q_el, k_el = B * Tq * H, B * Tq * H * D, B * Tk * H * D
     if kind == "fwd":
         nbytes = in_size * (q_el + 2 * k_el) + 4 * (q_el + 2 * rows)
     else:
         out_el = q_el if kind == "dq" else 2 * k_el
         nbytes = in_size * (2 * q_el + 2 * k_el) + 4 * (2 * rows + out_el)
-    by_ops, by_bytes = ops / FP32_OPS_PER_S * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+    by_ops, by_bytes = ops / rate * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
     return (by_ops, "operations") if by_ops >= by_bytes else (by_bytes, "bytes")
 
 
@@ -553,20 +551,30 @@ def _within(got, want, tol: float) -> float:
     return err
 
 
+def _same_bits(a, b) -> bool:
+    import torch
+
+    return all(torch.equal(x.view(torch.int32), y.view(torch.int32)) for x, y in zip(a, b))
+
+
 def check_ring_parts(fa, dev, T: int = 2048) -> dict[str, dict]:
     """Phase 8 (a): the three parts kernels against their plain versions
     (key blocks at the kernels' tile width) at one ring step of the
     full-width run: 1x2048 queries against 1x2048 keys, H=8, D=64, bf16 at
     "highest", at a diagonal (q_pos0 = k_pos0 = 3*2048), a below-diagonal
-    (5*2048 against 2*2048) and a dead offset (2048 against 3*2048).
-    Tolerances: acc, m and l within 1e-5 of each one's largest magnitude on
-    the rows that see a key (f32 arithmetic on both sides; the sums differ
-    only in order), the empty rows' state exactly; the gradients within
-    1e-5 of each one's largest magnitude, from the lse and delta of the
-    plain diagonal step (every row sees a key, as the ring's global ones
-    do).  Each kernel is timed at the diagonal and the full step (the
-    forward by CUDA events, the two backward kernels from a profiler
-    trace) beside its plain version and its FP32 bound.  Returns the
+    (5*2048 against 2*2048) and a dead offset (2048 against 3*2048).  The
+    forward and dk/dv run on the split tensor-core kernels
+    (``csrc/flash_attention_parts_tc.cu``, route ``"tc3"``), dq on the FP32
+    kernel, as ``_parts_route`` says; each step's launches are held to
+    those routes, and two calls give the same bits.  Tolerances: acc, m
+    and l within 1e-5 of each one's largest magnitude on the rows that see
+    a key (f32 accuracy on both sides; the sums differ only in order), the
+    empty rows' state exactly; the gradients within 1e-5 of each one's
+    largest magnitude, from the lse and delta of the plain diagonal step
+    (every row sees a key, as the ring's global ones do).  Each kernel is
+    timed at the diagonal and the full step from a profiler trace, beside
+    the FP32 kernel on the same operands (a route override), its plain
+    version, its bound on its route and its FP32 bound.  Returns the
     kernels-line rows, from the full step: 28 of the ring's 36 live steps
     are full ones."""
     import torch
@@ -579,10 +587,30 @@ def check_ring_parts(fa, dev, T: int = 2048) -> dict[str, dict]:
     acc, m, l = fa.flash_attention_parts_plain(q, k, v, 3 * T, 3 * T, True, kb, "highest")
     lse = m + torch.log(l)
     delta = (do.float() * (acc / l[..., None]).to(torch.bfloat16).float()).sum(dim=-1)
+    routes = {kind: fa._parts_route(kind, q.dtype, "highest") for kind in ("fwd", "dq", "dkv")}
+    if routes != {"fwd": "tc3", "dq": "fp32", "dkv": "tc3"}:
+        raise AssertionError(f"the ring's bf16 parts at \"highest\" route {routes}")
     steps = {"diagonal": (3 * T, 3 * T), "full": (5 * T, 2 * T), "dead": (T, 3 * T)}
     rows = {}
     for step, (q_pos0, k_pos0) in steps.items():
+        before = (dict(fa.PARTS_FWD_ROUTES.by_key), dict(fa.BWD_ROUTES.by_key))
         got = fa.flash_attention_parts(q, k, v, q_pos0, k_pos0, True, 512, 512)
+        bwd = fa.flash_attention_bwd_parts(q, k, v, do, lse, delta, q_pos0, k_pos0, True, 512,
+                                           512)
+        torch.cuda.synchronize()
+        took = tuple({key: n - was.get(key, 0) for key, n in c.by_key.items()
+                      if n != was.get(key, 0)}
+                     for c, was in zip((fa.PARTS_FWD_ROUTES, fa.BWD_ROUTES), before))
+        if took != ({"tc3": 1}, {"fp32": 1, "tc3": 1}):
+            raise AssertionError(f"ring step ({step}) took routes {took}: want the forward and "
+                                 "dk/dv on tc3, dq on fp32")
+        again = fa.flash_attention_parts(q, k, v, q_pos0, k_pos0, True, 512, 512)
+        again_b = fa.flash_attention_bwd_parts(q, k, v, do, lse, delta, q_pos0, k_pos0, True,
+                                               512, 512)
+        torch.cuda.synchronize()
+        if not (_same_bits(got, again) and _same_bits(bwd, again_b)):
+            raise AssertionError(f"parts kernels ({step}): two calls differ")
+        del again, again_b
         want = fa.flash_attention_parts_plain(q, k, v, q_pos0, k_pos0, True, kb, "highest")
         torch.cuda.synchronize()
         live = want[1] > -1e29
@@ -597,8 +625,6 @@ def check_ring_parts(fa, dev, T: int = 2048) -> dict[str, dict]:
                     errs[name] = _within(a[sel], w[sel], 1e-5 * float(w[sel].abs().max()))
                 except AssertionError as exc:
                     raise AssertionError(f"parts kernel vs plain ({step}) {name}: {exc}") from None
-        bwd = fa.flash_attention_bwd_parts(q, k, v, do, lse, delta, q_pos0, k_pos0, True, 512,
-                                           512)
         want_b = fa.flash_attention_bwd_parts_plain(q, k, v, do, lse, delta, q_pos0, k_pos0,
                                                     True, kb, kb, "highest")
         torch.cuda.synchronize()
@@ -608,30 +634,38 @@ def check_ring_parts(fa, dev, T: int = 2048) -> dict[str, dict]:
             except AssertionError as exc:
                 raise AssertionError(f"backward parts kernels vs plain ({step}) {name}: "
                                      f"{exc}") from None
-        print(f"ring step 1x{T}x{H}x{D} bf16 highest, {step} (q_pos0 {q_pos0}, k_pos0 {k_pos0}): "
-              f"max abs err {json.dumps(errs)}")
+        print(f"ring step 1x{T}x{H}x{D} bf16 highest, {step} (q_pos0 {q_pos0}, k_pos0 {k_pos0}; "
+              f"routes {routes}, two calls equal bit for bit): max abs err {json.dumps(errs)}")
         if step == "dead":
             continue
 
-        def fwd():
-            return fa.flash_attention_parts(q, k, v, q_pos0, k_pos0, True, 512, 512)
+        def fwd(route=None):
+            return fa._launch_parts(q, k, v, q_pos0, k_pos0, True, "highest", route=route)
 
-        def bwd_call():
-            return fa.flash_attention_bwd_parts(q, k, v, do, lse, delta, q_pos0, k_pos0, True,
-                                                512, 512)
+        def bwd_call(bwd_routes=None):
+            return fa._launch_bwd(q, k, v, do, fa._row_column(lse), fa._row_column(delta), True,
+                                  "highest", (torch.float32,) * 3, q_pos0, k_pos0, parts=True,
+                                  routes=bwd_routes)
 
-        fwd_ms = cuda_ms(fwd, 10)
-        each = profiled_ms(bwd_call, 10, ("fa_bwd_dq_kernel", "fa_bwd_dkv_kernel"))
+        fwd_ms = profiled_ms(fwd, 10, ("fa_fwd_parts",))["fa_fwd_parts"]
+        fwd_fp32 = profiled_ms(lambda: fwd("fp32"), 10, ("fa_fwd_parts",))["fa_fwd_parts"]
+        each = profiled_ms(bwd_call, 10, ("fa_bwd_dq_kernel", "fa_bwd_dkv"))
+        dkv_fp32 = profiled_ms(lambda: bwd_call(("fp32", "fp32")), 10,
+                               ("fa_bwd_dkv",))["fa_bwd_dkv"]
         plain_fwd = cuda_ms(lambda: fa.flash_attention_parts_plain(
             q, k, v, q_pos0, k_pos0, True, kb, "highest"), 2, warmup=1)
         plain_bwd = cuda_ms(lambda: fa.flash_attention_bwd_parts_plain(
             q, k, v, do, lse, delta, q_pos0, k_pos0, True, kb, kb, "highest"), 1, warmup=1)
-        bounds = {kind: parts_bound(kind, 1, T, T, H, D, q_pos0, k_pos0, True, 2)
+        bounds = {kind: parts_bound(kind, 1, T, T, H, D, q_pos0, k_pos0, True, 2, routes[kind])
                   for kind in ("fwd", "dq", "dkv")}
-        print(f"ring step {step}: forward parts kernel {fwd_ms:.4f} ms (bound "
-              f"{bounds['fwd'][0]:.4f}, {bounds['fwd'][1]}), dq kernel "
-              f"{each['fa_bwd_dq_kernel']:.4f} ms (bound {bounds['dq'][0]:.4f}), dk/dv kernel "
-              f"{each['fa_bwd_dkv_kernel']:.4f} ms (bound {bounds['dkv'][0]:.4f}); plain "
+        fp32_bounds = {kind: parts_bound(kind, 1, T, T, H, D, q_pos0, k_pos0, True, 2)[0]
+                       for kind in ("fwd", "dkv")}
+        print(f"ring step {step}: forward parts kernel (tc3) {fwd_ms:.4f} ms, FP32 kernel on the "
+              f"same operands {fwd_fp32:.4f} ms (bound {bounds['fwd'][0]:.4f} ms, "
+              f"{bounds['fwd'][1]}, bf16 peak; FP32 bound {fp32_bounds['fwd']:.4f}); dq kernel "
+              f"(fp32) {each['fa_bwd_dq_kernel']:.4f} ms (bound {bounds['dq'][0]:.4f}); dk/dv "
+              f"kernel (tc3) {each['fa_bwd_dkv']:.4f} ms, FP32 kernel {dkv_fp32:.4f} ms (bound "
+              f"{bounds['dkv'][0]:.4f}, bf16 peak; FP32 bound {fp32_bounds['dkv']:.4f}); plain "
               f"forward {plain_fwd:.4f} ms, plain backward {plain_bwd:.4f} ms; library: none "
               "(no PyTorch call gives the unnormalized parts or the ring-global partial "
               "gradients)")
@@ -640,14 +674,17 @@ def check_ring_parts(fa, dev, T: int = 2048) -> dict[str, dict]:
                 "flash_attention_parts": dict(
                     max_abs_err=max(errs["acc"], errs["m"], errs["l"]), ms=fwd_ms,
                     plain_ms=plain_fwd, bound_ms=bounds["fwd"][0], bound_by=bounds["fwd"][1],
-                    library_ms=None),
+                    library_ms=None, kernel_route="tc3", fp32_ms=fwd_fp32,
+                    fp32_bound_ms=fp32_bounds["fwd"]),
                 "flash_attention_bwd_parts_dq": dict(
                     max_abs_err=errs["dq"], ms=each["fa_bwd_dq_kernel"], plain_ms=plain_bwd,
-                    bound_ms=bounds["dq"][0], bound_by=bounds["dq"][1], library_ms=None),
+                    bound_ms=bounds["dq"][0], bound_by=bounds["dq"][1], library_ms=None,
+                    kernel_route="fp32"),
                 "flash_attention_bwd_parts_dkv": dict(
-                    max_abs_err=max(errs["dk"], errs["dv"]), ms=each["fa_bwd_dkv_kernel"],
+                    max_abs_err=max(errs["dk"], errs["dv"]), ms=each["fa_bwd_dkv"],
                     plain_ms=plain_bwd, bound_ms=bounds["dkv"][0], bound_by=bounds["dkv"][1],
-                    library_ms=None),
+                    library_ms=None, kernel_route="tc3", fp32_ms=dkv_fp32,
+                    fp32_bound_ms=fp32_bounds["dkv"]),
             }
     return rows
 
@@ -671,7 +708,7 @@ def _single_card(fa, q, k, v) -> tuple:
 
 def _ring_counters(fa) -> tuple:
     return (fa.LAUNCHES, fa.BWD_LAUNCHES, fa.PARTS_LAUNCHES, fa.PARTS_DEAD, fa.PLAIN_RUNS,
-            fa.PLAIN_BWD_RUNS, fa.ROUTES, fa.BWD_ROUTES)
+            fa.PLAIN_BWD_RUNS, fa.ROUTES, fa.BWD_ROUTES, fa.PARTS_FWD_ROUTES)
 
 
 def check_ring(wl, fa, par, dev, card: str, T: int = 16384) -> dict[str, int]:
@@ -688,15 +725,18 @@ def check_ring(wl, fa, par, dev, card: str, T: int = 16384) -> dict[str, int]:
                               grad=True, seed=5)
     seen = {c: dict(getattr(fa, c).by_key) for c in ("PARTS_LAUNCHES", "PARTS_DEAD",
                                                    "PLAIN_RUNS", "PLAIN_BWD_RUNS",
-                                                   "BWD_ROUTES")}
+                                                   "PARTS_FWD_ROUTES", "BWD_ROUTES")}
     print(f"ring {B}x{T}x{H}x{D} bf16 causal over sp={n} on [{dev}] * {n}: launch counts "
           f"{r['launches']}; counters after the run {seen}")
     launches = gate_ring_launches(r["launches"], n, True)
     if fa.LAUNCHES.count or fa.BWD_LAUNCHES.count or seen["PARTS_LAUNCHES"] != launches:
         raise AssertionError("the ring ran other kernels than its parts kernels, or its "
                              f"counts disagree: {seen}")
-    if seen["BWD_ROUTES"] != {"fp32": launches["dq"] + launches["dkv"]}:
-        raise AssertionError(f"the ring's backward parts at \"highest\" left the FP32 kernels: "
+    if seen["PARTS_FWD_ROUTES"] != {"tc3": launches["fwd"]} or \
+            seen["BWD_ROUTES"] != {"fp32": launches["dq"], "tc3": launches["dkv"]}:
+        raise AssertionError("the bf16 ring at \"highest\" should run the forward and dk/dv "
+                             "parts on the split tensor-core kernels (tc3) and dq on the FP32 "
+                             f"kernel: forward {seen['PARTS_FWD_ROUTES']}, backward "
                              f"{seen['BWD_ROUTES']}")
     out_s, grads_s, fwd_s, both_s = _single_card(fa, r["q"], r["k"], r["v"])
     worst = {}
@@ -751,10 +791,15 @@ def check_ring(wl, fa, par, dev, card: str, T: int = 16384) -> dict[str, int]:
           "bf16 ulps (limit 2)")
     del r, out_s, grads_s, out_u, grads_u, out_e, qkv
 
-    # f32 at 1x8192 over sp=4
+    # f32 at 1x8192 over sp=4, on the FP32 parts kernels
     mesh4 = par.make_mesh([dev] * 4, sp=4)
+    for counter in _ring_counters(fa):
+        counter.reset()
     r = wl.run_ring_attention(mesh4, 1, T // 2, H, D, torch.float32, causal=True, flash=True,
                               grad=True, seed=6)
+    took = (dict(fa.PARTS_FWD_ROUTES.by_key), dict(fa.BWD_ROUTES.by_key))
+    if took != ({"fp32": 16}, {"fp32": 32}):
+        raise AssertionError(f"the f32 ring left the FP32 parts kernels: {took}")
     out_s, grads_s, _, _ = _single_card(fa, r["q"], r["k"], r["v"])
     errs = {}
     for name, a, w in zip(("out", "dq", "dk", "dv"), (r["out"], *r["grads"]),
@@ -1248,6 +1293,7 @@ def main() -> int:
     from cekirdekler_tpu_torch.ops import elementwise as ew_op
     from cekirdekler_tpu_torch.ops import flash_attention as fa_op
     from cekirdekler_tpu_torch.ops import mandelbrot as mandel_op
+    from cekirdekler_tpu_torch.tools import trace_window
 
     dev = torch.device("cuda", 0)
     kind = torch.cuda.get_device_name(0)
@@ -1275,7 +1321,9 @@ def main() -> int:
             "flash_attention_tc.cu": (fa_op.SOURCE_TC.read_text(), "flash_attention_tc"),
             "flash_attention_bwd.cu": (fa_op.SOURCE_BWD.read_text(), "flash_attention_bwd"),
             "flash_attention_bwd_tc.cu": (fa_op.SOURCE_BWD_TC.read_text(),
-                                          "flash_attention_bwd_tc")}
+                                          "flash_attention_bwd_tc"),
+            "flash_attention_parts_tc.cu": (fa_op.SOURCE_PARTS_TC.read_text(),
+                                            "flash_attention_parts_tc")}
     for name, kdef in programs.items():
         reason = cuda_backend.unsupported_reason(kdef)
         if reason is not None:
@@ -1500,13 +1548,14 @@ def main() -> int:
         "flash_attention_bwd_dkv": ("cuda",
                                     "cekirdekler_tpu_torch/csrc/flash_attention_bwd_tc.cu",
                                     "cekirdekler_tpu/ops/flash_attention.py:661"),
-        "flash_attention_parts": ("cuda", "cekirdekler_tpu_torch/csrc/flash_attention.cu",
-                                  "cekirdekler_tpu/ops/flash_attention.py:420"),
+        "flash_attention_parts": (
+            "cuda", "cekirdekler_tpu_torch/csrc/flash_attention_parts_tc.cu",
+            "cekirdekler_tpu/ops/flash_attention.py:420"),
         "flash_attention_bwd_parts_dq": (
             "cuda", "cekirdekler_tpu_torch/csrc/flash_attention_bwd.cu",
             "cekirdekler_tpu/ops/flash_attention.py:745"),
         "flash_attention_bwd_parts_dkv": (
-            "cuda", "cekirdekler_tpu_torch/csrc/flash_attention_bwd.cu",
+            "cuda", "cekirdekler_tpu_torch/csrc/flash_attention_parts_tc.cu",
             "cekirdekler_tpu/ops/flash_attention.py:745"),
     }
     kernels = []
@@ -1517,8 +1566,13 @@ def main() -> int:
             "launches": rr["launches"], "max_abs_err": rr["max_abs_err"],
             "ms": rr["ms"], "plain_ms": rr["plain_ms"], "bound_ms": rr["bound_ms"],
             "bound_by": rr["bound_by"], "library_ms": rr["library_ms"],
+            **{key: rr[key] for key in ("kernel_route", "fp32_ms", "fp32_bound_ms") if key in rr},
         })
     print(f"mpixels_per_sec: {json.dumps(res)}; total {time.perf_counter() - t_all:.1f} s")
+    print(f"profiler records found lost and read at their kernel's mean: {trace_window.lost}; "
+          f"traces taken again for a garbled record or more lost: {len(trace_window.defects)}")
+    for defect in trace_window.defects:
+        print(f"  taken again: {defect}")
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

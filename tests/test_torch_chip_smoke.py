@@ -257,6 +257,22 @@ def test_parts_bound_counts(kind, ops_per_d, in_tensors, out_f32):
     assert diag == pytest.approx(ms * 2049 / 4096)
 
 
+@pytest.mark.parametrize("kind, ops_per_d, want_ms", [("fwd", 8, 0.0174), ("dkv", 16, 0.0347)])
+def test_parts_bound_of_the_split_kernels(kind, ops_per_d, want_ms):
+    """On the split tensor-core route (``tc3``) a full ring step counts the
+    split's tensor-core work, ``ops_per_d * D`` per pair and head (q.k once
+    and p.v three times; sT and dpT once, pT.dO and dsT.Q three times each),
+    at the bf16 peak: 0.0174 ms forward and 0.0347 ms dk/dv, against the
+    FP32 bounds of 0.128 and 0.256 ms."""
+    ms, by = chip_smoke.parts_bound(kind, 1, 2048, 2048, 8, 64, 10240, 4096, True, 2, "tc3")
+    assert by == "operations"
+    ops = ops_per_d * 64 * 8 * 2048 * 2048
+    assert ms == pytest.approx(ops / chip_smoke.BF16_OPS_PER_S * 1e3)
+    assert ms == pytest.approx(want_ms, abs=5e-5)
+    fp32, _ = chip_smoke.parts_bound(kind, 1, 2048, 2048, 8, 64, 10240, 4096, True, 2)
+    assert fp32 == pytest.approx({"fwd": 0.1282, "dkv": 0.2564}[kind], abs=5e-5)
+
+
 def _ring_launches(n=8, parts=64, dead=28, plain=0, plain_bwd=0):
     kinds = ("fwd", "dq", "dkv")
     return {"parts": dict.fromkeys(kinds, parts), "dead": dict.fromkeys(kinds, dead),

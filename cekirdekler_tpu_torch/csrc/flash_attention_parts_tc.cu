@@ -1,18 +1,20 @@
 // The ring-attention parts kernels on Hopper's tensor cores at f32 accuracy:
 // the forward parts (the unnormalized softmax state of q against one K/V
-// block) and the dk/dv half of the backward parts, for bf16 q/k/v/dO under
-// precision="highest", the ring's own precision.
+// block) and both halves of the backward parts, dq and dk/dv, for bf16
+// q/k/v/dO under precision="highest", the ring's own precision.
 //
-// Replaces, on that path, two TPU kernels of
+// Replaces, on that path, three TPU kernels of
 // cekirdekler_tpu/ops/flash_attention.py: flash_attention_parts (:420, the
 // call at :463, body _fa_kernel :99-215 with parts=True), kernel
 // fa_fwd_parts_tc_kernel, entry point flash_attention_fwd_parts_tc; and
-// the dk/dv call of flash_attention_bwd_parts (:745, the call at :817,
-// body _fa_bwd_dkv_kernel), kernel fa_bwd_dkv_parts_tc_kernel, entry point
+// the two calls of flash_attention_bwd_parts (:745): dq (the call at :798,
+// body _fa_bwd_dq_kernel :491), kernel fa_bwd_dq_parts_tc_kernel, entry
+// point flash_attention_bwd_dq_parts_tc, and dk/dv (the call at :817, body
+// _fa_bwd_dkv_kernel), kernel fa_bwd_dkv_parts_tc_kernel, entry point
 // flash_attention_bwd_dkv_parts_tc.  The FP32 kernels of
 // csrc/flash_attention.cu (fa_fwd_parts_kernel) and csrc/flash_attention_bwd.cu
-// (fa_bwd_dq_kernel, fa_bwd_dkv_kernel) keep f32 operands, the forward parts
-// at "default" and the ring's dq.  As there, one CTA owns one output tile
+// (fa_bwd_dq_kernel, fa_bwd_dkv_kernel) keep f32 operands and the forward
+// parts at "default".  As there, one CTA owns one output tile
 // and walks the other axis in a loop, so nothing carries between CTAs,
 // there are no atomics, and the bits are the same from run to run.
 //
@@ -24,19 +26,23 @@
 //     alpha = exp(m - m');  l = l * alpha + rowsum p
 //     acc = acc * alpha + p . v
 //   stored unnormalized: acc [B, Tq, H, D], m and l [B, Tq, H], all f32;
+//   dq, per query row over the key tiles it can see (masked as above):
+//     p = exp(s - lse); dp = dO . v^T; ds = p * (dp - delta) * scale
+//     dq += ds . K                                  f32 [B, Tq, H, D]
 //   dk/dv, per key row over the query tiles that can see it:
 //     sT = K . Q^T * scale (masked as above); pT = exp(sT - lse)
 //     dpT = V . dO^T; dsT = pT * (dpT - delta) * scale
 //     dv += pT . dO;  dk += dsT . Q                 f32 [B, Tk, H, D]
 // Key j is visible to query i where k_pos0 + j <= q_pos0 + i.  A dead block
 // (k_pos0 > q_pos0 + Tq - 1) runs no tile: the forward writes the empty
-// state m = NEG, l = 0, acc = 0 and the dk/dv kernel zero gradients.  A
-// row that sees no key of a live tile keeps the empty state as well.
+// state m = NEG, l = 0, acc = 0 and the backward kernels zero gradients.
+// A row that sees no key of a live tile keeps the empty state as well (in
+// the backward its p is exp(NEG - lse) = 0, so it adds zeros).
 //
 // f32 accuracy from bf16 tensor cores: q.k and dO.v have bf16 operands on
 // both sides, so every elementwise product is exact in f32 and they run
 // as one mma.sync.m16n8k16 bf16 -> f32 each, as in csrc/flash_attention_tc.cu.
-// The other operand of p.v, pT.dO and dsT.Q is f32.  It is split into three
+// The other operand of p.v, ds.K, pT.dO and dsT.Q is f32.  It is split into three
 // bf16 terms, x = hi + mid + lo (hi = bf16(x), mid = bf16(x - hi),
 // lo = bf16(x - hi - mid), each subtraction exact in f32), which carry all
 // 24 bits of its significand for every |x| above about 2^-100; each term's
@@ -59,24 +65,28 @@
 // order used 59-67% of the 1e-5 gate on acc, dk and dv, this one 4.5-5.4%.
 //
 // Bound on this card: operations.  Per live (query, key) pair and head the
-// forward issues (1 + 3) x 2D tensor-core operations and the dk/dv kernel
-// (1 + 1 + 3 + 3) x 2D; at one full ring step of the 1x16384x8x64 causal
-// ring (2048 queries against 2048 keys, H=8, D=64) that is 17.2 and 34.4
-// GFLOP, 0.0174 and 0.0347 ms at the bf16 tensor-core peak (989 TFLOP/s),
-// where the FP32 kernels' bound was 0.128 and 0.256 ms.
+// forward issues (1 + 3) x 2D tensor-core operations, dq (1 + 1 + 3) x 2D
+// and the dk/dv kernel (1 + 1 + 3 + 3) x 2D; at one full ring step of the
+// 1x16384x8x64 causal ring (2048 queries against 2048 keys, H=8, D=64)
+// that is 17.2, 21.5 and 34.4 GFLOP, 0.0174, 0.0217 and 0.0347 ms at the
+// bf16 tensor-core peak (989 TFLOP/s), where the FP32 kernels' bound was
+// 0.128, 0.192 and 0.256 ms.
 //
 // The design is that of the single-card tensor-core forward and dk/dv
 // (csrc/flash_attention_tc.cu, csrc/flash_attention_bwd_tc.cu): a CTA of 4
 // warps, warp w owning 16 rows;
-// s (or sT and dpT) as 16x64 f32 accumulator tiles in registers, the online
-// softmax across each row's quad of lanes; operands read from shared memory
-// by ldmatrix (.trans where the contraction runs over a tile's rows); bf16
-// tiles [64][Dk + 8] with Dk = D rounded up to 16, zeros past D and T;
-// q (or K and V) fragments held in registers for Dk <= 64; the streamed
-// tiles copied by cp.async.cg, 16 bytes a copy, in a two-stage ring (element
-// loads where vec = 0).  Each 16-column block of the split product loads
-// its four B fragments once and issues its twelve mma from them.  Under
-// causal the forward takes its query tiles in order of live key tiles, most
+// s (with dp, or sT and dpT) as 16x64 f32 accumulator tiles in registers,
+// the forward's online softmax across each row's quad of lanes; operands
+// read from shared memory by ldmatrix (.trans where the contraction runs
+// over a tile's rows); bf16 tiles [64][Dk + 8] with Dk = D rounded up to
+// 16, zeros past D and T; the resident tile's fragments (q, q and dO, or
+// K and V) held in registers for Dk <= 64; the streamed tiles copied by
+// cp.async.cg, 16 bytes a copy, in a two-stage ring (element loads where
+// vec = 0).  Each 16-column block of the split product loads its four B
+// fragments once and issues its twelve mma from them.  The forward and dq
+// own a query tile and stream K and V (dq's is the forward's loop with ds
+// in p's place, formed in place in dp's registers, and no rescale); under
+// causal they take their query tiles in order of live key tiles, most
 // first (the count grows with the tile index whatever the offsets), so the
 // longest CTAs start first; the dk/dv kernel's first key tiles, its
 // longest, lead already.  wgmma, TMA, warp specialisation and persistent
@@ -569,10 +579,159 @@ fa_bwd_dkv_parts_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ 
   }
 }
 
+template <int DK>
+__global__ void __launch_bounds__(THREADS)
+fa_bwd_dq_parts_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                          const bf16* __restrict__ v, const bf16* __restrict__ dO,
+                          const float* __restrict__ lse, const float* __restrict__ delta,
+                          float* __restrict__ dq, int H, int Tq, int Tk, int D, Strides st,
+                          float scale, int causal, int vec, int q_pos0, int k_pos0) {
+  constexpr int LD = DK + 8;
+  constexpr int TILE = 64 * LD;
+  constexpr int NK = DK / 16;
+  constexpr bool REGS = DK <= 64;  // q and dO fragments held in registers
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* Qs = reinterpret_cast<bf16*>(smem_raw);  // [64][LD]
+  bf16* dOs = Qs + TILE;                          // [64][LD]
+  bf16* Ks = dOs + TILE;                          // [2][64][LD]
+  bf16* Vs = Ks + 2 * TILE;                       // [2][64][LD]
+
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int bh = blockIdx.x;
+  const int b = bh / H;
+  const int h = bh - b * H;
+  // under causal a later query tile sees at least as many key tiles
+  const int q0 = (causal ? gridDim.y - 1 - blockIdx.y : blockIdx.y) * BM;
+  const bf16* kb = k + b * st.ksb + h * st.ksh;
+  const bf16* vb = v + b * st.vsb + h * st.vsh;
+
+  const int q_last = min(q0 + BM, Tq) - 1;
+  // one past the last key the tile's last query can see (0: a dead block)
+  const int n_end = causal ? max(0, min(Tk, q_pos0 + q_last - k_pos0 + 1)) : Tk;
+  if (n_end > 0) {
+    load_tile<DK>(Qs, q + b * st.qsb + h * st.qsh, st.qst, q0, Tq, D, vec);
+    load_tile<DK>(dOs, dO + b * st.osb + h * st.osh, st.ost, q0, Tq, D, vec);
+    load_tile<DK>(Ks, kb, st.kst, 0, Tk, D, vec);
+    load_tile<DK>(Vs, vb, st.vst, 0, Tk, D, vec);
+  }
+  cp_async_commit();
+
+  // this thread's query rows in the tile: r0 (accumulator elements 0, 1)
+  // and r0 + 8 (elements 2, 3), with their lse and delta; rows past Tq
+  // have zero q and dO, and lse = inf gives them p = 0
+  const int r0 = warp * 16 + g;
+  float lse_r[2], dlt_r[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int t = q0 + r0 + 8 * i;
+    lse_r[i] = t < Tq ? lse[(long long)bh * Tq + t] : INFINITY;
+    dlt_r[i] = t < Tq ? delta[(long long)bh * Tq + t] : 0.0f;
+  }
+  float dqa[2 * NK][4];
+#pragma unroll
+  for (int j = 0; j < 2 * NK; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dqa[j][e] = 0.0f;
+  uint32_t qf[REGS ? NK : 1][4], of[REGS ? NK : 1][4];
+
+  for (int it = 0, n0 = 0; n0 < n_end; ++it, n0 += BN) {
+    const int cur = it & 1;
+    if (n0 + BN < n_end) {
+      load_tile<DK>(Ks + (cur ^ 1) * TILE, kb, st.kst, n0 + BN, Tk, D, vec);
+      load_tile<DK>(Vs + (cur ^ 1) * TILE, vb, st.vst, n0 + BN, Tk, D, vec);
+    }
+    cp_async_commit();
+    cp_async_wait<1>();  // this tile's copies (and q's and dO's) have landed
+    __syncthreads();
+    const bf16* Kt = Ks + cur * TILE;
+    const bf16* Vt = Vs + cur * TILE;
+    if constexpr (REGS) {
+      if (it == 0) {
+#pragma unroll
+        for (int ks = 0; ks < NK; ++ks) {
+          ldsm_x4(qf[ks], a_addr<LD>(Qs, warp * 16, ks * 16, lane));
+          ldsm_x4(of[ks], a_addr<LD>(dOs, warp * 16, ks * 16, lane));
+        }
+      }
+    }
+
+    // s = q . K^T and dp = dO . V^T: 16 queries x 64 keys per warp
+    float s[8][4], dp[8][4];
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.0f;
+#pragma unroll
+    for (int ks = 0; ks < NK; ++ks) {
+      uint32_t a[4], o[4];
+      if constexpr (REGS) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          a[i] = qf[ks][i];
+          o[i] = of[ks][i];
+        }
+      } else {
+        ldsm_x4(a, a_addr<LD>(Qs, warp * 16, ks * 16, lane));
+        ldsm_x4(o, a_addr<LD>(dOs, warp * 16, ks * 16, lane));
+      }
+#pragma unroll
+      for (int kp = 0; kp < 4; ++kp) {
+        uint32_t bk[4], bv[4];
+        ldsm_x4(bk, b_addr<LD>(Kt, kp * 16, ks * 16, lane));
+        ldsm_x4(bv, b_addr<LD>(Vt, kp * 16, ks * 16, lane));
+        mma(s[2 * kp], a, bk[0], bk[1]);
+        mma(s[2 * kp + 1], a, bk[2], bk[3]);
+        mma(dp[2 * kp], o, bv[0], bv[1]);
+        mma(dp[2 * kp + 1], o, bv[2], bv[3]);
+      }
+    }
+
+    // p, then ds in place of dp (rows: queries, columns: keys); a tile whose
+    // every key is real and visible to every query of the CTA's tile needs
+    // no mask
+    const bool unmasked = n0 + BN <= Tk && (!causal || k_pos0 + n0 + BN - 1 <= q_pos0 + q0);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int i = e >> 1;
+        const int kp = n0 + 8 * j + 2 * t4 + (e & 1);
+        float sv;
+        if (unmasked) sv = s[j][e] * scale;
+        else if (kp >= Tk) sv = -INFINITY;
+        else if (causal && k_pos0 + kp > q_pos0 + q0 + r0 + 8 * i) sv = NEG;
+        else sv = s[j][e] * scale;
+        const float p = expf(sv - lse_r[i]);
+        dp[j][e] = p * (dp[j][e] - dlt_r[i]) * scale;  // ds
+      }
+    }
+
+    // dq += ds . K, ds as three bf16 terms
+    uint32_t f[3][4][4];
+    split3(f, dp);
+    add_split_product<LD, NK>(dqa, f, Kt, lane, 1.0f, 1.0f);
+    __syncthreads();  // every warp is done with this stage before it refills
+  }
+  cp_async_wait<0>();
+
+  // every element of the tile, zeros for a dead block
+#pragma unroll
+  for (int j = 0; j < 2 * NK; ++j) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int t = q0 + r0 + 8 * (e >> 1);
+      const int c = 8 * j + 2 * t4 + (e & 1);
+      if (t < Tq && c < D) dq[(((long long)b * Tq + t) * H + h) * D + c] = dqa[j][e];
+    }
+  }
+}
+
 struct Args {
   const void *q, *k, *v, *dO;
   const float *lse, *delta;
-  float *o0, *o1, *o2;  // acc, m, l; or dk, dv
+  float *o0, *o1, *o2;  // acc, m, l; dq; or dk, dv
   int B, H, Tq, Tk, D;
   Strides st;
   float scale;
@@ -611,25 +770,45 @@ int launch_dkv(const Args& a) {
 }
 
 template <int DK>
-int launch(const Args& a, bool dkv) {
-  return dkv ? launch_dkv<DK>(a) : launch_fwd<DK>(a);
+int launch_dq(const Args& a) {
+  const size_t smem = 6 * tile_bytes(DK);
+  cudaError_t err = cudaFuncSetAttribute(fa_bwd_dq_parts_tc_kernel<DK>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((unsigned)(a.B * a.H), (unsigned)((a.Tq + BM - 1) / BM));
+  fa_bwd_dq_parts_tc_kernel<DK><<<grid, THREADS, smem, a.stream>>>(
+      static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
+      static_cast<const bf16*>(a.v), static_cast<const bf16*>(a.dO), a.lse, a.delta, a.o0,
+      a.H, a.Tq, a.Tk, a.D, a.st, a.scale, a.causal, a.vec, a.q_pos0, a.k_pos0);
+  return (int)cudaGetLastError();
+}
+
+enum class Kind { fwd, dq, dkv };
+
+template <int DK>
+int launch(const Args& a, Kind kind) {
+  switch (kind) {
+    case Kind::fwd: return launch_fwd<DK>(a);
+    case Kind::dq: return launch_dq<DK>(a);
+    default: return launch_dkv<DK>(a);
+  }
 }
 
 // Dk = D rounded up to 16
-int launch_checked(const Args& a, bool dkv) {
+int launch_checked(const Args& a, Kind kind) {
   if (a.B <= 0 || a.H <= 0 || a.Tq <= 0 || a.Tk <= 0 || a.D <= 0 || a.D > 128 ||
       (long long)a.B * a.H > 0x7fffffffLL || (a.Tq + BM - 1) / BM > 65535 ||
       (a.Tk + BN - 1) / BN > 65535)
     return (int)cudaErrorInvalidValue;
   switch ((a.D + 15) / 16) {
-    case 1: return launch<16>(a, dkv);
-    case 2: return launch<32>(a, dkv);
-    case 3: return launch<48>(a, dkv);
-    case 4: return launch<64>(a, dkv);
-    case 5: return launch<80>(a, dkv);
-    case 6: return launch<96>(a, dkv);
-    case 7: return launch<112>(a, dkv);
-    default: return launch<128>(a, dkv);
+    case 1: return launch<16>(a, kind);
+    case 2: return launch<32>(a, kind);
+    case 3: return launch<48>(a, kind);
+    case 4: return launch<64>(a, kind);
+    case 5: return launch<80>(a, kind);
+    case 6: return launch<96>(a, kind);
+    case 7: return launch<112>(a, kind);
+    default: return launch<128>(a, kind);
   }
 }
 
@@ -651,7 +830,7 @@ extern "C" int flash_attention_fwd_parts_tc(const void* q, const void* k, const 
   const Args a{q, k, v, nullptr, nullptr, nullptr, acc, m, l, B, H, Tq, Tk, D,
                {qsb, qst, qsh, ksb, kst, ksh, vsb, vst, vsh, 0, 0, 0},
                scale, causal, vec, q_pos0, k_pos0, static_cast<cudaStream_t>(stream)};
-  return launch_checked(a, false);
+  return launch_checked(a, Kind::fwd);
 }
 
 // As above, with dO: bf16 [B, Tq, H, D] strided like q; lse, delta:
@@ -669,5 +848,24 @@ extern "C" int flash_attention_bwd_dkv_parts_tc(const void* q, const void* k, co
   const Args a{q, k, v, dO, lse, delta, dk, dv, nullptr, B, H, Tq, Tk, D,
                {qsb, qst, qsh, ksb, kst, ksh, vsb, vst, vsh, osb, ost, osh},
                scale, causal, vec, q_pos0, k_pos0, static_cast<cudaStream_t>(stream)};
-  return launch_checked(a, true);
+  return launch_checked(a, Kind::dkv);
+}
+
+
+// As flash_attention_bwd_dkv_parts_tc, with dq: contiguous [B, Tq, H, D] f32,
+// every element written (zeros for a dead block).
+extern "C" int flash_attention_bwd_dq_parts_tc(const void* q, const void* k, const void* v,
+                                               const void* dO, const float* lse,
+                                               const float* delta, float* dq, int B, int H,
+                                               int Tq, int Tk, int D, long long qsb,
+                                               long long qst, long long qsh, long long ksb,
+                                               long long kst, long long ksh, long long vsb,
+                                               long long vst, long long vsh, long long osb,
+                                               long long ost, long long osh, float scale,
+                                               int causal, int vec, int q_pos0, int k_pos0,
+                                               void* stream) {
+  const Args a{q, k, v, dO, lse, delta, dq, nullptr, nullptr, B, H, Tq, Tk, D,
+               {qsb, qst, qsh, ksb, kst, ksh, vsb, vst, vsh, osb, ost, osh},
+               scale, causal, vec, q_pos0, k_pos0, static_cast<cudaStream_t>(stream)};
+  return launch_checked(a, Kind::dq);
 }

@@ -14,10 +14,10 @@ tensor-core kernels (``csrc/flash_attention_tc.cu`` forward,
 ``csrc/flash_attention_bwd_tc.cu`` backward), every other case the FP32
 ones (``csrc/flash_attention.cu``, ``csrc/flash_attention_bwd.cu``).  The
 ring's parts kernels take the route :func:`_parts_route` names per kernel:
-for bf16 at the ring's ``"highest"`` the forward and dk/dv run the
+for bf16 at the ring's ``"highest"`` the forward, dq and dk/dv run the
 tensor-core kernels of ``csrc/flash_attention_parts_tc.cu``, whose f32
-operand (p, pT, dsT) enters the products as three bf16 terms (``"tc3"``),
-and dq the FP32 kernel.  The kernels
+operand (p, ds, pT, dsT) enters the products as three bf16 terms
+(``"tc3"``).  The kernels
 take their own tile sizes; ``block_q`` and ``block_k`` keep the
 reference's contract
 (:func:`_blocks_for` degrades them by gcd and raises on degenerate tiles;
@@ -389,7 +389,7 @@ def _launch_parts(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, q_pos0: int
         if not is_bf16:
             raise KernelCompileError(
                 f"flash_attention_parts {route} kernel: q/k/v must be bf16, got {q.dtype}")
-        fn, _ = _parts_tc_launchers()
+        fn = _parts_tc_launchers()["fwd"]
         flags = (int(causal), int(_vector_loads((q, k, v), D)))
     elif route == "fp32":
         _, fn = _fwd_launchers()
@@ -534,37 +534,42 @@ def _parts_route(kind: str, dtype: torch.dtype, precision: str) -> str:
     ``"dq"`` or ``"dkv"``) for operands of ``dtype`` at ``precision`` (the
     backward's after :func:`_parts_bwd_precision`):
 
-    - ``"tc3"``, ``csrc/flash_attention_parts_tc.cu``: the forward and dk/dv
-      for bf16 at ``"highest"``, the ring's precision; q.k and dO.v are
-      exact bf16 products, and p, pT and dsT enter their products as three
-      bf16 terms, so the tensor cores keep f32 accuracy;
+    - ``"tc3"``, ``csrc/flash_attention_parts_tc.cu``: the forward, dq and
+      dk/dv for bf16 at ``"highest"``, the ring's precision; q.k and dO.v
+      are exact bf16 products, and p, ds, pT and dsT enter their products
+      as three bf16 terms, so the tensor cores keep f32 accuracy;
     - ``"tc"``, ``csrc/flash_attention_bwd_tc.cu``: dq and dk/dv for bf16
       at ``"default"``, where p and ds round to bf16 as the reference
       rounds them;
-    - ``"fp32"``, the FP32 kernels: dq at ``"highest"``, the forward at
-      ``"default"`` (its bf16 p' on the CUDA cores), and f32 operands
-      everywhere (a split of f32 q and k would take six products)."""
+    - ``"fp32"``, the FP32 kernels: the forward at ``"default"`` (its bf16
+      p' on the CUDA cores), and f32 operands everywhere (a split of f32 q
+      and k would take six products)."""
     if kind not in ("fwd", "dq", "dkv"):
         raise ValueError(f"parts kernel kind must be 'fwd', 'dq' or 'dkv', got {kind!r}")
     precision = _precision_str(precision)
     if dtype != torch.bfloat16:
         return "fp32"
     if precision == "highest":
-        return "fp32" if kind == "dq" else "tc3"
+        return "tc3"
     return "fp32" if kind == "fwd" else "tc"
 
 
 def _parts_tc_launchers():
+    """The entry points of ``csrc/flash_attention_parts_tc.cu`` by kind:
+    ``"fwd"``, ``"dq"`` and ``"dkv"``."""
     global _parts_tc_fns
     if _parts_tc_fns is None:
         lib = build_library(SOURCE_PARTS_TC.read_text(), "flash_attention_parts_tc")
-        fwd_fn, dkv_fn = lib.flash_attention_fwd_parts_tc, lib.flash_attention_bwd_dkv_parts_tc
-        fwd_fn.restype = dkv_fn.restype = ctypes.c_int
-        fwd_fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_longlong] * 9
-                           + [ctypes.c_float] + [ctypes.c_int] * 4 + [ctypes.c_void_p])
-        dkv_fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 + [ctypes.c_longlong] * 12
-                           + [ctypes.c_float] + [ctypes.c_int] * 4 + [ctypes.c_void_p])
-        _parts_tc_fns = (fwd_fn, dkv_fn)
+        fns = {"fwd": lib.flash_attention_fwd_parts_tc,
+               "dq": lib.flash_attention_bwd_dq_parts_tc,
+               "dkv": lib.flash_attention_bwd_dkv_parts_tc}
+        tail = [ctypes.c_float] + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+        # pointers: q, k, v (dO, lse, delta), then the outputs; strides of q, k, v (dO)
+        for kind, n_ptrs, n_strides in (("fwd", 6, 9), ("dq", 7, 12), ("dkv", 8, 12)):
+            fns[kind].restype = ctypes.c_int
+            fns[kind].argtypes = ([ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * 5
+                                  + [ctypes.c_longlong] * n_strides + tail)
+        _parts_tc_fns = fns
     return _parts_tc_fns
 
 
@@ -644,9 +649,8 @@ def _launch_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, do: torch.Ten
                 fn = _bwd_launchers()[which]
                 flags = (int(causal), int(q.dtype == torch.bfloat16), *out_bf16,
                          int(precision == "default"))
-            elif route == "tc3" and kind == "dkv" and q.dtype == torch.bfloat16 \
-                    and not any(out_bf16):
-                fn = _parts_tc_launchers()[1]
+            elif route == "tc3" and q.dtype == torch.bfloat16 and not any(out_bf16):
+                fn = _parts_tc_launchers()[kind]
                 flags = (int(causal), vec)
             else:
                 raise KernelCompileError(

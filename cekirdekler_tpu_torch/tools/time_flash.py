@@ -17,9 +17,11 @@ against ``2*2048``), as ``chip_smoke.check_ring_parts`` lays them out.
 Each call is timed by CUDA events, and each kernel from a profiler trace
 by its name prefix (``fa_fwd_parts``, ``fa_bwd_dq``, ``fa_bwd_dkv``: the
 FP32 kernels and the tensor-core ones share them).  Where the checkout
-routes the parts by ``_parts_route``, the full step's max abs errors
-against the plain versions are printed too, for the route the wrappers
-take and for the FP32 kernels.
+routes the parts by ``_parts_route``, the FP32 dq and dk/dv kernels are
+traced too on the same operands (``dq_fp32_ms``, ``dkv_fp32_ms``, through
+the route override), and the full step's max abs errors against the
+plain versions are printed, for the routes the wrappers take and for the
+FP32 kernels.
 
 Every callable first runs for half a second of wall time, so the card
 is at its working clocks when it is timed (a burst of a few milliseconds
@@ -146,12 +148,14 @@ def _parts_errors(fa, torch, q, k, v, do, lse, delta, q_pos0: int, k_pos0: int) 
         got = fa._launch_parts(q, k, v, q_pos0, k_pos0, True, "highest", route=route)
         res[f"fwd:{route}"] = {n: float((a - w).abs().max())
                                for n, a, w in zip(("acc", "m", "l"), got, want_f)}
-    for route in (fa._parts_route("dkv", q.dtype, "highest"), "fp32"):
+    routes = tuple(fa._parts_route(kind, q.dtype, "highest") for kind in ("dq", "dkv"))
+    for pair in (routes, ("fp32", "fp32")):
         got = fa._launch_bwd(q, k, v, do, fa._row_column(lse), fa._row_column(delta), True,
                              "highest", (torch.float32,) * 3, q_pos0, k_pos0, parts=True,
-                             routes=("fp32", route))
-        res[f"dkv:{route}"] = {n: float((a - w).abs().max())
-                               for n, a, w in zip(("dk", "dv"), got[1:], want_b[1:])}
+                             routes=pair)
+        res[f"dq:{pair[0]}"] = {"dq": float((got[0] - want_b[0]).abs().max())}
+        res[f"dkv:{pair[1]}"] = {n: float((a - w).abs().max())
+                                 for n, a, w in zip(("dk", "dv"), got[1:], want_b[1:])}
     return res
 
 
@@ -179,8 +183,17 @@ def _parts(fa, torch, reps: int) -> dict:
         r["bwd_clocks"] = _warm(bwd)
         r["bwd_event_ms"] = _event_ms(bwd, reps)
         r["dq_ms"], r["dkv_ms"] = _traced_ms(bwd, ("fa_bwd_dq", "fa_bwd_dkv"), reps).values()
-        if step == "full" and hasattr(fa, "_parts_route"):
-            r["errors"] = _parts_errors(fa, torch, q, k, v, do, lse, delta, q_pos0, k_pos0)
+        if hasattr(fa, "_parts_route"):
+            def bwd_fp32():
+                return fa._launch_bwd(q, k, v, do, fa._row_column(lse), fa._row_column(delta),
+                                      True, "highest", (torch.float32,) * 3, q_pos0, k_pos0,
+                                      parts=True, routes=("fp32", "fp32"))
+
+            _warm(bwd_fp32)
+            r["dq_fp32_ms"], r["dkv_fp32_ms"] = _traced_ms(
+                bwd_fp32, ("fa_bwd_dq", "fa_bwd_dkv"), reps).values()
+            if step == "full":
+                r["errors"] = _parts_errors(fa, torch, q, k, v, do, lse, delta, q_pos0, k_pos0)
         res[step] = r
     return res
 

@@ -90,9 +90,9 @@ Phases, each of which raises on failure (the script then exits non-zero):
    ``flash_attention_bwd_parts``) against their plain versions at one ring
    step of the full-width run, 1x2048 queries against 1x2048 keys, H=8,
    D=64, bf16 at "highest", at a diagonal, a below-diagonal and a dead
-   offset: the forward and dk/dv on the split tensor-core kernels of
-   ``csrc/flash_attention_parts_tc.cu`` (route ``tc3``), dq on the FP32
-   kernel, as ``_parts_route`` says, two calls equal bit for bit; each
+   offset: all three on the split tensor-core kernels of
+   ``csrc/flash_attention_parts_tc.cu`` (route ``tc3``), as
+   ``_parts_route`` says, two calls equal bit for bit; each
    timed at the diagonal and the full step beside the FP32 kernel on the
    same operands, its bound on its route and its FP32 bound; (b) ``workloads.run_ring_attention`` at B=1, T=16384, H=8, D=64
    (the heads and head dim of ``TransformerConfig()``, 2048 positions a
@@ -102,8 +102,8 @@ Phases, each of which raises on failure (the script then exits non-zero):
    bf16 ulps of each one's largest magnitude, and the same in f32 at
    1x8192 over sp=4 (output within 1e-5, gradients within 5e-4); (c) with
    every count set to 0 before the sp=8 run, each parts kernel launched 64
-   times, 28 of them on dead blocks, the forward and dk/dv on ``tc3`` and
-   dq on ``fp32``, and no plain version on the card; the f32 run only on
+   times, 28 of them on dead blocks, every launch on ``tc3``, and no
+   plain version on the card; the f32 run only on
    the FP32 kernels; (d)
    Ulysses at the same width against the same oracle, and the einsum
    ring's forward against the flash ring's; (e) the ring's forward and
@@ -304,9 +304,10 @@ def check_emitter_stream(cuda_backend, emitted, dev, n: int) -> dict[str, dict]:
 
 PARTS_OPS_PER_D = {"fwd": 4, "dq": 6, "dkv": 8}
 # the split kernels' tensor-core work per live pair, head and column: q.k
-# once and p.v three times (forward); sT, dpT once and pT.dO, dsT.Q three
-# times each (dk/dv); 2 operations a product
-SPLIT_OPS_PER_D = {"fwd": 8, "dkv": 16}
+# once and p.v three times (forward); s, dp once and ds.K three times (dq);
+# sT, dpT once and pT.dO, dsT.Q three times each (dk/dv); 2 operations a
+# product
+SPLIT_OPS_PER_D = {"fwd": 8, "dq": 10, "dkv": 16}
 
 
 def live_pairs(Tq: int, Tk: int, q_pos0: int, k_pos0: int, causal: bool) -> int:
@@ -562,11 +563,11 @@ def check_ring_parts(fa, dev, T: int = 2048) -> dict[str, dict]:
     (key blocks at the kernels' tile width) at one ring step of the
     full-width run: 1x2048 queries against 1x2048 keys, H=8, D=64, bf16 at
     "highest", at a diagonal (q_pos0 = k_pos0 = 3*2048), a below-diagonal
-    (5*2048 against 2*2048) and a dead offset (2048 against 3*2048).  The
-    forward and dk/dv run on the split tensor-core kernels
-    (``csrc/flash_attention_parts_tc.cu``, route ``"tc3"``), dq on the FP32
-    kernel, as ``_parts_route`` says; each step's launches are held to
-    those routes, and two calls give the same bits.  Tolerances: acc, m
+    (5*2048 against 2*2048) and a dead offset (2048 against 3*2048).  All
+    three run on the split tensor-core kernels
+    (``csrc/flash_attention_parts_tc.cu``, route ``"tc3"``), as
+    ``_parts_route`` says; each step's launches are held to that route,
+    and two calls give the same bits.  Tolerances: acc, m
     and l within 1e-5 of each one's largest magnitude on the rows that see
     a key (f32 accuracy on both sides; the sums differ only in order), the
     empty rows' state exactly; the gradients within 1e-5 of each one's
@@ -588,7 +589,7 @@ def check_ring_parts(fa, dev, T: int = 2048) -> dict[str, dict]:
     lse = m + torch.log(l)
     delta = (do.float() * (acc / l[..., None]).to(torch.bfloat16).float()).sum(dim=-1)
     routes = {kind: fa._parts_route(kind, q.dtype, "highest") for kind in ("fwd", "dq", "dkv")}
-    if routes != {"fwd": "tc3", "dq": "fp32", "dkv": "tc3"}:
+    if routes != dict.fromkeys(("fwd", "dq", "dkv"), "tc3"):
         raise AssertionError(f"the ring's bf16 parts at \"highest\" route {routes}")
     steps = {"diagonal": (3 * T, 3 * T), "full": (5 * T, 2 * T), "dead": (T, 3 * T)}
     rows = {}
@@ -601,9 +602,9 @@ def check_ring_parts(fa, dev, T: int = 2048) -> dict[str, dict]:
         took = tuple({key: n - was.get(key, 0) for key, n in c.by_key.items()
                       if n != was.get(key, 0)}
                      for c, was in zip((fa.PARTS_FWD_ROUTES, fa.BWD_ROUTES), before))
-        if took != ({"tc3": 1}, {"fp32": 1, "tc3": 1}):
-            raise AssertionError(f"ring step ({step}) took routes {took}: want the forward and "
-                                 "dk/dv on tc3, dq on fp32")
+        if took != ({"tc3": 1}, {"tc3": 2}):
+            raise AssertionError(f"ring step ({step}) took routes {took}: want the forward, dq "
+                                 "and dk/dv on tc3")
         again = fa.flash_attention_parts(q, k, v, q_pos0, k_pos0, True, 512, 512)
         again_b = fa.flash_attention_bwd_parts(q, k, v, do, lse, delta, q_pos0, k_pos0, True,
                                                512, 512)
@@ -649,9 +650,9 @@ def check_ring_parts(fa, dev, T: int = 2048) -> dict[str, dict]:
 
         fwd_ms = profiled_ms(fwd, 10, ("fa_fwd_parts",))["fa_fwd_parts"]
         fwd_fp32 = profiled_ms(lambda: fwd("fp32"), 10, ("fa_fwd_parts",))["fa_fwd_parts"]
-        each = profiled_ms(bwd_call, 10, ("fa_bwd_dq_kernel", "fa_bwd_dkv"))
-        dkv_fp32 = profiled_ms(lambda: bwd_call(("fp32", "fp32")), 10,
-                               ("fa_bwd_dkv",))["fa_bwd_dkv"]
+        each = profiled_ms(bwd_call, 10, ("fa_bwd_dq", "fa_bwd_dkv"))
+        each_fp32 = profiled_ms(lambda: bwd_call(("fp32", "fp32")), 10,
+                                ("fa_bwd_dq", "fa_bwd_dkv"))
         plain_fwd = cuda_ms(lambda: fa.flash_attention_parts_plain(
             q, k, v, q_pos0, k_pos0, True, kb, "highest"), 2, warmup=1)
         plain_bwd = cuda_ms(lambda: fa.flash_attention_bwd_parts_plain(
@@ -659,12 +660,14 @@ def check_ring_parts(fa, dev, T: int = 2048) -> dict[str, dict]:
         bounds = {kind: parts_bound(kind, 1, T, T, H, D, q_pos0, k_pos0, True, 2, routes[kind])
                   for kind in ("fwd", "dq", "dkv")}
         fp32_bounds = {kind: parts_bound(kind, 1, T, T, H, D, q_pos0, k_pos0, True, 2)[0]
-                       for kind in ("fwd", "dkv")}
+                       for kind in ("fwd", "dq", "dkv")}
         print(f"ring step {step}: forward parts kernel (tc3) {fwd_ms:.4f} ms, FP32 kernel on the "
               f"same operands {fwd_fp32:.4f} ms (bound {bounds['fwd'][0]:.4f} ms, "
               f"{bounds['fwd'][1]}, bf16 peak; FP32 bound {fp32_bounds['fwd']:.4f}); dq kernel "
-              f"(fp32) {each['fa_bwd_dq_kernel']:.4f} ms (bound {bounds['dq'][0]:.4f}); dk/dv "
-              f"kernel (tc3) {each['fa_bwd_dkv']:.4f} ms, FP32 kernel {dkv_fp32:.4f} ms (bound "
+              f"(tc3) {each['fa_bwd_dq']:.4f} ms, FP32 kernel {each_fp32['fa_bwd_dq']:.4f} ms "
+              f"(bound {bounds['dq'][0]:.4f}, bf16 peak; FP32 bound {fp32_bounds['dq']:.4f}); "
+              f"dk/dv kernel (tc3) {each['fa_bwd_dkv']:.4f} ms, FP32 kernel "
+              f"{each_fp32['fa_bwd_dkv']:.4f} ms (bound "
               f"{bounds['dkv'][0]:.4f}, bf16 peak; FP32 bound {fp32_bounds['dkv']:.4f}); plain "
               f"forward {plain_fwd:.4f} ms, plain backward {plain_bwd:.4f} ms; library: none "
               "(no PyTorch call gives the unnormalized parts or the ring-global partial "
@@ -677,13 +680,14 @@ def check_ring_parts(fa, dev, T: int = 2048) -> dict[str, dict]:
                     library_ms=None, kernel_route="tc3", fp32_ms=fwd_fp32,
                     fp32_bound_ms=fp32_bounds["fwd"]),
                 "flash_attention_bwd_parts_dq": dict(
-                    max_abs_err=errs["dq"], ms=each["fa_bwd_dq_kernel"], plain_ms=plain_bwd,
+                    max_abs_err=errs["dq"], ms=each["fa_bwd_dq"], plain_ms=plain_bwd,
                     bound_ms=bounds["dq"][0], bound_by=bounds["dq"][1], library_ms=None,
-                    kernel_route="fp32"),
+                    kernel_route="tc3", fp32_ms=each_fp32["fa_bwd_dq"],
+                    fp32_bound_ms=fp32_bounds["dq"]),
                 "flash_attention_bwd_parts_dkv": dict(
                     max_abs_err=max(errs["dk"], errs["dv"]), ms=each["fa_bwd_dkv"],
                     plain_ms=plain_bwd, bound_ms=bounds["dkv"][0], bound_by=bounds["dkv"][1],
-                    library_ms=None, kernel_route="tc3", fp32_ms=dkv_fp32,
+                    library_ms=None, kernel_route="tc3", fp32_ms=each_fp32["fa_bwd_dkv"],
                     fp32_bound_ms=fp32_bounds["dkv"]),
             }
     return rows
@@ -733,11 +737,10 @@ def check_ring(wl, fa, par, dev, card: str, T: int = 16384) -> dict[str, int]:
         raise AssertionError("the ring ran other kernels than its parts kernels, or its "
                              f"counts disagree: {seen}")
     if seen["PARTS_FWD_ROUTES"] != {"tc3": launches["fwd"]} or \
-            seen["BWD_ROUTES"] != {"fp32": launches["dq"], "tc3": launches["dkv"]}:
-        raise AssertionError("the bf16 ring at \"highest\" should run the forward and dk/dv "
-                             "parts on the split tensor-core kernels (tc3) and dq on the FP32 "
-                             f"kernel: forward {seen['PARTS_FWD_ROUTES']}, backward "
-                             f"{seen['BWD_ROUTES']}")
+            seen["BWD_ROUTES"] != {"tc3": launches["dq"] + launches["dkv"]}:
+        raise AssertionError("the bf16 ring at \"highest\" should run every parts kernel on "
+                             "the split tensor-core kernels (tc3): forward "
+                             f"{seen['PARTS_FWD_ROUTES']}, backward {seen['BWD_ROUTES']}")
     out_s, grads_s, fwd_s, both_s = _single_card(fa, r["q"], r["k"], r["v"])
     worst = {}
     for name, a, w in zip(("out", "dq", "dk", "dv"), (r["out"], *r["grads"]),
@@ -1552,7 +1555,7 @@ def main() -> int:
             "cuda", "cekirdekler_tpu_torch/csrc/flash_attention_parts_tc.cu",
             "cekirdekler_tpu/ops/flash_attention.py:420"),
         "flash_attention_bwd_parts_dq": (
-            "cuda", "cekirdekler_tpu_torch/csrc/flash_attention_bwd.cu",
+            "cuda", "cekirdekler_tpu_torch/csrc/flash_attention_parts_tc.cu",
             "cekirdekler_tpu/ops/flash_attention.py:745"),
         "flash_attention_bwd_parts_dkv": (
             "cuda", "cekirdekler_tpu_torch/csrc/flash_attention_parts_tc.cu",

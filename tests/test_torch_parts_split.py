@@ -1,11 +1,11 @@
 """The arithmetic of the ring's tensor-core parts kernels, on the CPU.
 
-``csrc/flash_attention_parts_tc.cu`` runs the ring's forward parts and the
-dk/dv half of its backward parts for bf16 q/k/v/dO at "highest" on bf16
-tensor cores: q.k and dO.v have bf16 operands on both sides (exact
-products), and the f32 operand of p.V, pT.dO and dsT.Q enters its product
-as three bf16 terms, each product exact, summed in f32 per 64-wide tile and
-then added to the running f32 sum.  The kernels run only on the card
+``csrc/flash_attention_parts_tc.cu`` runs the ring's forward parts and
+both halves of its backward parts, dq and dk/dv, for bf16 q/k/v/dO at
+"highest" on bf16 tensor cores: q.k and dO.v have bf16 operands on both
+sides (exact products), and the f32 operand of p.V, ds.K, pT.dO and dsT.Q
+enters its product as three bf16 terms, each product exact, summed in f32
+per 64-wide tile and then added to the running f32 sum.  The kernels run only on the card
 (``tests/test_torch_card.py``); here a plain model of that arithmetic is
 held against the port's plain versions at "highest" (within 1e-6 of each
 output's largest magnitude: the split loses nothing but the order of the
@@ -93,6 +93,34 @@ def parts_forward_model(q, k, v, q_pos0: int, k_pos0: int, causal: bool):
         acc = acc * alpha[..., None] + split_product(p, vb)
         m = m_new
     return acc.permute(0, 2, 1, 3), m.permute(0, 2, 1), l.permute(0, 2, 1)
+
+
+def parts_dq_model(q, k, v, do, lse, delta, q_pos0: int, k_pos0: int, causal: bool):
+    """The tensor-core dq parts, plainly: per 64-key tile ``p = exp(s - lse)``
+    and ``ds = p (dp - delta) scale`` in f32, then ``dq += split_product(ds,
+    K)``, each tile's product added to the running f32 sum.  A key a row
+    cannot see adds exact zeros (p = exp(NEG - lse) = 0), so every row may
+    walk every tile up to the block's last visible key; a dead block walks
+    none and gives zeros."""
+    B, Tq, H, D = q.shape
+    Tk = k.shape[1]
+    scale = 1.0 / math.sqrt(D)
+    q3, k3, v3, do3 = (t.permute(0, 2, 1, 3).float() for t in (q, k, v, do))
+    lse3, dlt3 = (t.permute(0, 2, 1)[..., None].float() for t in (lse, delta))
+    dq = torch.zeros((B, H, Tq, D))
+    qpos = q_pos0 + torch.arange(Tq)
+    n_end = max(0, min(Tk, q_pos0 + Tq - k_pos0)) if causal else Tk
+    for n0 in range(0, n_end, TILE):
+        kb, vb = k3[:, :, n0:n0 + TILE], v3[:, :, n0:n0 + TILE]
+        s = (q3 @ kb.transpose(-1, -2)) * scale
+        if causal:
+            kpos = k_pos0 + torch.arange(n0, n0 + kb.shape[2])
+            s = torch.where(kpos[None, :] <= qpos[:, None], s, NEG)
+        p = torch.exp(s - lse3)
+        dp = do3 @ vb.transpose(-1, -2)
+        ds = p * (dp - dlt3) * scale
+        dq = dq + split_product(ds, kb)
+    return dq.permute(0, 2, 1, 3)
 
 
 def parts_dkv_model(q, k, v, do, lse, delta, q_pos0: int, k_pos0: int, causal: bool):
@@ -205,6 +233,32 @@ def test_split_forward_model_matches_plain_and_reference(geom, offsets):
 
 @pytest.mark.parametrize("offsets", OFFSETS)
 @pytest.mark.parametrize("geom", sorted(GEOMETRIES))
+def test_split_dq_model_matches_plain_and_reference(geom, offsets):
+    """dq of the model against ``flash_attention_bwd_parts_plain`` at
+    "highest" (64-key blocks) within 1e-6 of dq's largest magnitude, and
+    against the JAX package (interpret mode) within 5e-4, from the lse and
+    delta of the diagonal step.  A dead block gives exact zeros."""
+    (qj, kj, vj, doj), (q, k, v, do) = _inputs(geom, 4, seed=14)
+    Tq = q.shape[1]
+    acc, m, l = port.flash_attention_parts_plain(q, k, v, 0, 0, True, TILE, "highest")
+    lse = m + torch.log(l)
+    delta = (do.float() * (acc / l[..., None]).to(torch.bfloat16).float()).sum(dim=-1)
+    q_pos0, k_pos0 = _offsets(offsets, Tq)
+    got = parts_dq_model(q, k, v, do, lse, delta, q_pos0, k_pos0, True)
+    plain = port.flash_attention_bwd_parts_plain(q, k, v, do, lse, delta, q_pos0, k_pos0, True,
+                                                 TILE, TILE, "highest")[0]
+    if offsets == "dead":
+        assert not bool(got.any()) and not bool(plain.any())
+    else:
+        assert float((got - plain).abs().max()) <= 1e-6 * float(plain.abs().max())
+    want = ref.flash_attention_bwd_parts(qj, kj, vj, doj, jnp.asarray(lse.numpy()),
+                                         jnp.asarray(delta.numpy()), q_pos0, k_pos0, True,
+                                         256, 256)[0]
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0, atol=5e-4)
+
+
+@pytest.mark.parametrize("offsets", OFFSETS)
+@pytest.mark.parametrize("geom", sorted(GEOMETRIES))
 def test_split_dkv_model_matches_plain_and_reference(geom, offsets):
     """dk and dv of the model against ``flash_attention_bwd_parts_plain`` at
     "highest" within 1e-6 of each one's largest magnitude, and against the
@@ -236,13 +290,13 @@ def test_split_dkv_model_matches_plain_and_reference(geom, offsets):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
 @pytest.mark.parametrize("kind", ["fwd", "dq", "dkv"])
 def test_parts_route(kind, dtype, precision):
-    """bf16 at "highest" (the ring's precision): the forward and dk/dv on
-    the split tensor-core kernels, dq on the FP32 kernel.  bf16 at
+    """bf16 at "highest" (the ring's precision): the forward, dq and dk/dv
+    on the split tensor-core kernels.  bf16 at
     "default": the forward keeps the FP32 kernel with its bf16 p', the
     backward the tensor-core kernels that round p and ds.  f32: the FP32
     kernels everywhere."""
     want = {
-        (torch.bfloat16, "highest"): {"fwd": "tc3", "dq": "fp32", "dkv": "tc3"},
+        (torch.bfloat16, "highest"): dict.fromkeys(("fwd", "dq", "dkv"), "tc3"),
         (torch.bfloat16, "default"): {"fwd": "fp32", "dq": "tc", "dkv": "tc"},
         (torch.float32, "highest"): dict.fromkeys(("fwd", "dq", "dkv"), "fp32"),
         (torch.float32, "default"): dict.fromkeys(("fwd", "dq", "dkv"), "fp32"),

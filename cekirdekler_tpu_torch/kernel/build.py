@@ -113,16 +113,21 @@ def build_library(source: str, name: str, compiler: str = "nvcc") -> ctypes.CDLL
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         so = BUILD_DIR / f"lib{key}.so"
         if not so.exists():
-            src = BUILD_DIR / f"{key}{suffix}"
+            # each build compiles its own copy of the source: processes that
+            # build one source at once (test workers) never read a half-written one
+            tag = f"{os.getpid()}.{threading.get_ident()}"
+            src = BUILD_DIR / f"{key}.{tag}{suffix}"
             src.write_text(source)
-            tmp = BUILD_DIR / f"lib{key}.{os.getpid()}.{threading.get_ident()}.tmp"
+            tmp = BUILD_DIR / f"lib{key}.{tag}.tmp"
             proc = subprocess.run(
                 [exe, *flags, "-o", str(tmp), str(src)],
                 capture_output=True, text=True)
             if proc.returncode != 0:
                 tmp.unlink(missing_ok=True)
+                src.unlink(missing_ok=True)
                 raise KernelCompileError(
                     f"{compiler} failed to build {name}:\n{proc.stderr[-4000:]}")
+            os.replace(src, BUILD_DIR / f"{key}{suffix}")
             os.replace(tmp, so)
         lib = ctypes.CDLL(str(so))
         _loaded[key] = lib

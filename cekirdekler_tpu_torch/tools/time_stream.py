@@ -10,15 +10,16 @@ of ``chip_smoke.py``'s mixed enqueue phase) it times
   bf16 beside ``torch.add(y, x, alpha=1.5)``, ``map_blocks(torch.maximum)``
   beside ``torch.maximum`` and the three-op chain of ``chip_smoke.py``;
 
-and, as guards at their main-path sizes, the emitted mandelbrot
-(2048x2048, max_iter 256) and n-body (n = 8192).  Each is timed three
-ways: the kernel's own device time from a ``torch.profiler`` trace (by
+and the emitted mandelbrot (2048x2048, max_iter 256) and n-body
+(n = 8192) at their main-path sizes, with ``workloads.run_nbody``'s
+per-iteration ms and Gpairs/s through ``compute()`` (10 iterations at
+n = 8192).  Each kernel is timed three ways: the kernel's own device time from a ``torch.profiler`` trace (by
 name prefix: ``ck_kernel`` for the emitter, ``ew_`` for the elementwise
 kernel, all device time for a PyTorch call), the CUDA-event mean of
 back-to-back wrapper calls, and the host's time to issue one call.  Where
 the event mean is above the kernel's device time, the difference is the
-wrapper's host work.  Prints the card's name and power limit, then one
-JSON line.  ``--root DIR`` imports the package from the checkout at DIR,
+wrapper's host work; the SM clock (``nvidia-smi``) is read after each.
+Prints the card's name and power limit, then one JSON line.  ``--root DIR`` imports the package from the checkout at DIR,
 so two checkouts compare on one card in one call, in turns (A, B, B, A).
 Needs a CUDA device.  From the repository root::
 
@@ -72,8 +73,16 @@ def profiled_ms(fn, prefix: str | None, reps: int) -> float:
     return ms["total" if prefix is None else prefix]
 
 
+def _clock() -> str:
+    """The card's SM clock and power draw, as ``nvidia-smi`` reads them."""
+    return subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm,power.draw",
+                           "--format=csv,noheader"], capture_output=True, text=True,
+                          check=True).stdout.strip().splitlines()[0]
+
+
 def _time(fn, prefix: str | None, reps: int) -> dict:
-    """Profiler device ms, CUDA-event ms and host issue ms of one call."""
+    """Profiler device ms, CUDA-event ms and host issue ms of one call,
+    and the SM clock after them."""
     import torch
 
     for _ in range(3):
@@ -92,7 +101,7 @@ def _time(fn, prefix: str | None, reps: int) -> dict:
     torch.cuda.synchronize()
     event_ms = start.elapsed_time(end) / reps
     return {"kernel_ms": profiled_ms(fn, prefix, reps), "event_ms": event_ms,
-            "host_ms": host_ms}
+            "host_ms": host_ms, "clock": _clock()}
 
 
 def main(argv: list[str] | None = None) -> int:
@@ -172,6 +181,10 @@ def main(argv: list[str] | None = None) -> int:
     nbody = cb.build_kernel_fn_cuda(kdefs["nBody"], nb, 256, nb)[0]
     res["emitter_nBody_8192"] = _time(lambda: nbody(0, (*pos, *vel), (nb, 0.0001)),
                                       "ck_kernel", 10)
+    run = wl.run_nbody(n=nb, iters=10)
+    res["run_nbody_8192"] = {"per_iter_ms": run["per_iter_ms"],
+                             "gpairs_per_sec": run["gpairs_per_sec"],
+                             "host_check_max_err": run["host_check_max_err"], "clock": _clock()}
     forms = getattr(cb, "FORMS", None)
     if forms is not None:
         res["forms"] = {f"{k[0]}:{k[1]}": v for k, v in forms.by_key.items()}

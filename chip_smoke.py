@@ -25,7 +25,10 @@ Phases, each of which raises on failure (the script then exits non-zero):
    ``torch.profiler`` trace under its own name, and two calls of each case
    equal bit for bit;
    the emitted streamAdd and saxpy at 2^24 and 2^20 floats, bit-exact and
-   on the emitter's streaming form, and the emitted mandelbrot and n-body;
+   on the emitter's streaming form, the emitted mandelbrot, and the
+   emitted n-body at n = 8192 on the loop form, bit-exact, timed beside its
+   bound (FP32-pipe and MUFU instructions, ``nbody_bound``) and beside
+   ``ops/nbody.nbody_accels`` (several PyTorch calls);
    the elementwise kernel (``ops/elementwise.py``) over 2^24 and 2^20
    elements: ``saxpy`` in f32 and bf16, ``map_blocks(torch.maximum)`` and
    a three-op chain, each bit-exact against its plain version, and one
@@ -39,7 +42,7 @@ Phases, each of which raises on failure (the script then exits non-zero):
    ``mandelbrot_host`` exactly), n-body at n = 8192 (the ±0.01 host check),
    streamAdd and saxpy — then the counts are read: every kernel of the path
    must have launched, streamAdd and saxpy only on the emitter's streaming
-   form and mandelbrot and n-body only on its item form
+   form, mandelbrot only on its item form and n-body only on its loop form
    (``cuda_backend.FORMS``), and the torch lowering must not have run;
    enqueue mode, each path with the counts set to 0 just before it and read
    just after: (b) a ``@kernel`` saxpy over the elementwise kernel
@@ -131,7 +134,18 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 FP32_OPS_PER_S = 67e12     # H100 SXM data sheet, float32 outside the tensor cores
 BF16_OPS_PER_S = 989e12    # H100 SXM data sheet, bf16 dense tensor cores
 MANDEL_OPS_PER_ITER = 10   # csrc/mandelbrot.cu: the FP32 work of one escape iteration
-NBODY_OPS_PER_PAIR = 20    # 3 sub, 6 mul + 3 add for r2, sqrt, mul, div, 3 mul + 3 add
+# n-body's work a pair: 18 operations in the source (3 sub; 3 mul + 3 add for r2;
+# sqrt; 1 mul; 1 division; 3 mul + 3 add), 16 of them mul/add/sub.  Built with
+# -fmad=false and IEEE sqrt and division, as its bits require, the sqrt and the
+# division (a reciprocal: 1.0f / x) each take one MUFU op and 4 and 2 instructions
+# on the FP32 pipe (their fast paths in the SASS of the emitted loop form).  An
+# unfused FP32 instruction issues once a lane a clock: 132 SMs x 128 lanes x
+# 1.98 GHz; the MUFU pipe takes 16 a clock an SM.
+NBODY_OPS_PER_PAIR = 18
+NBODY_FP32_PER_PAIR = NBODY_OPS_PER_PAIR - 2 + 4 + 2
+NBODY_MUFU_PER_PAIR = 2
+FP32_INSTR_PER_S = 132 * 128 * 1.98e9
+MUFU_PER_S = 132 * 16 * 1.98e9
 BALANCE_REPS = 10
 BALANCE_ITERS = 80
 BALANCE_HOLD = 20
@@ -249,14 +263,29 @@ def kernel_ms(fn, prefix: str, reps: int) -> tuple[float, float]:
     return profiled_ms(fn, reps, (prefix,))[prefix], cuda_ms(fn, reps)
 
 
+EMITTER_FORMS = ("item", "stream", "loop")
+
+
 def gate_forms(forms: dict, want: dict[str, str]) -> None:
     """Each named emitted kernel launched on the form ``want`` names, and
-    never on the other (``cuda_backend.FORMS``, keyed (name, form))."""
+    never on another (``cuda_backend.FORMS``, keyed (name, form))."""
     for name, form in want.items():
-        other = "item" if form == "stream" else "stream"
-        if forms.get((name, form), 0) <= 0 or forms.get((name, other), 0) != 0:
+        others = [f for f in EMITTER_FORMS if f != form]
+        if forms.get((name, form), 0) <= 0 or any(forms.get((name, f), 0) for f in others):
             raise AssertionError(f"emitted {name} should launch on the {form} form only: "
                                  f"{forms}")
+
+
+def nbody_bound(n: int) -> tuple[float, str]:
+    """Least time (ms) of one n-body launch over n bodies and what binds
+    it: its n² pairs' FP32-pipe instructions at the unfused issue rate
+    and their MUFU ops at the MUFU rate (the two pipes run side by side),
+    against its bytes (x, y, z and three velocities read, three written)."""
+    pairs = float(n) * n
+    by_ops = max(pairs * NBODY_FP32_PER_PAIR / FP32_INSTR_PER_S,
+                 pairs * NBODY_MUFU_PER_PAIR / MUFU_PER_S) * 1e3
+    by_bytes = (6 + 3) * 4.0 * n / HBM_BYTES_PER_S * 1e3
+    return (by_ops, "operations") if by_ops >= by_bytes else (by_bytes, "bytes")
 
 
 def check_emitter_stream(cuda_backend, emitted, dev, n: int) -> dict[str, dict]:
@@ -1296,6 +1325,7 @@ def main() -> int:
     from cekirdekler_tpu_torch.ops import elementwise as ew_op
     from cekirdekler_tpu_torch.ops import flash_attention as fa_op
     from cekirdekler_tpu_torch.ops import mandelbrot as mandel_op
+    from cekirdekler_tpu_torch.ops import nbody as nbody_op
     from cekirdekler_tpu_torch.tools import trace_window
 
     dev = torch.device("cuda", 0)
@@ -1407,8 +1437,8 @@ def main() -> int:
           f"({4 * npx / d2h_ms / 1e6:.1f} GB/s)")
     del o_k, o_p, h_k, h_p, pinned
 
-    # n-body at n = 8192 (rtol 1e-5: the plain version's sums run in the
-    # same order, but transcendental/sqrt paths may differ by an ulp)
+    # n-body at n = 8192, on the emitter's loop form, bit for bit: the plain
+    # version sums in the same j order and both round sqrt and / as IEEE does
     nb = 8192
     rng = np.random.default_rng(42)
     pos = [torch.from_numpy(((rng.random(nb, dtype=np.float32) - 0.5) * 2.0)).to(dev)
@@ -1416,21 +1446,28 @@ def main() -> int:
     kfn, pfn = emitted("nBody", nb)
     v_k = [torch.zeros(nb, device=dev) for _ in range(3)]
     v_p = [torch.zeros(nb, device=dev) for _ in range(3)]
+    cuda_backend.FORMS.reset()
     kfn(0, (*pos, *v_k), (nb, 0.0001))
     t0 = time.perf_counter()
     pfn(0, (*pos, *v_p), (nb, 0.0001))
     torch.cuda.synchronize()
     nbody_plain_ms = (time.perf_counter() - t0) * 1e3
+    gate_forms(dict(cuda_backend.FORMS.by_key), {"nBody": "loop"})
     err = max(float((k - p).abs().max()) for k, p in zip(v_k, v_p))
-    for k, p in zip(v_k, v_p):
-        torch.testing.assert_close(k, p, rtol=1e-5, atol=1e-6)
+    if not all(torch.equal(k, p) for k, p in zip(v_k, v_p)):
+        raise AssertionError(f"emitted nBody at {nb} vs plain: not bit-exact, max abs err {err}")
     ms, event_ms = kernel_ms(lambda: kfn(0, (*pos, *v_k), (nb, 0.0001)), "ck_kernel", 10)
+    torch_ops_ms = cuda_ms(lambda: nbody_op.nbody_accels(*pos, *pos), 5)
+    bound, bound_by = nbody_bound(nb)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     rows["emitter:nBody"] = dict(
         max_abs_err=err, ms=ms, event_ms=event_ms,
-        plain_ms=nbody_plain_ms, library_ms=None,
-        bound_ms=max(nb * nb * NBODY_OPS_PER_PAIR / FP32_OPS_PER_S,
-                     (6 + 3) * 4.0 * nb / HBM_BYTES_PER_S) * 1e3,
-        bound_by="operations")
+        plain_ms=nbody_plain_ms, library_ms=None, torch_ops_ms=torch_ops_ms,
+        bound_ms=bound, bound_by=bound_by)
+    print(f"emitted nBody n={nb} (loop form, {cuda_backend.loop_threads(nb, sms)}-thread CTAs "
+          f"on {sms} SMs): kernel {ms:.4f} ms (CUDA events {event_ms:.4f} ms), bound "
+          f"{bound:.4f} ms ({bound_by}), ops.nbody.nbody_accels (several PyTorch calls) "
+          f"{torch_ops_ms:.4f} ms, plain {nbody_plain_ms:.4f} ms, bit-exact")
     del pos, v_k, v_p
     rows["elementwise"] = check_elementwise(ew_op)
     rows["flash_attention"] = check_flash(fa_op, dev)
@@ -1481,7 +1518,7 @@ def main() -> int:
         if counts.get(name, 0) <= 0:
             raise AssertionError(f"kernel {name} never launched on the main path")
     gate_forms(forms, {"streamAdd": "stream", "saxpy": "stream", "mandelbrot": "item",
-                       "nBody": "item"})
+                       "nBody": "loop"})
     if routes["torch"] != 0 or routes["cuda"] <= 0:
         raise AssertionError(f"main path left the CUDA route: {routes}")
     rows["emitter:mandelbrot"]["launches"] = counts["mandelbrot"]
@@ -1569,7 +1606,8 @@ def main() -> int:
             "launches": rr["launches"], "max_abs_err": rr["max_abs_err"],
             "ms": rr["ms"], "plain_ms": rr["plain_ms"], "bound_ms": rr["bound_ms"],
             "bound_by": rr["bound_by"], "library_ms": rr["library_ms"],
-            **{key: rr[key] for key in ("kernel_route", "fp32_ms", "fp32_bound_ms") if key in rr},
+            **{key: rr[key] for key in ("kernel_route", "fp32_ms", "fp32_bound_ms", "torch_ops_ms")
+               if key in rr},
         })
     print(f"mpixels_per_sec: {json.dumps(res)}; total {time.perf_counter() - t_all:.1f} s")
     print(f"profiler records found lost and read at their kernel's mean: {trace_window.lost}; "

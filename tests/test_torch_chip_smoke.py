@@ -303,9 +303,9 @@ def test_gate_ring_launches_fails(bad):
 
 def test_gate_forms_passes_the_main_path():
     forms = {("streamAdd", "stream"): 3, ("saxpy", "stream"): 1, ("mandelbrot", "item"): 14,
-             ("nBody", "item"): 10}
+             ("nBody", "loop"): 10}
     chip_smoke.gate_forms(forms, {"streamAdd": "stream", "saxpy": "stream",
-                                  "mandelbrot": "item", "nBody": "item"})
+                                  "mandelbrot": "item", "nBody": "loop"})
 
 
 @pytest.mark.parametrize("forms", [
@@ -316,3 +316,24 @@ def test_gate_forms_passes_the_main_path():
 def test_gate_forms_fails(forms):
     with pytest.raises(AssertionError, match="streaming|stream form"):
         chip_smoke.gate_forms(forms, {"streamAdd": "stream"})
+
+
+@pytest.mark.parametrize("forms", [
+    {("nBody", "loop"): 9, ("nBody", "item"): 1},   # one launch on the item form
+    {("nBody", "item"): 10},                        # never on the loop form
+    {("nBody", "loop"): 9, ("nBody", "stream"): 1},
+], ids=["one-item", "item-only", "one-stream"])
+def test_gate_forms_holds_nbody_to_the_loop_form(forms):
+    with pytest.raises(AssertionError, match="loop form only"):
+        chip_smoke.gate_forms(forms, {"nBody": "loop"})
+
+
+def test_nbody_bound_counts_fp32_pipe_and_mufu_instructions():
+    """n = 8192: 22 FP32-pipe instructions a pair at 132 x 128 lanes x
+    1.98 GHz (0.0441 ms) bind it before its 2 MUFU ops at 16 a clock an
+    SM (0.0321 ms) or its bytes."""
+    ms, by = chip_smoke.nbody_bound(8192)
+    assert by == "operations"
+    assert ms == pytest.approx(8192 * 8192 * 22 / (132 * 128 * 1.98e9) * 1e3)
+    assert 0.0441 < ms < 0.0442
+    assert 8192 * 8192 * 2 / (132 * 16 * 1.98e9) * 1e3 < ms

@@ -70,7 +70,7 @@ def test_workload_kernels_are_in_subset():
 
 def test_emitted_cuda_source_shape():
     kdef = lang.parse_kernels(workloads.NBODY_SRC)[0]
-    src = cuda_backend.emit_source(kdef)
+    src = cuda_backend.emit_source(kdef, loop=False)  # n-body's item form
     assert 'extern "C" __global__ void __launch_bounds__(256) ck_kernel(' in src
     assert 'extern "C" int ck_launch(' in src
     assert "return (int)cudaGetLastError();" in src
@@ -78,8 +78,12 @@ def test_emitted_cuda_source_shape():
     # exact hexadecimal literals: 0.0001f must not be re-rounded by a printer
     assert "0x1.a36e2e0000000p-14f" in src
     assert "sqrtf(" in src and "ck_ld(b_x, v_j, n_x)" in src
-    host = cuda_backend.emit_source(kdef, target="host")
+    host = cuda_backend.emit_source(kdef, target="host", loop=False)
     assert "__global__" not in host and "for (int t = 0; t < ck_chunk; ++t)" in host
+    # the loop form it takes by default reads x[j] from the staged tile
+    looped = cuda_backend.emit_source(kdef)
+    assert "ck_kernel_loop(" in looped and "ck_s.s0" in looped
+    assert "ck_ld(b_x, v_j, n_x)" not in looped
 
 
 def test_nvcc_flags_keep_products_unfused():

@@ -2,8 +2,8 @@
 PyTorch version.
 
 Counterpart of ``cekirdekler_tpu/ops/mandelbrot.py::mandelbrot_pallas``.
-The kernel (``csrc/mandelbrot.cu``) runs one thread per pixel and writes
-f32 counts straight into ``out[offset : offset+n]`` of the whole output
+The kernel (``csrc/mandelbrot.cu``) runs one thread per pixel, its escape
+loop in branch-free groups of passes, and writes f32 counts straight into ``out[offset : offset+n]`` of the whole output
 buffer, in place — the port's counterpart of the reference's update pass
 (``workloads.mandelbrot_pallas_kernel``), without its extra copy.
 
@@ -11,12 +11,13 @@ To match the reference exactly: the coefficients are rounded to f32 here
 in the wrapper, ``px = idx % width`` and ``py = idx / width`` are int32,
 the iteration order is the TPU kernel's, and the build turns FMA
 contraction off.  An escaped orbit freezes its count in every version, so
-a per-thread ``break`` gives the counts of the TPU's per-block loop.
+a per-thread exit gives the counts of the TPU's per-block loop.
 """
 
 from __future__ import annotations
 
 import ctypes
+import re
 from pathlib import Path
 
 import numpy as np
@@ -25,27 +26,34 @@ import torch
 from ..errors import KernelCompileError
 from ..kernel.build import LaunchCounter, build_library
 
-__all__ = ["mandelbrot", "mandelbrot_plain", "LAUNCHES", "SOURCE"]
+__all__ = ["mandelbrot", "mandelbrot_plain", "launcher", "LAUNCHES", "SOURCE", "GROUP"]
 
 SOURCE = Path(__file__).resolve().parents[1] / "csrc" / "mandelbrot.cu"
+#: the passes a group of the kernel's escape loop runs (``MANDEL_GROUP``)
+GROUP = int(re.search(r"#define MANDEL_GROUP (\d+)", SOURCE.read_text()).group(1))
 
 #: kernel launches (the wrapper adds one per launch on the card)
 LAUNCHES = LaunchCounter()
 
-_lib_fn = None
+_launchers: dict[tuple[str | None, str], object] = {}
 
 
-def _launcher():
-    global _lib_fn
-    if _lib_fn is None:
-        lib = build_library(SOURCE.read_text(), "mandelbrot")
+def launcher(source: str | None = None, compiler: str = "nvcc"):
+    """``mandelbrot_launch`` of ``source`` (default: :data:`SOURCE`'s text),
+    built once: ``compiler`` is ``"nvcc"`` for the card or ``"g++"`` for
+    the host build, whose pixels run one after another."""
+    key = (source, compiler)  # the default is keyed by None: no file read a launch
+    fn = _launchers.get(key)
+    if fn is None:
+        text = SOURCE.read_text() if source is None else source
+        lib = build_library(text, "mandelbrot", compiler=compiler)
         fn = lib.mandelbrot_launch
         fn.restype = ctypes.c_int
         fn.argtypes = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
                        ctypes.c_float, ctypes.c_float, ctypes.c_float, ctypes.c_float,
                        ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
-        _lib_fn = fn
-    return _lib_fn
+        _launchers[key] = fn
+    return fn
 
 
 def _f32(v: float) -> float:
@@ -93,7 +101,7 @@ def mandelbrot(out: torch.Tensor, offset: int, n: int, x0: float, y0: float,
         return mandelbrot_plain(out, offset, n, x0, y0, dx, dy, width, max_iter)
     if out.device.type != "cuda":
         raise KernelCompileError(f"mandelbrot: unsupported device {out.device}")
-    fn = _launcher()
+    fn = launcher()
     stream = torch.cuda.current_stream(out.device).cuda_stream
     rc = fn(out.data_ptr(), out.numel(), int(offset), int(n), _f32(x0), _f32(y0),
             _f32(dx), _f32(dy), int(width), int(max_iter), stream)

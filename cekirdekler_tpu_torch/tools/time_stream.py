@@ -10,12 +10,15 @@ of ``chip_smoke.py``'s mixed enqueue phase) it times
   bf16 beside ``torch.add(y, x, alpha=1.5)``, ``map_blocks(torch.maximum)``
   beside ``torch.maximum`` and the three-op chain of ``chip_smoke.py``;
 
-and the emitted mandelbrot (2048x2048, max_iter 256) and n-body
-(n = 8192) at their main-path sizes, with ``workloads.run_nbody``'s
-per-iteration ms and Gpairs/s through ``compute()`` (10 iterations at
-n = 8192).  Each kernel is timed three ways: the kernel's own device time from a ``torch.profiler`` trace (by
-name prefix: ``ck_kernel`` for the emitter, ``ew_`` for the elementwise
-kernel, all device time for a PyTorch call), the CUDA-event mean of
+and the emitted mandelbrot and the hand kernel (``csrc/mandelbrot.cu``)
+at 2048x2048, max_iter 256, and n-body (n = 8192) at their main-path
+sizes, with ``workloads.run_mandelbrot``'s Mpixels/s for both mandelbrot
+routes (12 iterations through ``compute()``, the image read back each)
+and ``workloads.run_nbody``'s per-iteration ms and Gpairs/s (10
+iterations at n = 8192).  Each kernel is timed three ways: the kernel's own device time from a ``torch.profiler`` trace (by
+name prefix: ``ck_kernel`` for the emitter, ``mandelbrot_kernel`` for the
+hand kernel, ``ew_`` for the elementwise kernel, all device time for a
+PyTorch call), the CUDA-event mean of
 back-to-back wrapper calls, and the host's time to issue one call.  Where
 the event mean is above the kernel's device time, the difference is the
 wrapper's host work; the SM clock (``nvidia-smi``) is read after each.
@@ -117,6 +120,7 @@ def main(argv: list[str] | None = None) -> int:
     build = importlib.import_module("cekirdekler_tpu_torch.kernel.build")
     lang = importlib.import_module("cekirdekler_tpu_torch.kernel.lang")
     ew = importlib.import_module("cekirdekler_tpu_torch.ops.elementwise")
+    hand = importlib.import_module("cekirdekler_tpu_torch.ops.mandelbrot")
     wl = importlib.import_module("cekirdekler_tpu_torch.workloads")
     if not torch.cuda.is_available():
         print("time_stream: no CUDA device", file=sys.stderr)
@@ -175,6 +179,12 @@ def main(argv: list[str] | None = None) -> int:
     mandel = cb.build_kernel_fn_cuda(kdefs["mandelbrot"], npx, 256, npx)[0]
     vals = (-2.0, -1.25, 2.5 / 2048, 2.5 / 2048, 2048, 256)
     res["emitter_mandelbrot_2048^2x256"] = _time(lambda: mandel(0, (out,), vals), "ck_kernel", 10)
+    res["hand_mandelbrot_2048^2x256"] = _time(lambda: hand.mandelbrot(out, 0, npx, *vals),
+                                              "mandelbrot_kernel", 10)
+    for label, use_hand in (("c_subset", False), ("hand", True)):
+        run = wl.run_mandelbrot(width=2048, height=2048, max_iter=256, use_cuda_kernel=use_hand)
+        res[f"run_mandelbrot_{label}"] = {"mpixels_per_sec": run.mpixels_per_sec,
+                                          "clock": _clock()}
     nb = 8192
     pos = [(torch.rand(nb, generator=g) - 0.5).to(dev) for _ in range(3)]
     vel = [torch.zeros(nb, device=dev) for _ in range(3)]

@@ -25,7 +25,12 @@ Phases, each of which raises on failure (the script then exits non-zero):
    ``torch.profiler`` trace under its own name, and two calls of each case
    equal bit for bit;
    the emitted streamAdd and saxpy at 2^24 and 2^20 floats, bit-exact and
-   on the emitter's streaming form, the emitted mandelbrot, and the
+   on the emitter's streaming form, the emitted mandelbrot on its escape
+   form and the hand kernel (``csrc/mandelbrot.cu``) at 2048x2048x256,
+   bit-exact, the hand kernel also at offsets, at max_iter values off its
+   group of passes and over a view whose pixels run on to inf and NaN, both
+   timed by the profiler beside their bound (FP32-pipe instructions,
+   ``mandel_bound``), and the
    emitted n-body at n = 8192 on the loop form, bit-exact, timed beside its
    bound (FP32-pipe and MUFU instructions, ``nbody_bound``) and beside
    ``ops/nbody.nbody_accels`` (several PyTorch calls);
@@ -42,7 +47,7 @@ Phases, each of which raises on failure (the script then exits non-zero):
    ``mandelbrot_host`` exactly), n-body at n = 8192 (the ±0.01 host check),
    streamAdd and saxpy — then the counts are read: every kernel of the path
    must have launched, streamAdd and saxpy only on the emitter's streaming
-   form, mandelbrot only on its item form and n-body only on its loop form
+   form, mandelbrot only on its escape form and n-body only on its loop form
    (``cuda_backend.FORMS``), and the torch lowering must not have run;
    enqueue mode, each path with the counts set to 0 just before it and read
    just after: (b) a ``@kernel`` saxpy over the elementwise kernel
@@ -133,7 +138,13 @@ import numpy as np
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 FP32_OPS_PER_S = 67e12     # H100 SXM data sheet, float32 outside the tensor cores
 BF16_OPS_PER_S = 989e12    # H100 SXM data sheet, bf16 dense tensor cores
-MANDEL_OPS_PER_ITER = 10   # csrc/mandelbrot.cu: the FP32 work of one escape iteration
+# mandelbrot's work: each pass of the escape loop is 8 FP32-pipe instructions under
+# -fmad=false (zx*zx, zy*zy, their sum for the test, zx2 - zy2, + cx, 2*zx, * zy,
+# + cy: FADD and FMUL in the SASS of both kernels, tools/sweep_mandelbrot.py), and
+# an escaped pixel's failing test 3 more (two squares and their sum); the compare
+# (FSETP), the count and the branch are not FP32 arithmetic and are not counted
+MANDEL_FP32_PER_PASS = 8
+MANDEL_FP32_PER_EXIT = 3
 # n-body's work a pair: 18 operations in the source (3 sub; 3 mul + 3 add for r2;
 # sqrt; 1 mul; 1 division; 3 mul + 3 add), 16 of them mul/add/sub.  Built with
 # -fmad=false and IEEE sqrt and division, as its bits require, the sqrt and the
@@ -263,7 +274,7 @@ def kernel_ms(fn, prefix: str, reps: int) -> tuple[float, float]:
     return profiled_ms(fn, reps, (prefix,))[prefix], cuda_ms(fn, reps)
 
 
-EMITTER_FORMS = ("item", "stream", "loop")
+EMITTER_FORMS = ("item", "stream", "loop", "escape")
 
 
 def gate_forms(forms: dict, want: dict[str, str]) -> None:
@@ -274,6 +285,18 @@ def gate_forms(forms: dict, want: dict[str, str]) -> None:
         if forms.get((name, form), 0) <= 0 or any(forms.get((name, f), 0) for f in others):
             raise AssertionError(f"emitted {name} should launch on the {form} form only: "
                                  f"{forms}")
+
+
+def mandel_bound(counts: np.ndarray, max_iter: int) -> tuple[float, str]:
+    """Least time (ms) of one mandelbrot launch over an image whose escape
+    counts are ``counts``, and what binds it: its passes' and escaped
+    pixels' FP32-pipe instructions at the unfused issue rate, against its
+    bytes (the f32 image written once)."""
+    counts = np.asarray(counts, dtype=np.float64)
+    instr = MANDEL_FP32_PER_PASS * counts.sum() + MANDEL_FP32_PER_EXIT * (counts < max_iter).sum()
+    by_ops = float(instr) / FP32_INSTR_PER_S * 1e3
+    by_bytes = 4.0 * counts.size / HBM_BYTES_PER_S * 1e3
+    return (by_ops, "operations") if by_ops >= by_bytes else (by_bytes, "bytes")
 
 
 def nbody_bound(n: int) -> tuple[float, str]:
@@ -1400,36 +1423,59 @@ def main() -> int:
     vals = (-2.0, -1.25, 2.5 / W, 2.5 / H, W, iters)
     kfn, pfn = emitted("mandelbrot", npx)
     o_k, o_p = torch.zeros(npx, device=dev), torch.zeros(npx, device=dev)
+    cuda_backend.FORMS.reset()
     kfn(0, (o_k,), vals)
     pfn(0, (o_p,), vals)
+    torch.cuda.synchronize()
+    gate_forms(dict(cuda_backend.FORMS.by_key), {"mandelbrot": "escape"})
     err = float((o_k - o_p).abs().max())
-    if err != 0.0:
+    if not torch.equal(o_k, o_p):
         raise AssertionError(f"mandelbrot C-subset kernel vs plain: max abs err {err}")
-    escapes = float(o_p.double().sum())
-    mandel_bound = max(escapes * MANDEL_OPS_PER_ITER / FP32_OPS_PER_S,
-                       4.0 * npx / HBM_BYTES_PER_S) * 1e3
-    ms, event_ms = kernel_ms(lambda: kfn(0, (o_k,), vals), "ck_kernel", 5)
+    counts = o_p.cpu().numpy()
+    escapes = float(counts.astype(np.float64).sum())
+    bound, bound_by = mandel_bound(counts, iters)
+    ms, event_ms = kernel_ms(lambda: kfn(0, (o_k,), vals), "ck_kernel", 10)
     rows["emitter:mandelbrot"] = dict(
         max_abs_err=err, ms=ms, event_ms=event_ms,
         plain_ms=cuda_ms(lambda: pfn(0, (o_p,), vals), 1, warmup=0),
-        library_ms=None, bound_ms=mandel_bound, bound_by="operations",
-        escape_sum=escapes)
+        library_ms=None, bound_ms=bound, bound_by=bound_by,
+        escape_sum=escapes, escaped=int((counts < iters).sum()))
 
-    # the hand kernel at offsets {0, 128 k} and chunk sizes from the ladder
+    # the hand kernel at offsets {0, 128 k} and chunk sizes from the ladder, at
+    # max_iter values off its group of passes (mandel_op.GROUP), and over a view
+    # whose outer pixels escape at once and run on to inf and NaN
     worst = 0.0
-    for off, cnt in ((0, npx), (128 * 3, 1 << 20), (128 * 1001, 1 << 16),
-                     (npx - (1 << 14), 1 << 14), (128 * 77, 256)):
-        h_k, h_p = torch.zeros(npx, device=dev), torch.zeros(npx, device=dev)
-        mandel_op.mandelbrot(h_k, off, cnt, *vals)
-        mandel_op.mandelbrot_plain(h_p, off, cnt, *vals)
+    grp = mandel_op.GROUP
+    cases = [(npx, vals, off, cnt) for off, cnt in (
+        (0, npx), (128 * 3, 1 << 20), (128 * 1001, 1 << 16), (npx - (1 << 14), 1 << 14),
+        (128 * 77, 256))]
+    cases += [(512 * 512, (-2.0, -1.25, 2.5 / 512, 2.5 / 512, 512, it), 0, 512 * 512)
+              for it in (1, grp - 1, grp + 1, 61)]
+    cases += [(512 * 512, (-40.0, -30.0, 0.125, 0.125, 512, it), 640, 4096)
+              for it in (grp - 1, grp + 1, 61)]
+    for size, hv, off, cnt in cases:
+        h_k, h_p = torch.zeros(size, device=dev), torch.zeros(size, device=dev)
+        mandel_op.mandelbrot(h_k, off, cnt, *hv)
+        mandel_op.mandelbrot_plain(h_p, off, cnt, *hv)
+        torch.cuda.synchronize()
         worst = max(worst, float((h_k - h_p).abs().max()))
-    if worst != 0.0:
-        raise AssertionError(f"mandelbrot hand kernel vs plain: max abs err {worst}")
+        if not torch.equal(h_k, h_p):
+            raise AssertionError(f"mandelbrot hand kernel vs plain at {hv}, {cnt}@{off}: "
+                                 f"max abs err {worst}")
+    h_k, h_p = torch.zeros(npx, device=dev), o_p
+    ms, event_ms = kernel_ms(lambda: mandel_op.mandelbrot(h_k, 0, npx, *vals),
+                             "mandelbrot_kernel", 10)
+    if not torch.equal(h_k, o_p):
+        raise AssertionError("mandelbrot hand kernel's timed image differs from the plain one")
     rows["mandelbrot"] = dict(
-        max_abs_err=worst, ms=cuda_ms(lambda: mandel_op.mandelbrot(h_k, 0, npx, *vals), 5),
+        max_abs_err=worst, ms=ms, event_ms=event_ms,
         plain_ms=cuda_ms(lambda: mandel_op.mandelbrot_plain(h_p, 0, npx, *vals), 1,
                          warmup=0),
-        library_ms=None, bound_ms=mandel_bound, bound_by="operations")
+        library_ms=None, bound_ms=bound, bound_by=bound_by)
+    print(f"mandelbrot 2048x2048x256: escape sum {escapes:.0f}, "
+          f"{rows['emitter:mandelbrot']['escaped']} pixels escaped; bound {bound:.4f} ms "
+          f"({bound_by}); emitted (escape form) {rows['emitter:mandelbrot']['ms']:.4f} ms, "
+          f"hand kernel (groups of {grp}) {ms:.4f} ms by the profiler, bit-exact")
     # the main path's readback: one image, card -> page-locked host memory
     pinned = torch.empty(npx, pin_memory=True)
     d2h_ms = cuda_ms(lambda: pinned.copy_(h_k, non_blocking=True), 20)
@@ -1517,7 +1563,7 @@ def main() -> int:
     for name in ("mandelbrot", "nBody", "streamAdd", "saxpy", "mandelbrot.cu"):
         if counts.get(name, 0) <= 0:
             raise AssertionError(f"kernel {name} never launched on the main path")
-    gate_forms(forms, {"streamAdd": "stream", "saxpy": "stream", "mandelbrot": "item",
+    gate_forms(forms, {"streamAdd": "stream", "saxpy": "stream", "mandelbrot": "escape",
                        "nBody": "loop"})
     if routes["torch"] != 0 or routes["cuda"] <= 0:
         raise AssertionError(f"main path left the CUDA route: {routes}")

@@ -302,10 +302,36 @@ def test_gate_ring_launches_fails(bad):
 
 
 def test_gate_forms_passes_the_main_path():
-    forms = {("streamAdd", "stream"): 3, ("saxpy", "stream"): 1, ("mandelbrot", "item"): 14,
+    forms = {("streamAdd", "stream"): 3, ("saxpy", "stream"): 1, ("mandelbrot", "escape"): 14,
              ("nBody", "loop"): 10}
     chip_smoke.gate_forms(forms, {"streamAdd": "stream", "saxpy": "stream",
-                                  "mandelbrot": "item", "nBody": "loop"})
+                                  "mandelbrot": "escape", "nBody": "loop"})
+
+
+@pytest.mark.parametrize("forms", [
+    {("mandelbrot", "escape"): 13, ("mandelbrot", "item"): 1},   # one launch on the item form
+    {("mandelbrot", "item"): 14},                                # never on the escape form
+    {},
+], ids=["one-item", "item-only", "none"])
+def test_gate_forms_holds_mandelbrot_to_the_escape_form(forms):
+    with pytest.raises(AssertionError, match="escape form only"):
+        chip_smoke.gate_forms(forms, {"mandelbrot": "escape"})
+
+
+def test_mandel_bound_counts_fp32_pipe_instructions_a_pass_and_an_exit():
+    """8 FP32-pipe instructions a pass and 3 for each escaped pixel's
+    failing test, at 132 x 128 lanes x 1.98 GHz; at the main path's
+    2048x2048x256 (escape sum 282,894,696 with 24.4% of the pixels at 256)
+    that is about 0.068 ms, where the old count (10 operations a pass at
+    67 TFLOP/s) gave 0.0422."""
+    counts = np.array([0, 3, 256, 256, 17], dtype=np.float32)
+    ms, by = chip_smoke.mandel_bound(counts, 256)
+    assert by == "operations"
+    assert ms == pytest.approx((8 * 532 + 3 * 3) / (132 * 128 * 1.98e9) * 1e3)
+    full = 8 * 282_894_696 / (132 * 128 * 1.98e9) * 1e3
+    assert 0.0676 < full < 0.0677
+    ms, by = chip_smoke.mandel_bound(np.zeros(1 << 22, np.float32), 256)
+    assert by == "bytes" and ms == pytest.approx(4.0 * (1 << 22) / 3.35e12 * 1e3)
 
 
 @pytest.mark.parametrize("forms", [

@@ -5,7 +5,11 @@ kernel's wrapper and its plain PyTorch version; on a CPU tensor the
 wrapper runs the plain version.  Escape counts are compared bit for bit
 with ``workloads.mandelbrot_host`` and with ``mandelbrot_pallas`` (the TPU
 kernel, in Pallas interpret mode), at several offsets and chunk sizes, and
-through ``compute()`` on host lanes.
+through ``compute()`` on host lanes.  The kernel's own source
+(``csrc/mandelbrot.cu``), built by g++ for the host, is held bit for bit
+against the plain version and ``mandelbrot_host`` at max_iter values
+around its group of passes and on a view whose outer pixels run on to inf
+and NaN.
 
 XLA:CPU contracts three multiply-adds of the interpreted Pallas kernel
 into FMAs (``cx``/``cy``, the new ``zy`` and ``zx*zx - zy2``), which moves
@@ -17,6 +21,8 @@ contractions — and the port against ``mandelbrot_host``.
 """
 
 from __future__ import annotations
+
+import shutil
 
 import numpy as np
 import pytest
@@ -127,3 +133,35 @@ def test_hand_kernel_matches_the_reference_pallas_path(image, contracted):
                                     use_cuda_kernel=True)
     np.testing.assert_array_equal(ref.image.ravel(), contracted)
     np.testing.assert_array_equal(port.image.ravel(), image)
+
+
+# -- the kernel's source, built by g++ for the host -------------------------
+
+GROUP = op.GROUP
+HOST_VIEWS = {"set": VALS[:4], "run-on": (-40.0, -30.0, 1.0, 1.0)}
+
+
+@pytest.fixture(scope="module")
+def host_launch():
+    if shutil.which("g++") is None:
+        pytest.skip("g++ is not installed: the kernel's source cannot be compiled on the host")
+    return op.launcher(compiler="g++")
+
+
+@pytest.mark.parametrize("view", sorted(HOST_VIEWS))
+@pytest.mark.parametrize("max_iter", [1, GROUP - 1, GROUP, GROUP + 1, 60, 256])
+def test_host_build_of_the_kernel_equals_plain(host_launch, max_iter, view):
+    """The grouped escape loop gives the plain loop's counts, exactly, at
+    offsets and chunk sizes, and leaves the pixels outside the chunk."""
+    vals = (*HOST_VIEWS[view], W, max_iter)
+    host = workloads.mandelbrot_host(W, H, *vals[:4], max_iter)
+    for offset, n in ((0, W * H), (128, 256), (128 * 7, 1024), (W * H - 384, 384),
+                      (1000, 777)):
+        got = torch.full((W * H,), -1.0)
+        want = torch.full((W * H,), -1.0)
+        rc = host_launch(got.data_ptr(), got.numel(), offset, n,
+                         *(float(np.float32(v)) for v in vals[:4]), W, max_iter, None)
+        assert rc == 0
+        op.mandelbrot_plain(want, offset, n, *vals)
+        assert torch.equal(got, want), f"{n}@{offset}"
+        np.testing.assert_array_equal(got.numpy()[offset:offset + n], host[offset:offset + n])

@@ -1,14 +1,14 @@
 """Cores — the multi-lane scheduler: split / compute / join with iterative
 load balancing, per call or at enqueue-mode sync points.
 
-Counterpart of ``cekirdekler_tpu/core/cores.py`` without its fused,
-streamed and pipelined tiers: one :class:`Worker` per lane, per-compute-id
-range tables, an equal (or, on a mixed fleet, rate-prior-seeded) first
-split, and concurrent per-lane H2D -> ladder launch -> D2H from a thread
-pool.  ``write_all`` ownership, ``repeat_count``, ``ranges_of``,
-``benchmarks_of`` and the performance report are kept.
+Counterpart of ``cekirdekler_tpu/core/cores.py`` without its streamed and
+pipelined tiers: one :class:`Worker` per lane, per-compute-id range
+tables, an equal (or, on a mixed fleet, rate-prior-seeded) first split,
+and concurrent per-lane H2D -> ladder launch -> D2H from a thread pool.
+``write_all`` ownership, ``repeat_count`` (with ``repeat_sync_kernel``),
+``ranges_of``, ``benchmarks_of`` and the performance report are kept.
 
-Two modes, as the reference's with ``fused_dispatch=False``:
+Two modes, as the reference's:
 
 - the plain path rebalances from measured per-lane walls on every call and
   reads every written range back before ``compute()`` returns;
@@ -26,9 +26,24 @@ Two modes, as the reference's with ``fused_dispatch=False``:
   per compute id only, and loses updates when two ids split one array
   differently in a window (ROADMAP Queue C 8).
 
-Not ported yet (queued in ROADMAP.md): fused windows, streamed transfers,
-pipelines, drains, the barrier's health, drain, flight and decision hooks,
-the fence split, the verify gate, and the metrics/trace/obs hooks.
+Fused windows (``fused_dispatch``, on by default as in the reference): when
+enqueue mode repeats one call (:func:`job_signature`) with its operands
+resident and its ranges still, the second call opens a window and every
+later one is deferred, a counter increment.  The deferred iterations are
+dispatched ``fused_batch`` at a time, and the rest at the next sync point,
+as one ``Worker.launch_fused`` per lane on the lane's driver: a CUDA-graph
+replay on a GPU lane, a host loop on a host lane.  Results are those of
+the per-call path bit for bit.  Every refusal and break of a window is
+counted by its reason in ``fused_stats["disengaged"]``.  A call that
+splits an array otherwise gets another signature, so the window is
+dispatched and drained before the re-split flush runs.
+:meth:`compute_fused_batch` defers a batch assembled by its caller in one
+step.
+
+Not ported yet (queued in ROADMAP.md): streamed transfers, pipelines,
+drains, the barrier's health, drain, flight and decision hooks, the fence
+split, the verify gate, ``no_compute_mode``, ``dispatch_gate``,
+``trace_lanes``, and the metrics/trace/obs hooks.
 """
 
 from __future__ import annotations
@@ -38,10 +53,10 @@ import time
 from concurrent.futures import ThreadPoolExecutor
 from contextlib import ExitStack, nullcontext
 from dataclasses import dataclass, field
-from typing import Sequence
+from typing import Any, Sequence
 
 from ..arrays.clarray import ClArray
-from ..errors import ComputeValidationError
+from ..errors import ComputeValidationError, FusedBatchError
 from ..hardware import Devices, rate_prior
 from ..kernel.registry import KernelProgram
 from .balance import (
@@ -54,7 +69,21 @@ from .balance import (
 )
 from .worker import Worker
 
-__all__ = ["Cores", "ComputePerf"]
+__all__ = ["Cores", "ComputePerf", "job_signature"]
+
+
+def job_signature(kernel_names, params, compute_id, global_range, local_range,
+                  global_offset, value_args) -> tuple:
+    """Identity of one repeatable enqueue call, the fused window's key
+    (reference ``job_signature``, shared there with the serving tier's
+    request grouping).  Params enter by object identity: a lane's buffers
+    are keyed by ``id(arr)``."""
+    if isinstance(value_args, dict):
+        vals: Any = tuple((k, tuple(v)) for k, v in sorted(value_args.items()))
+    else:
+        vals = tuple(value_args)
+    return (compute_id, tuple(kernel_names), tuple(id(p) for p in params),
+            global_range, local_range, global_offset, vals)
 
 
 @dataclass
@@ -75,6 +104,25 @@ class ComputePerf:
         return "\n".join(lines)
 
 
+@dataclass
+class _FusedRun:
+    """An open fused window: the signature deferrals match, and what its
+    dispatch needs."""
+
+    sig: tuple
+    compute_id: int
+    kernel_names: tuple
+    params: tuple
+    value_args: Any
+    local_range: int
+    global_range: int
+    step: int
+    # per active lane: (worker, global offset, range size)
+    rows: list = field(default_factory=list)
+    # (worker, coverage epoch) at engage: a reset since breaks the window
+    epochs: list = field(default_factory=list)
+
+
 class Cores:
     """Scheduler over the selected lanes."""
 
@@ -93,6 +141,7 @@ class Cores:
         self._balance_states: dict[int, BalanceState] = {}
         self.perf: dict[int, ComputePerf] = {}
         self.repeat_count = 1
+        self.repeat_sync_kernel: str | None = None
         self.last_compute_id: int | None = None
         self.enqueue_mode = False
         # guards the enqueue window state below; taken after a worker lock,
@@ -113,6 +162,23 @@ class Cores:
         # id(array) -> (global offset, ranges) of the array's last call: where
         # its freshest data lives on the lanes
         self._splits: dict[int, tuple] = {}
+        # fused windows: the iterations one dispatch carries at most, and the
+        # closures a lane's driver may hold
+        self.fused_dispatch = True
+        self.fused_batch = 16
+        self.fused_queue_depth = 2
+        # the open window: written under _lock, read without it by compute()'s
+        # fast path and checked again under it by _fused_defer
+        self._fused_sig: tuple | None = None
+        self._fused_run: _FusedRun | None = None
+        # the last per-call signature: a window opens on a consecutive repeat
+        self._fused_candidate: tuple | None = None
+        self._fused_pending = 0
+        # serializes [take the pending count + submit to the drivers] against
+        # a close, so no drain can slip between them
+        self._fused_mu = threading.Lock()
+        self.fused_stats: dict[str, Any] = {
+            "windows": 0, "fused_iters": 0, "deferred_iters": 0, "disengaged": {}}
 
     @property
     def num_devices(self) -> int:
@@ -164,6 +230,29 @@ class Cores:
                 compute_id: int, global_range: int, local_range: int,
                 global_offset: int = 0, pipeline: bool = False,
                 pipeline_blobs: int = 4, value_args: Sequence | dict = ()) -> None:
+        t_start = time.perf_counter()
+        # the fused fast path: a call matching the open window is a counter
+        # increment (the engaging call validated the same signature)
+        if self.enqueue_mode and self._fused_sig is not None and not pipeline:
+            sig = job_signature(kernel_names, params, compute_id, global_range,
+                                local_range, global_offset, value_args)
+            if self._sig_equal(sig, self._fused_sig):
+                run = self._fused_run
+                # the mode toggles are cruncher state, not call identity
+                if not self.fused_dispatch or self.repeat_count > 1 or self.repeat_sync_kernel:
+                    with self._lock:
+                        self._fused_candidate = None
+                    self._fused_break("mode-change")
+                elif compute_id in self._enqueue_rebalance:
+                    self._fused_break("range-change")
+                elif run is not None and any(w.coverage_epoch != ep for w, ep in run.epochs):
+                    self._fused_break("non-resident")
+                elif self._fused_defer(t_start):
+                    return
+            else:
+                self._fused_break("signature-change")
+        elif self._fused_sig is not None and not self.enqueue_mode:
+            self._fused_break("enqueue-off")
         for name in kernel_names:
             if name not in self.program:
                 raise ComputeValidationError(
@@ -183,7 +272,6 @@ class Cores:
         if global_range % step != 0:
             raise ComputeValidationError(
                 f"global_range ({global_range}) must be divisible by step ({step})")
-        t_start = time.perf_counter()
         if self.enqueue_mode:
             with self._lock:
                 self._note_enqueue_call(compute_id, t_start)
@@ -233,6 +321,9 @@ class Cores:
         if errs:
             raise errs[0]
         self._record_perf(compute_id, t_start, ranges)
+        if self.enqueue_mode and self.fused_dispatch:
+            self._fused_try_engage(kernel_names, params, compute_id, global_range,
+                                   local_range, global_offset, value_args, ranges, refs, step)
 
     def _note_enqueue_call(self, compute_id: int, t_start: float) -> None:
         """Window bookkeeping of one enqueued call.  Caller holds ``_lock``."""
@@ -271,7 +362,8 @@ class Cores:
             else:
                 w.ensure_resident(p)
         w.launch(self.program, kernel_names, params, value_args, offset, size,
-                 local_range, global_range, local_range, repeats=self.repeat_count)
+                 local_range, global_range, local_range, repeats=self.repeat_count,
+                 sync_kernel=self.repeat_sync_kernel)
         for idx, p in enumerate(params):
             fl = p.flags
             if not (fl.write and not fl.read_only):
@@ -291,23 +383,31 @@ class Cores:
                        local_range, global_range, value_args, write_all_owner) -> None:
         """Issue one lane's share of an enqueued call without waiting for it:
         uploads the lane's resident data does not cover, then the launches;
-        its readbacks become deferred records for :meth:`flush`."""
+        its readbacks become deferred records for :meth:`flush`.  The buffers
+        and the upload coverage are settled here, before the work is queued
+        (a host lane runs it later, in order), so the next call, and a fused
+        window's engage check, see what this call uploads."""
         single = self.num_devices == 1
-        repeats = self.repeat_count
-
-        def work() -> None:
+        repeats, sync = self.repeat_count, self.repeat_sync_kernel
+        uploads = []
+        with w.on_stream():
             for p in params:
+                w.ensure_resident(p)
                 fl = p.flags
                 if fl.read and not fl.write_only:
                     epw = fl.elements_per_work_item
                     full = single or not fl.partial_read
                     if not w.upload_covers(p, 0 if full else offset * epw,
                                            p.size if full else size * epw):
-                        w.upload(p, offset * epw, size * epw, full)
-                else:
-                    w.ensure_resident(p)
+                        uploads.append((p, offset * epw, size * epw, full))
+                        w.claim_upload(p, offset * epw, size * epw, full)
+
+        def work() -> None:
+            for p, lo, n, full in uploads:
+                w.upload(p, lo, n, full)
             w.launch(self.program, kernel_names, params, value_args, offset, size,
-                     local_range, global_range, local_range, repeats=repeats)
+                     local_range, global_range, local_range, repeats=repeats,
+                     sync_kernel=sync)
 
         w.issue(work)
         for idx, p in enumerate(params):
@@ -330,6 +430,215 @@ class Cores:
         )
         self.perf[compute_id] = perf
         self.last_compute_id = compute_id
+
+    # -- fused windows (reference: the enqueue dispatch-floor collapse) -----
+    @staticmethod
+    def _sig_equal(a: tuple | None, b: tuple | None) -> bool:
+        """Signature equality where a comparison that raises (array-valued
+        value args) is a mismatch."""
+        if a is None or b is None:
+            return False
+        try:
+            return bool(a == b)
+        except Exception:  # noqa: BLE001 - a mismatch by definition
+            return False
+
+    def _fused_try_engage(self, kernel_names, params, compute_id, global_range, local_range,
+                          global_offset, value_args, ranges, refs, step) -> None:
+        """Open a window for this call's signature when it repeats the last
+        per-call signature, or count by name why not."""
+        sig = job_signature(kernel_names, params, compute_id, global_range, local_range,
+                            global_offset, value_args)
+        with self._lock:
+            candidate, self._fused_candidate = self._fused_candidate, sig
+        if not self._sig_equal(sig, candidate):
+            return
+        reason = None
+        if self.repeat_count > 1 or self.repeat_sync_kernel:
+            # each call runs its repeats as one dispatch already
+            reason = "repeat-mode"
+        else:
+            try:
+                hash(sig)
+            except TypeError:
+                reason = "unhashable-values"
+        rows: list = []
+        epochs: list = []
+        if reason is None:
+            single = self.num_devices == 1
+            covered = True
+            for i, w in enumerate(self.workers):
+                if ranges[i] <= 0:
+                    continue
+                off = global_offset + refs[i]
+                rows.append((w, off, ranges[i]))
+                epochs.append((w, w.coverage_epoch))
+                for p in params:
+                    fl = p.flags
+                    if fl.read and not fl.write_only:
+                        epw = fl.elements_per_work_item
+                        full = single or not fl.partial_read
+                        covered &= w.upload_covers(p, 0 if full else off * epw,
+                                                   p.size if full else ranges[i] * epw)
+            if not covered:
+                # a deferral must be a pure launch, with no upload to repeat
+                reason = "partial-upload"
+        if reason is not None:
+            self._note_disengage(reason)
+            return
+        run = _FusedRun(sig=sig, compute_id=compute_id, kernel_names=tuple(kernel_names),
+                        params=tuple(params), value_args=value_args, local_range=local_range,
+                        global_range=global_range, step=step, rows=rows, epochs=epochs)
+        # the fused ladder and every chunk's launcher are built here, once per
+        # key, and not in the window's first dispatch
+        for platform in {w.device.type for w, _off, _size in rows}:
+            self.program.fused_launcher(run.kernel_names, step, global_range, local_range,
+                                        global_range, value_args, platform=platform)
+        with self._lock:
+            self._fused_sig = sig
+            self._fused_run = run
+
+    def _fused_defer(self, t_start: float) -> bool:
+        """Count this call into the open window; False when it closed
+        meanwhile (the caller takes the per-call path)."""
+        with self._lock:
+            run = self._fused_run
+            if run is None or self._fused_sig is None:
+                return False
+            self._note_enqueue_call(run.compute_id, t_start)
+            self._fused_pending += 1
+            pending = self._fused_pending
+            self.fused_stats["deferred_iters"] += 1
+        if pending >= max(1, int(self.fused_batch)):
+            self._fused_flush()
+        self.last_compute_id = run.compute_id
+        return True
+
+    def _dispatch_fused(self, run: _FusedRun, iters: int) -> None:
+        """Queue one ``iters``-iteration dispatch per active lane on the
+        lanes' drivers.  Every lane is checked for a held failure before any
+        is given the batch; a failure poisons the window, so a caller that
+        catches it cannot defer into it."""
+        t0 = time.perf_counter()
+        try:
+            for w, _off, _size in run.rows:
+                w.dispatch_preflight()
+            for w, off, size in run.rows:
+                w.dispatch_async(
+                    lambda w=w, off=off, size=size: w.launch_fused(
+                        self.program, run.kernel_names, run.params, run.value_args, off, size,
+                        run.local_range, run.global_range, run.step, iters),
+                    depth=self.fused_queue_depth)
+        except Exception:
+            with self._lock:
+                self._fused_sig = None
+                self._fused_run = None
+                self._fused_candidate = None
+            raise
+        with self._lock:
+            self.fused_stats["windows"] += 1
+            self.fused_stats["fused_iters"] += iters
+        self._record_perf(run.compute_id, t0, self.global_ranges.get(run.compute_id, []))
+
+    def _fused_flush(self) -> None:
+        """Dispatch the deferred iterations; the window stays open."""
+        with self._fused_mu:
+            with self._lock:
+                run, k = self._fused_run, self._fused_pending
+                self._fused_pending = 0
+            if run is not None and k > 0:
+                self._dispatch_fused(run, k)
+
+    def _fused_close(self) -> None:
+        """End the window at a sync point: dispatch the rest and drain every
+        lane's driver (the dispatches are queued; the fence waits for them)."""
+        with self._fused_mu:
+            with self._lock:
+                run, k = self._fused_run, self._fused_pending
+                self._fused_pending = 0
+                self._fused_sig = None
+                self._fused_run = None
+            if run is not None and k > 0:
+                self._dispatch_fused(run, k)
+        self._fused_drain()
+
+    def _note_disengage(self, reason: str) -> None:
+        with self._lock:
+            d = self.fused_stats["disengaged"]
+            d[reason] = d.get(reason, 0) + 1
+
+    def _fused_break(self, reason: str) -> None:
+        """Close the window and count why."""
+        self._fused_close()
+        self._note_disengage(reason)
+
+    def _fused_drain(self) -> None:
+        errs = []
+        for w in self.workers:
+            try:
+                w.drain_dispatch()
+            except Exception as e:  # noqa: BLE001 - raised after every lane
+                errs.append(e)
+        if errs:
+            raise errs[0]
+
+    def _batch_defer(self, sig: tuple, k: int, t_start: float) -> bool:
+        """Count ``k`` iterations into the open window matching ``sig`` in one
+        step and dispatch them; False when no such window is open or a
+        deferral would break it."""
+        with self._lock:
+            run = self._fused_run
+            if (run is None or not self._sig_equal(self._fused_sig, sig)
+                    or not self.fused_dispatch or self.repeat_count > 1
+                    or self.repeat_sync_kernel or run.compute_id in self._enqueue_rebalance
+                    or any(w.coverage_epoch != ep for w, ep in run.epochs)):
+                return False
+            cid = run.compute_id
+            self._note_enqueue_call(cid, t_start)
+            self._enqueue_iters[cid] += k - 1
+            self._flush_iters[cid] += k - 1
+            self._fused_pending += k
+            self.fused_stats["deferred_iters"] += k
+        self._fused_flush()
+        return True
+
+    def compute_fused_batch(self, kernel_names: Sequence[str], params: Sequence[ClArray],
+                            compute_id: int, global_range: int, local_range: int, iters: int,
+                            global_offset: int = 0, value_args: Sequence | dict = ()) -> dict:
+        """Dispatch ``iters`` identical enqueue iterations assembled by the
+        caller (the serving tier's entry): the first one or two ride
+        :meth:`compute` until a window is open, the rest go into it as one
+        dispatch per lane.  Bit for bit ``iters`` per-call computes; where a
+        window cannot open, every iteration is a per-call compute.  Needs
+        :attr:`enqueue_mode`.  Returns ``{"iters", "fused", "ladder_iters",
+        "per_call_iters"}``.  A failure raises :class:`FusedBatchError` with
+        the iterations applied before it; its residue is never ``clean``
+        here (the port has no fault injection, whose preflight refusals are
+        the clean ones)."""
+        iters = int(iters)
+        if iters < 1:
+            raise ComputeValidationError(f"compute_fused_batch needs iters >= 1, got {iters}")
+        if not self.enqueue_mode:
+            raise ComputeValidationError(
+                "compute_fused_batch requires enqueue_mode (deferred readbacks are the "
+                "batch contract)")
+        sig = job_signature(kernel_names, params, compute_id, global_range, local_range,
+                            global_offset, value_args)
+        done = ladder = 0
+        try:
+            while done < iters:
+                if self._batch_defer(sig, iters - done, time.perf_counter()):
+                    ladder = iters - done
+                    done = iters
+                    break
+                self.compute(kernel_names, params, compute_id, global_range, local_range,
+                             global_offset=global_offset, value_args=value_args)
+                done += 1
+        except Exception as e:
+            raise FusedBatchError(cause=type(e).__name__, applied_iters=done,
+                                  requested_iters=iters, clean=False, original=e) from e
+        return {"iters": iters, "fused": ladder > 0, "ladder_iters": ladder,
+                "per_call_iters": iters - ladder}
 
     # -- enqueue-mode sync (reference: flushLastUsedCommandQueue / finish) ----
     @staticmethod
@@ -375,7 +684,9 @@ class Cores:
                 w.transfer_benchmarks[cid] = s / max(1, iters.get(cid, 1)) * 1000.0
 
     def flush(self) -> None:
-        """Read back everything deferred by enqueue mode and wait for it."""
+        """Read back everything deferred by enqueue mode and wait for it; an
+        open fused window is dispatched and drained first."""
+        self._fused_close()
         with self._lock:
             pending, self._enqueued = self._enqueued, []
             flush_iters, self._flush_iters = self._flush_iters, {}
@@ -388,7 +699,9 @@ class Cores:
         it (its record is collected here) or after it (it sees reset
         coverage and a host made current): a re-upload can never miss
         that thread's own updates.  Lock order: worker locks, then
-        ``_lock``, as in :meth:`_enqueue_phase`."""
+        ``_lock``, as in :meth:`_enqueue_phase`.  An open fused window is
+        dispatched and drained first."""
+        self._fused_close()
         with ExitStack() as stack:
             for w in self.workers:
                 stack.enter_context(w.lock)
@@ -409,28 +722,35 @@ class Cores:
         lane, each lane's fence-retire time since the window's first call
         becomes its bench, per iteration (``per_iteration_benches``), for
         every compute id it ran in the window, and those ids are armed to
-        rebalance on their next call.  A fence failure is raised after every
-        lane has been fenced; the window closes either way."""
-        with self._lock:
-            t0 = self._enqueue_t0
-            window_cids = set(self._enqueue_cids)
-            window_iters = dict(self._enqueue_iters)
+        rebalance on their next call.  An open fused window is dispatched and
+        drained first, so the fences cover it.  A dispatch or fence failure
+        is raised after every lane has been fenced; the window closes either
+        way."""
         n = self.num_devices
-        measure = self.enqueue_mode and t0 is not None and n > 1
+        errs: list[Exception] = []
         try:
-            if n == 1:
-                self.workers[0].fence()
-                return
+            try:
+                self._fused_close()
+            except Exception as e:  # noqa: BLE001 - the lanes are fenced all the same
+                errs.append(e)
+            with self._lock:
+                t0 = self._enqueue_t0
+                window_cids = set(self._enqueue_cids)
+                window_iters = dict(self._enqueue_iters)
+            measure = self.enqueue_mode and t0 is not None and n > 1
             done_at: dict[int, float] = {}
 
             def fence_timed(w: Worker) -> None:
                 w.fence()
                 done_at[w.index] = time.perf_counter()
 
-            errs = []
-            for f in [self.pool.submit(fence_timed, w) for w in self.workers]:
+            if n == 1:
+                fences = [self.workers[0].fence]
+            else:
+                fences = [self.pool.submit(fence_timed, w).result for w in self.workers]
+            for wait in fences:
                 try:
-                    f.result()
+                    wait()
                 except Exception as e:
                     errs.append(e)
             if errs:

@@ -45,6 +45,7 @@ class NumberCruncher:
             self.number_of_errors_happened += 1
             raise
         self._disposed = False
+        self._async_enable = True
 
     @property
     def devices(self) -> Devices:
@@ -65,6 +66,16 @@ class NumberCruncher:
     @repeat_count.setter
     def repeat_count(self, v: int) -> None:
         self.cores.repeat_count = max(1, int(v))
+
+    @property
+    def repeat_kernel_name(self) -> str | None:
+        """A kernel run between two repeats of ``repeat_count`` (reference:
+        computeRepeatedWithSyncKernel)."""
+        return self.cores.repeat_sync_kernel
+
+    @repeat_kernel_name.setter
+    def repeat_kernel_name(self, name: str | None) -> None:
+        self.cores.repeat_sync_kernel = name
 
     @property
     def enqueue_mode(self) -> bool:
@@ -90,33 +101,46 @@ class NumberCruncher:
         its fence times arm the next call's rebalance."""
         self.cores.barrier()
 
-    # toggles of tiers the port does not have yet: their one value
     @property
     def fused_dispatch(self) -> bool:
-        return False
+        """Fused-iteration dispatch (default True): an enqueue window that
+        repeats one call defers its later calls and dispatches them in
+        batches as one ladder per lane (a CUDA graph on a GPU lane).
+        Results are the per-call path's bit for bit; refusals are counted by
+        reason in :attr:`fused_stats`.  Turning it off closes the window."""
+        return self.cores.fused_dispatch
 
     @fused_dispatch.setter
     def fused_dispatch(self, v: bool) -> None:
-        if v:
-            _not_ported("fused_dispatch=True (fused-iteration dispatch)")
+        if not v and self.cores.fused_dispatch:
+            self.cores._fused_close()
+        self.cores.fused_dispatch = bool(v)
 
     @property
     def fused_batch(self) -> int:
-        return 16
+        """Iterations one fused dispatch carries at most (default 16)."""
+        return self.cores.fused_batch
 
     @fused_batch.setter
     def fused_batch(self, v: int) -> None:
-        if int(v) != 16:
-            _not_ported(f"fused_batch={v} (fused-iteration dispatch)")
+        self.cores.fused_batch = max(1, int(v))
+
+    @property
+    def fused_stats(self) -> dict:
+        """Fused windows dispatched, iterations fused and deferred, and the
+        disengages by reason."""
+        return self.cores.fused_stats
 
     @property
     def enqueue_mode_async_enable(self) -> bool:
-        return True
+        """Kept for the reference's API (enqueueModeAsyncEnable): a lane's
+        enqueued work is always asynchronous on its stream, so the flag is
+        stored and read back, and changes nothing."""
+        return self._async_enable
 
     @enqueue_mode_async_enable.setter
     def enqueue_mode_async_enable(self, v: bool) -> None:
-        if not v:
-            _not_ported("enqueue_mode_async_enable=False")
+        self._async_enable = bool(v)
 
     @property
     def fine_grained_queue_control(self) -> bool:
@@ -154,4 +178,4 @@ class NumberCruncher:
 
 def _not_ported(what: str) -> None:
     raise NotPortedError(f"{what} is not ported to cekirdekler_tpu_torch yet "
-                         "(ROADMAP.md Queue A 3-4)")
+                         "(ROADMAP.md Queue A 4)")

@@ -19,6 +19,7 @@ with ``-ffp-contract=off``.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -30,7 +31,7 @@ from pathlib import Path
 from ..errors import KernelCompileError
 
 __all__ = ["BUILD_DIR", "NVCC_FLAGS", "HOST_FLAGS", "nvcc_path", "build_library",
-           "LaunchCounter"]
+           "LaunchCounter", "tally", "tallied", "add_tally"]
 
 BUILD_DIR = Path(__file__).resolve().parents[1] / "_build"
 
@@ -45,23 +46,62 @@ _loaded: dict[str, ctypes.CDLL] = {}
 
 class LaunchCounter:
     """A plain launch count: a kernel wrapper adds one where it launches
-    its kernel, and nowhere else (``by_key`` splits it per kernel name)."""
+    its kernel, and nowhere else (``by_key`` splits it per kernel name).
+
+    While the calling thread captures a CUDA graph (:func:`tally`), an add
+    goes into the capture's tally instead: a captured launch runs only when
+    the graph is replayed, and ``kernel/graphs.py`` adds the tally once per
+    replay."""
 
     def __init__(self) -> None:
         self._mu = threading.Lock()
         self.count = 0
         self.by_key: dict[str, int] = {}
 
-    def add(self, key: str | None = None) -> None:
+    def add(self, key: str | None = None, n: int = 1) -> None:
+        if tallied(self, key, n):
+            return
         with self._mu:
-            self.count += 1
+            self.count += n
             if key is not None:
-                self.by_key[key] = self.by_key.get(key, 0) + 1
+                self.by_key[key] = self.by_key.get(key, 0) + n
 
     def reset(self) -> None:
         with self._mu:
             self.count = 0
             self.by_key.clear()
+
+
+_tallies = threading.local()
+
+
+def tallied(counter, key, n: int) -> bool:
+    """Record ``n`` launches of ``counter`` (anything with ``add(key, n)``)
+    into the calling thread's open :func:`tally`; False when none is open."""
+    t = getattr(_tallies, "open", None)
+    if t is None:
+        return False
+    _, seen = t.get((id(counter), key), (counter, 0))
+    t[(id(counter), key)] = (counter, seen + n)
+    return True
+
+
+@contextlib.contextmanager
+def tally():
+    """Collect the launches the calling thread counts inside the block as
+    ``{(id(counter), key): (counter, n)}`` instead of counting them."""
+    prev = getattr(_tallies, "open", None)
+    _tallies.open = t = {}
+    try:
+        yield t
+    finally:
+        _tallies.open = prev
+
+
+def add_tally(t: dict) -> None:
+    """Count a :func:`tally`'s launches once (one replay of a graph)."""
+    for (_, key), (counter, n) in t.items():
+        counter.add(key, n)
 
 
 def nvcc_path() -> str | None:

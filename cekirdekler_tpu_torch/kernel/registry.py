@@ -15,6 +15,16 @@ a launch over ``float16`` or ``bfloat16`` arrays (checked per launch by
 to XLA the same way) get the torch lowering (``codegen``).  :data:`launch_counts`
 counts launches per route (``"cuda"``, ``"torch"``, ``"python"``) so a run
 can show which path it took.
+
+:meth:`KernelProgram.fused_launcher` runs a whole ladder, as the
+reference's fused and sequence launchers do on the device: the kernel
+sequence over a predicated ladder, with the offset, the units and the
+iteration count as run-time arguments and an optional sync kernel between
+two iterations.  It serves the fused-iteration window and ``repeat_count``
+alike, one callable per key that makes the same launches as the per-call
+path, in the same order; on CPU tensors it is a host loop, and on a GPU
+lane ``kernel/graphs.py`` captures one call of it into a CUDA graph and
+replays that.
 """
 
 from __future__ import annotations
@@ -24,25 +34,44 @@ from dataclasses import dataclass, field
 from typing import Any, Callable, Sequence
 
 from ..errors import KernelCompileError
-from . import codegen, cuda_backend, lang
+from . import build, codegen, cuda_backend, lang
 
 __all__ = ["KernelProgram", "kernel", "PythonKernel", "launch_counts",
-           "reset_launch_counts"]
+           "reset_launch_counts", "inflight"]
+
+
+class _RouteCounts(dict):
+    """Launches per route; counted into a graph capture's tally while the
+    calling thread captures one (:func:`build.tally`)."""
+
+    def __init__(self) -> None:
+        super().__init__(cuda=0, torch=0, python=0)
+        self._mu = threading.Lock()
+
+    def add(self, route: str, n: int = 1) -> None:
+        if build.tallied(self, route, n):
+            return
+        with self._mu:
+            self[route] += n
+
+    def reset(self) -> None:
+        with self._mu:
+            for k in self:
+                self[k] = 0
+
 
 #: launches per route since the last reset
-launch_counts: dict[str, int] = {"cuda": 0, "torch": 0, "python": 0}
-_counts_mu = threading.Lock()
-
-
-def _count(route: str) -> None:
-    with _counts_mu:
-        launch_counts[route] += 1
+launch_counts = _RouteCounts()
+_inflight = threading.local()
 
 
 def reset_launch_counts() -> None:
-    with _counts_mu:
-        for k in launch_counts:
-            launch_counts[k] = 0
+    launch_counts.reset()
+
+
+def inflight() -> str | None:
+    """The kernel the calling thread's last ladder launcher was launching."""
+    return getattr(_inflight, "name", None)
 
 
 @dataclass
@@ -118,10 +147,21 @@ class KernelProgram:
 
     @property
     def compiled_count(self) -> int:
-        """Distinct launch geometries in the cache — the binary ladder keeps
-        this O(log(range/step)) whatever splits the balancer produces."""
+        """Distinct launchers in the cache (launch geometries and fused
+        ladders) — the binary ladder keeps this O(log(range/step))
+        whatever splits the balancer produces."""
         with self._lock:
             return len(self._cache)
+
+    @property
+    def fused_compiled_count(self) -> int:
+        """Distinct fused ladders in the cache (:meth:`fused_launcher`, for
+        windows and repeats).  Their key holds no range-table row and no
+        iteration count, so this moves only with the kernel sequence, the
+        sync kernel, the step and range geometry, the values or the
+        platform."""
+        with self._lock:
+            return sum(1 for k in self._cache if len(k) == 9 and k[0] == "fused")
 
     def __contains__(self, name: str) -> bool:
         return name in self._c_kernels or name in self._py_kernels
@@ -152,6 +192,100 @@ class KernelProgram:
             self._routes[name] = r
         return r
 
+    def capturable(self, names, bufs: tuple, out: tuple) -> bool:
+        """True when a ladder of the kernels ``names`` over ``bufs`` (tensors
+        on the card) that returned ``out`` can be captured into a CUDA graph,
+        which bakes the buffers' addresses: every kernel is written by hand
+        (the emitted kernel over storage types it takes, or a ``@kernel``;
+        the torch lowering syncs on a loop's condition), and ``out`` holds
+        the input tensors themselves."""
+        if not bufs or bufs[0].device.type != "cuda":
+            return False
+        if len(out) != len(bufs) or any(o is not b for o, b in zip(out, bufs)):
+            return False
+        for name in names:
+            route = self.route(name)
+            if route == "torch" or (route == "cuda" and not cuda_backend.takes_storage(
+                    bufs[:self.array_param_count(name)])):
+                return False
+        return True
+
+    def _ladder_fns(self, names, chunks, local_size: int, global_size: int, value_args,
+                    platform: str | None) -> list[tuple]:
+        """Per kernel name: (name, array count, values, launch fn per chunk)."""
+        out = []
+        for name in names:
+            va = tuple(value_args.get(name, ()) if isinstance(value_args, dict)
+                       else value_args)
+            fns = [self.launcher(name, c, local_size, global_size, platform)[0] for c in chunks]
+            out.append((name, self.array_param_count(name), va, fns))
+        return out
+
+    @staticmethod
+    def _values_key(names, value_args) -> tuple:
+        if isinstance(value_args, dict):
+            return tuple(sorted((n, tuple(value_args.get(n, ()))) for n in set(names)))
+        return tuple(value_args)
+
+    def fused_launcher(self, names: tuple, step: int, total_range: int, local_size: int,
+                       global_size: int, value_args, platform: str | None = None,
+                       sync_kernel: str | None = None) -> Callable | None:
+        """``fn(offset, units, iters, bufs) -> bufs``: ``iters`` times the
+        kernel sequence over ``units * step`` work items from ``offset``,
+        with ``sync_kernel`` over the same items between two iterations,
+        where the offset, the units and the iteration count are run-time
+        arguments.  It is the fused-iteration window's dispatch
+        (``core/cores.py``) and a call's ``repeat_count`` repeats (the
+        reference's computeRepeated / computeRepeatedWithSyncKernel).
+
+        The ladder is predicated, as the reference's: it holds every chunk
+        ``step * 2^k`` up to ``total_range`` and launches chunk ``k`` iff
+        bit ``k`` of ``units`` is set, in descending order, so it makes the
+        per-call path's launches exactly.  Every chunk's launcher is built
+        here, once: a rebalance or another window size then builds nothing
+        (``compiled_count`` and :attr:`fused_compiled_count` stay flat).
+        Returns None when the values are unhashable."""
+        every = tuple(names) + ((sync_kernel,) if sync_kernel else ())
+        try:
+            key = ("fused", tuple(names), step, total_range, local_size, global_size,
+                   self._values_key(every, value_args), platform, sync_kernel)
+            with self._lock:
+                hit = self._cache.get(key)
+        except TypeError:
+            return None
+        if hit is not None:
+            return hit[0]
+        bits = tuple(reversed(range(max(1, (total_range // step).bit_length()))))
+        chunks = tuple(step << k for k in bits)
+        steps = self._ladder_fns(names, chunks, local_size, global_size, value_args, platform)
+        sync = (self._ladder_fns((sync_kernel,), chunks, local_size, global_size, value_args,
+                                 platform) if sync_kernel else [])
+
+        def ladder(seq, offset: int, units: int, bufs: tuple) -> tuple:
+            for name, n_arr, va, fns in seq:
+                _inflight.name = name
+                off = offset
+                for k, launch in zip(bits, fns):
+                    if (units >> k) & 1:
+                        out = launch(off, bufs[:n_arr], va)
+                        bufs = tuple(out) + bufs[n_arr:]
+                        off += step << k
+            return bufs
+
+        def fn(offset: int, units: int, iters: int, bufs: tuple) -> tuple:
+            bufs = tuple(bufs)
+            for i in range(iters):
+                if i:
+                    bufs = ladder(sync, offset, units, bufs)
+                bufs = ladder(steps, offset, units, bufs)
+            return bufs
+
+        info = codegen.KernelBuildInfo(name="fused:" + "+".join(every), array_params=[],
+                                       value_params=[], array_ctypes={}, stored_params=[])
+        with self._lock:
+            self._cache[key] = (fn, info)
+        return fn
+
     def launcher(self, name: str, chunk: int, local_size: int, global_size: int,
                  platform: str | None = None) -> tuple[Callable, Any]:
         """Get (building if needed) the launch function for one geometry:
@@ -167,7 +301,7 @@ class KernelProgram:
             pk = self._py_kernels[name]
 
             def fn(offset, arrays: tuple, values: tuple = (), _pk=pk):
-                _count("python")
+                launch_counts.add("python")
                 out = _pk.fn(range(int(offset), int(offset) + chunk), *arrays,
                              **dict(zip(_pk.value_params, values)))
                 if not isinstance(out, tuple):
@@ -192,9 +326,9 @@ class KernelProgram:
                 # the card in a storage type it has (no float16/bfloat16)
                 if (_emitted is not None and arrays and arrays[0].device.type == "cuda"
                         and cuda_backend.takes_storage(arrays)):
-                    _count("cuda")
+                    launch_counts.add("cuda")
                     return _emitted(offset, arrays, values)
-                _count("torch")
+                launch_counts.add("torch")
                 return _lowered(offset, arrays, values)
 
         with self._lock:

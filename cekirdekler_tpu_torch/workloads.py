@@ -13,7 +13,9 @@ lanes run only when the caller selects them.  :func:`run_transformer_forward`
 is the counterpart of ``__graft_entry__.entry()``'s forward step,
 :func:`run_transformer_train` of its dry run's train steps, and
 :func:`run_ring_attention` of the reference's long-context ring run
-(``tests/test_parallel.py``, T = 16384 over sp = 8).
+(``tests/test_parallel.py``, T = 16384 over sp = 8).  :func:`measure_rtt`
+and :func:`dispatch_floor_sweep` measure what a call costs the host, the
+fused-iteration dispatch's reason to be (``tools/dispatch_floor.py``).
 """
 
 from __future__ import annotations
@@ -46,6 +48,8 @@ __all__ = [
     "run_transformer_train",
     "run_ring_attention",
     "REQUEST_BATCHES",
+    "measure_rtt",
+    "dispatch_floor_sweep",
 ]
 
 # One pixel per work item; escape-iteration count written as float.
@@ -331,6 +335,104 @@ def run_stream(devices: Devices | None = None, n: int = 1 << 20, reps: int = 10,
         cr.dispose()
         for arr in (a, b, c):
             arr.dispose()
+
+
+def measure_rtt(reps: int = 5, device=None) -> float:
+    """Best of ``reps`` round trips, in seconds: one tiny op on ``device``
+    (default: the first CUDA device) and a 4-byte D2H of its result."""
+    import torch
+
+    dev = (torch.device(device) if device is not None
+           else _default_devices(None).require_nonempty("a CUDA device")[0].torch_device)
+    t = torch.zeros(8, device=dev)
+    (t + 1.0)[:1].cpu()
+    best = float("inf")
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        (t + 1.0)[:1].cpu()
+        best = min(best, time.perf_counter() - t0)
+    return best
+
+
+def dispatch_floor_sweep(devices: Devices | None = None, ks=(1, 8, 32, 128),
+                         n: int = 1 << 14, local_range: int = 256, reps: int = 3,
+                         modes=(False, True)) -> dict:
+    """What an enqueued call costs the host, per window size K, per call and
+    fused (reference ``workloads.dispatch_floor_sweep``).
+
+    A light kernel (``x[i] + 1``, device work negligible next to a call's
+    host cost) runs windows of K enqueued calls and one barrier on the
+    first lane of ``devices`` (default: the first CUDA device), after a
+    warm window outside the timing.  Per row, the best of ``reps``
+    windows: ``per_dispatch_ms`` = (window wall - barrier wall) / K, the
+    host cost of one call (the fused rows' barrier holds the dispatch of
+    the window's deferred calls, and the fence); ``barrier_ms``;
+    ``launches`` (kernel launches counted, ``registry.launch_counts``),
+    ``graph_replays`` (``graphs.GRAPHS``), and the fused windows and
+    iterations (``fused_stats``) of that window: the evidence of how the
+    calls were dispatched.  ``rtt_ms`` is the lane's round trip
+    (:func:`measure_rtt`), the least a barrier can cost.  The result is
+    checked exact."""
+    from .kernel.graphs import GRAPHS
+    from .kernel.registry import launch_counts
+
+    src = """
+    __kernel void light(__global float* x) {
+        int i = get_global_id(0);
+        x[i] = x[i] + 1.0f;
+    }
+    """
+    devs = _default_devices(devices).require_nonempty("a CUDA device").subset(1)
+    out: dict = {"n": n, "reps": reps, "device": devs[0].torch_device.type,
+                 "device_name": devs[0].name,
+                 "rtt_ms": measure_rtt(device=devs[0].torch_device) * 1e3, "rows": []}
+    for fused in modes:
+        cr = NumberCruncher(devs, src)
+        cr.fused_dispatch = fused
+        x = ClArray(np.zeros(n, np.float32), name="df", partial_read=True)
+        calls = 0
+        try:
+            cr.enqueue_mode = True
+            for _ in range(3):  # warm: the per-call and the fused launchers
+                x.compute(cr, 551, "light", n, local_range)
+            calls += 3
+            cr.barrier()
+            for K in ks:
+                best = None
+                for _ in range(max(1, reps)):
+                    stats0 = dict(cr.fused_stats)
+                    launches0 = sum(launch_counts.values())
+                    replays0 = GRAPHS.by_key.get("replay", 0)
+                    t0 = time.perf_counter()
+                    for _ in range(K):
+                        x.compute(cr, 551, "light", n, local_range)
+                    t1 = time.perf_counter()
+                    cr.barrier()
+                    t2 = time.perf_counter()
+                    calls += K
+                    row = {
+                        "fused": bool(fused), "K": K, "wall_ms": (t2 - t0) * 1e3,
+                        "barrier_ms": (t2 - t1) * 1e3, "per_dispatch_ms": (t1 - t0) * 1e3 / K,
+                        "launches": sum(launch_counts.values()) - launches0,
+                        "graph_replays": GRAPHS.by_key.get("replay", 0) - replays0,
+                        "fused_windows": cr.fused_stats["windows"] - stats0["windows"],
+                        "fused_iters": cr.fused_stats["fused_iters"] - stats0["fused_iters"],
+                    }
+                    if best is None or row["per_dispatch_ms"] < best["per_dispatch_ms"]:
+                        best = row
+                out["rows"].append(best)
+            cr.enqueue_mode = False
+            if not np.array_equal(x.host(), np.full(n, calls, np.float32)):
+                raise AssertionError(f"dispatch floor sweep: x is not {calls} everywhere")
+        finally:
+            if cr.enqueue_mode:
+                cr.enqueue_mode = False
+            cr.dispose()
+    per = {(r["fused"], r["K"]): r["per_dispatch_ms"] for r in out["rows"]}
+    k_max = max(ks)
+    if (False, k_max) in per and (True, k_max) in per:
+        out["floor_collapse_at_kmax"] = per[(False, k_max)] / max(per[(True, k_max)], 1e-9)
+    return out
 
 
 def convergence_iterations(devices: Devices | None = None, max_iter: int = 192,

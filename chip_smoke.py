@@ -57,7 +57,16 @@ Phases, each of which raises on failure (the script then exits non-zero):
    and ``y`` read back once, at the flush; (c) ``run_mandelbrot`` with
    ``readback="final"`` at 2048x2048x256 by both routes, beside
    ``readback="every"`` on the same cruncher: images exact and one image
-   D2H per enqueue run; (d) one GPU lane plus one host lane in enqueue
+   D2H per enqueue run, then ``sync_every=12`` per call and fused in turns
+   after a warm run; the fused phase: emitted and hand mandelbrot, the
+   ``@kernel`` saxpy, emitted streamAdd and n-body at the main path's
+   shapes, each per call and fused in enqueue mode on a new cruncher:
+   outputs equal bit for bit, every launch count equal, CUDA-graph replays
+   (``kernel/graphs.GRAPHS``), no plain version on the card; and
+   ``repeat_count=64`` saxpy, @kernel and emitted, 4 calls through
+   ``compute()``: one ladder, then one graph replay a call, every repeat
+   counted, ``y`` exact (fused windows are on by default, so (b) defers
+   calls 3-64); (d) one GPU lane plus one host lane in enqueue
    mode, mandelbrot 1024x1024x64 with a barrier every 4 calls and the
    saxpy kernel at 2^20: ranges move only on the first call after a
    barrier, at least once, and the image and ``y`` stay exact;
@@ -1259,21 +1268,28 @@ def gate_moves(ranges: list[list[int]], sync_every: int) -> int:
     return len(moves)
 
 
-def check_enqueue_saxpy(ck, wl, ew, gpus, reg) -> int:
-    """Phase (b): returns the elementwise kernel's launches on that path."""
+def check_enqueue_saxpy(ck, wl, ew, gpus, reg, graphs, kernel_ms: float) -> int:
+    """Phase (b): returns the elementwise kernel's launches on that path.
+    ``kernel_ms`` is the elementwise kernel's own time at this size (the
+    kernels line), which the 64 calls and the barrier are read against."""
     n = 1 << 24
     ew.LAUNCHES.reset()
     ew.PLAIN_RUNS.reset()
+    graphs.GRAPHS.reset()
     reg.reset_launch_counts()
     run = enqueue_saxpy(ck, wl, gpus.subset(1), n, ENQUEUE_CALLS)
     launches, routes = ew.LAUNCHES.count, dict(reg.launch_counts)
     plain = ew.PLAIN_RUNS.by_key.get("cuda", 0)  # the reference's runs are on the CPU
     ms = run["call_ms"]
+    total = sum(ms) + run["barrier_ms"]
     print(f"enqueue saxpy 2^24 x {ENQUEUE_CALLS} calls (host clock): first call {ms[0]:.3f} ms, "
           f"calls 2-{ENQUEUE_CALLS} mean {np.mean(ms[1:]):.4f} ms, median "
-          f"{np.median(ms[1:]):.4f} ms, then the barrier {run['barrier_ms']:.3f} ms; "
+          f"{np.median(ms[1:]):.4f} ms (calls 3-{ENQUEUE_CALLS}, the deferred ones, median "
+          f"{np.median(ms[2:]):.4f} ms), then the barrier {run['barrier_ms']:.3f} ms; "
+          f"calls + barrier {total:.3f} ms = {total / (ENQUEUE_CALLS * kernel_ms):.3f} x "
+          f"{ENQUEUE_CALLS} x the kernel's {kernel_ms:.4f} ms; "
           f"elementwise launches {launches}, plain runs on the card {plain}; routes {routes}; "
-          f"transfers {run['after']}")
+          f"graphs {dict(graphs.GRAPHS.by_key)}; transfers {run['after']}")
     gate_single_lane_transfers(run)
     gate_exact(run["y"], run["want"], f"enqueue saxpy y after {ENQUEUE_CALLS} calls")
     from cekirdekler_tpu_torch.core.worker import _ladder
@@ -1328,6 +1344,174 @@ def check_enqueue_mixed(ck, wl, lanes) -> None:
         raise AssertionError("GPU + host enqueue mode: no barrier moved a range")
 
 
+def launch_counts(reg, cuda_backend, mandel_op, ew_op) -> dict:
+    """Every launch count a ``compute()`` path on the GPU lane moves."""
+    return {"emitted": dict(cuda_backend.LAUNCHES.by_key), "forms": dict(cuda_backend.FORMS.by_key),
+            "mandelbrot.cu": mandel_op.LAUNCHES.count, "elementwise": ew_op.LAUNCHES.count,
+            "elementwise plain": dict(ew_op.PLAIN_RUNS.by_key), "routes": dict(reg.launch_counts)}
+
+
+def reset_counts(reg, graphs, cuda_backend, mandel_op, ew_op) -> None:
+    for counter in (cuda_backend.LAUNCHES, cuda_backend.FORMS, mandel_op.LAUNCHES,
+                    ew_op.LAUNCHES, ew_op.PLAIN_RUNS, graphs.GRAPHS):
+        counter.reset()
+    reg.reset_launch_counts()
+
+
+def fused_cases(ck, wl, n_pix: int) -> list[tuple]:
+    """(label, source, kernel, calls, fused batch, values, arrays, range) of
+    the fused phase: the main path's kernels at its shapes, each case's
+    arrays made anew from a seed by ``arrays()``.  Each batch size divides
+    the deferred calls at least twice, so a lane runs its key once launch by
+    launch and then captures and replays it."""
+    vals = (-2.0, -1.25, 2.5 / 2048, 2.5 / 2048, 2048, 256)
+    big, nb = 1 << 24, 8192
+
+    def image():
+        return [ck.ClArray(n_pix, np.float32, name="img", read=False, write=True, fast=True)]
+
+    def saxpy():
+        rng = np.random.default_rng(11)
+        return [ck.ClArray(rng.standard_normal(big).astype(np.float32), name="x",
+                           read_only=True, fast=True),
+                ck.ClArray(rng.standard_normal(big).astype(np.float32), name="y",
+                           partial_read=True, fast=True)]
+
+    def stream():
+        rng = np.random.default_rng(12)
+        return [ck.ClArray(rng.standard_normal(big).astype(np.float32), name=k,
+                           read_only=True, fast=True) for k in "ab"] + [
+            ck.ClArray(big, np.float32, name="c", write_only=True, fast=True)]
+
+    def nbody():
+        rng = np.random.default_rng(42)
+        pos = (rng.random((3, nb), dtype=np.float32) - 0.5) * 2.0
+        return [ck.ClArray(pos[k].copy(), name="xyz"[k], read_only=True) for k in range(3)] + [
+            ck.ClArray(nb, np.float32, name=f"v{c}", partial_read=True) for c in "xyz"]
+
+    return [("emitted mandelbrot", wl.MANDELBROT_SRC, "mandelbrot", 12, 4, vals, image, n_pix),
+            ("hand mandelbrot", wl.mandelbrot_cuda_kernel(), "mandelbrot", 12, 4, vals, image,
+             n_pix),
+            ("saxpy", wl.saxpy_kernel(), "saxpy", ENQUEUE_CALLS, 16, (ALPHA,), saxpy, big),
+            ("emitted streamAdd", wl.STREAM_SRC, "streamAdd", 16, 4, (), stream, big),
+            ("emitted n-body", wl.NBODY_SRC, "nBody", 8, 2, (nb, 1e-4), nbody, nb)]
+
+
+def check_fused(ck, wl, gpus, mods, ref_img: np.ndarray) -> dict:
+    """The fused-dispatch phase: each case's calls in enqueue mode on the GPU
+    lane, per call and fused, with every count set to 0 before each run.
+    Fused must give the per-call outputs bit for bit and the same launch
+    counts, through CUDA graphs (replays > 0; a key's first run goes launch
+    by launch); neither run may take a plain version on the card.  Returns
+    the fused runs' graph counts by case."""
+    reg, graphs, cuda_backend, mandel_op, ew_op = mods
+    out = {}
+    for label, source, kname, calls, batch, vals, arrays, n in fused_cases(ck, wl, ref_img.size):
+        runs = {}
+        for fused in (False, True):
+            arrs = arrays()
+            group = arrs[0].next_param(*arrs[1:]) if len(arrs) > 1 else arrs[0]
+            with ck.NumberCruncher(gpus.subset(1), source) as cr:
+                cr.fused_dispatch = fused
+                cr.fused_batch = batch
+                reset_counts(reg, graphs, cuda_backend, mandel_op, ew_op)
+                cr.enqueue_mode = True
+                t0 = time.perf_counter()
+                for _ in range(calls):
+                    group.compute(cr, 7100, kname, n, 256, values=vals)
+                cr.barrier()
+                wall = (time.perf_counter() - t0) * 1e3
+                cr.enqueue_mode = False
+                runs[fused] = dict(outputs=[a.host().copy() for a in arrs],
+                                   counts=launch_counts(reg, cuda_backend, mandel_op, ew_op),
+                                   graphs=dict(graphs.GRAPHS.by_key),
+                                   stats=json.loads(json.dumps(cr.fused_stats)), wall_ms=wall)
+        per_call, fused = runs[False], runs[True]
+        for k, (a, b) in enumerate(zip(per_call["outputs"], fused["outputs"])):
+            gate_exact(b, a, f"fused {label}: output {k} against the per-call run")
+        if "mandelbrot" in label:
+            gate_exact(fused["outputs"][0], ref_img, f"fused {label}: image")
+        print(f"fused {label}, {calls} enqueued calls + barrier: per call {per_call['wall_ms']:.3f} "
+              f"ms, fused {fused['wall_ms']:.3f} ms; fused_stats {fused['stats']}; graphs "
+              f"{fused['graphs']}; launch counts {fused['counts']}")
+        if fused["counts"] != per_call["counts"]:
+            raise AssertionError(f"fused {label}: launch counts {fused['counts']} differ from "
+                                 f"the per-call run's {per_call['counts']}")
+        for run in (per_call, fused):
+            if run["counts"]["routes"]["torch"] or "cuda" in run["counts"]["elementwise plain"]:
+                raise AssertionError(f"fused {label}: a plain version ran on the card: "
+                                     f"{run['counts']}")
+        if fused["graphs"].get("replay", 0) <= 0 or per_call["graphs"]:
+            raise AssertionError(f"fused {label}: graphs {fused['graphs']} (per call "
+                                 f"{per_call['graphs']}): want replays")
+        if fused["stats"]["fused_iters"] != calls - 2:
+            raise AssertionError(f"fused {label}: {fused['stats']}, want {calls - 2} fused")
+        out[label] = fused["graphs"]
+    return out
+
+
+def check_repeat(ck, wl, gpus, mods, n: int = 1 << 24, repeats: int = 64, calls: int = 4) -> None:
+    """``repeat_count`` through ``compute()`` on the GPU lane: the @kernel
+    saxpy and the emitted saxpy, ``repeats`` repeats a call.  A lane's first
+    call runs the repeats launch by launch and records that they wrote
+    their buffers in place; every later call is one graph replay.  The
+    counts must hold every repeat, and ``y`` must equal the plain version's
+    ``repeats * calls`` iterations bit for bit."""
+    reg, graphs, cuda_backend, mandel_op, ew_op = mods
+    from cekirdekler_tpu_torch.core.worker import _ladder
+
+    rng = np.random.default_rng(13)
+    xh = rng.standard_normal(n).astype(np.float32)
+    y0 = rng.standard_normal(n).astype(np.float32)
+    want = saxpy_reference(y0, xh, repeats * calls)
+    chunks = len(_ladder(n, 256)) * repeats * calls
+    for label, source, count in (
+            ("@kernel saxpy", wl.saxpy_kernel(), lambda: ew_op.LAUNCHES.count),
+            ("emitted saxpy", SAXPY_SRC, lambda: cuda_backend.LAUNCHES.by_key.get("saxpy", 0))):
+        x = ck.ClArray(xh.copy(), name="x", read_only=True, fast=True)
+        y = ck.ClArray(y0.copy(), name="y", fast=True)
+        with ck.NumberCruncher(gpus.subset(1), source) as cr:
+            cr.repeat_count = repeats
+            reset_counts(reg, graphs, cuda_backend, mandel_op, ew_op)
+            walls = []
+            for _ in range(calls):
+                t0 = time.perf_counter()
+                x.next_param(y).compute(cr, 7101, "saxpy", n, 256, values=(ALPHA,))
+                walls.append((time.perf_counter() - t0) * 1e3)
+        got = dict(graphs.GRAPHS.by_key)
+        # the emitted saxpy rounds y + a*x as the plain version does, without a contraction
+        gate_exact(y.host(), want, f"repeat_count={repeats} {label} y")
+        print(f"repeat_count={repeats} {label} {n} floats x {calls} calls through compute(): walls "
+              f"{[round(w, 3) for w in walls]} ms (with H2D and D2H); launches {count()}, "
+              f"graphs {got}")
+        if count() != chunks or got != {"ladder": 1, "capture": 1, "replay": calls - 1}:
+            raise AssertionError(f"repeat {label}: {count()} launches (want {chunks}), graphs "
+                                 f"{got} (want one ladder, then one replay a call)")
+
+
+def check_mandelbrot_sync12(ck, wl, gpus, card: str, ref_img: np.ndarray) -> dict:
+    """``readback="final"`` with a barrier every 12 calls, fused and per call
+    on one cruncher a route: one run to warm the cruncher, then per call,
+    fused, fused, per call; returns Mpixels/s by run."""
+    out = {}
+    for label, source in (("C-subset", wl.MANDELBROT_SRC),
+                          ("hand kernel", wl.mandelbrot_cuda_kernel())):
+        with ck.NumberCruncher(gpus.subset(1), source) as cr:
+            wl.run_mandelbrot(None, 2048, 2048, 256, local_range=256, readback="final",
+                              sync_every=12, cruncher=cr)
+            for k, fused in enumerate((False, True, True, False)):
+                cr.fused_dispatch = fused
+                r = wl.run_mandelbrot(None, 2048, 2048, 256, local_range=256, keep_image=True,
+                                      readback="final", sync_every=12, cruncher=cr)
+                gate_exact(r.image.ravel(), ref_img, f"mandelbrot ({label}, sync_every=12)")
+                key = f"{label} final sync12 {'fused' if fused else 'per-call'} {k}"
+                out[key] = r.mpixels_per_sec
+                print(f"mandelbrot 2048x2048x256 ({label}, readback='final', sync_every=12, "
+                      f"fused_dispatch={fused}): {r.mpixels_per_sec:.1f} Mpixels/s on {card}; "
+                      f"fused_stats {cr.fused_stats}")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -1343,7 +1527,7 @@ def main() -> int:
     from cekirdekler_tpu_torch import parallel as par
     from cekirdekler_tpu_torch import workloads as wl
     from cekirdekler_tpu_torch.hardware import rate_prior
-    from cekirdekler_tpu_torch.kernel import build, cuda_backend, lang, registry
+    from cekirdekler_tpu_torch.kernel import build, cuda_backend, graphs, lang, registry
     from cekirdekler_tpu_torch.kernel.codegen import build_kernel_fn
     from cekirdekler_tpu_torch.ops import elementwise as ew_op
     from cekirdekler_tpu_torch.ops import flash_attention as fa_op
@@ -1574,7 +1758,8 @@ def main() -> int:
     rows["mandelbrot"]["launches"] = counts["mandelbrot.cu"]
 
     phase("enqueue saxpy through compute() (GPU lane)")
-    rows["elementwise"]["launches"] = check_enqueue_saxpy(ck, wl, ew_op, gpus, registry)
+    rows["elementwise"]["launches"] = check_enqueue_saxpy(ck, wl, ew_op, gpus, registry, graphs,
+                                                          rows["elementwise"]["ms"])
 
     phase("enqueue mandelbrot, readback='final' (GPU lane)")
     for counter in (cuda_backend.LAUNCHES, mandel_op.LAUNCHES):
@@ -1586,6 +1771,12 @@ def main() -> int:
     print(f"launch counts (emitted mandelbrot, mandelbrot.cu, routes): {seen}")
     if not (seen[0] > 0 and seen[1] > 0 and seen[2]["torch"] == 0):
         raise AssertionError(f"enqueue mandelbrot left the kernels: {seen}")
+    res.update(check_mandelbrot_sync12(ck, wl, gpus, card, ref_img))
+
+    phase("fused dispatch (GPU lane)")
+    mods = (registry, graphs, cuda_backend, mandel_op, ew_op)
+    check_fused(ck, wl, gpus, mods, ref_img)
+    check_repeat(ck, wl, gpus, mods)
 
     phase("enqueue mode on a GPU + host lane")
     cuda_backend.LAUNCHES.reset()

@@ -2,13 +2,15 @@
 
 The scenarios of the reference's own enqueue tests
 (``tests/test_core.py``, ``tests/test_workloads.py``, ``tests/test_fused.py``)
-run through both packages' ``NumberCruncher`` on the same inputs, the
-reference with ``fused_dispatch=False`` (the port's only mode).  Where
-ranges are compared, neither balancer reads a wall clock: each package's
-``cores`` module gets a modelled ``time`` whose ``perf_counter`` reads 0
-except right after a lane's fence, where it reads that lane's modelled
-retire time (:class:`ModelClock`).  Both balancers then see the same fence
-times, and every range table and every result must be identical.
+run through both packages' ``NumberCruncher`` on the same inputs, with
+``fused_dispatch`` set alike in both (:class:`Pair`; the fused windows
+themselves are ``tests/test_torch_fused.py``'s, which uses this harness).
+Where ranges are compared, neither balancer reads a wall clock: each
+package's ``cores`` module gets a modelled ``time`` whose ``perf_counter``
+reads 0 except right after a lane's fence, where it reads that lane's
+modelled retire time (:class:`ModelClock`).  Both balancers then see the
+same fence times, and every range table and every result must be
+identical.
 """
 
 from __future__ import annotations
@@ -69,13 +71,15 @@ class ModelClock:
 
 
 class Pair:
-    """The same cruncher in both packages, on ``lanes`` CPU lanes each."""
+    """The same cruncher in both packages, on ``lanes`` CPU lanes each, with
+    fused dispatch set to ``fused`` in both."""
 
-    def __init__(self, src, lanes: int, monkeypatch=None, ref_src=None):
+    def __init__(self, src, lanes: int, monkeypatch=None, ref_src=None, fused: bool = False):
         self.port = ck.NumberCruncher(ck.all_devices().cpus(lanes), src)
         self.ref = RefCruncher(ref_platforms().cpus().subset(lanes),
                                src if ref_src is None else ref_src)
-        self.ref.fused_dispatch = False
+        self.port.fused_dispatch = fused
+        self.ref.fused_dispatch = fused
         self.clocks = None
         if monkeypatch is not None:
             self.clocks = (ModelClock(), ModelClock())
@@ -96,8 +100,12 @@ class Pair:
         self.ref.dispose()
 
 
-def test_readback_is_deferred_until_leaving_enqueue_mode():
-    pair = Pair(INC, 2)
+FUSED = pytest.mark.parametrize("fused", [False, True])
+
+
+@FUSED
+def test_readback_is_deferred_until_leaving_enqueue_mode(fused):
+    pair = Pair(INC, 2, fused=fused)
     try:
         for cr, CA in pair.both():
             x = CA(np.zeros(256, np.float32), name="x")
@@ -114,8 +122,9 @@ def test_readback_is_deferred_until_leaving_enqueue_mode():
         pair.dispose()
 
 
-def test_a_slow_lane_loses_share_after_a_barrier_and_not_before(monkeypatch):
-    pair = Pair(INC, 2, monkeypatch)
+@FUSED
+def test_a_slow_lane_loses_share_after_a_barrier_and_not_before(monkeypatch, fused):
+    pair = Pair(INC, 2, monkeypatch, fused=fused)
     pair.lag(lane0=0.25, lane1=0.01)
     try:
         seen = []
@@ -143,8 +152,9 @@ def test_a_slow_lane_loses_share_after_a_barrier_and_not_before(monkeypatch):
         pair.dispose()
 
 
-def test_a_write_only_image_stays_exact_across_a_move(monkeypatch):
-    pair = Pair(FILLIDX, 2, monkeypatch)
+@FUSED
+def test_a_write_only_image_stays_exact_across_a_move(monkeypatch, fused):
+    pair = Pair(FILLIDX, 2, monkeypatch, fused=fused)
     pair.lag(lane0=0.01, lane1=0.25)
     try:
         seen = []
@@ -163,11 +173,12 @@ def test_a_write_only_image_stays_exact_across_a_move(monkeypatch):
         pair.dispose()
 
 
-def test_a_reacquired_range_is_not_stale(monkeypatch):
+@FUSED
+def test_a_reacquired_range_is_not_stale(monkeypatch, fused):
     """Ranges oscillate across barriers (the slow lane alternates), so a
     lane re-acquires a region another lane updated in between: its upload
     coverage was reset at every move, and the values stay exact."""
-    pair = Pair(INC, 2, monkeypatch)
+    pair = Pair(INC, 2, monkeypatch, fused=fused)
     try:
         seen = []
         for cr, CA in pair.both():
@@ -233,7 +244,8 @@ def test_two_compute_ids_splitting_one_array_lose_no_update():
         pair.dispose()
 
 
-def test_saxpy_kernel_path_matches_jax(monkeypatch):
+@FUSED
+def test_saxpy_kernel_path_matches_jax(monkeypatch, fused):
     """The ``@kernel`` saxpy over the elementwise op, in enqueue mode on two
     lanes with a barrier-armed move: the JAX package's Pallas saxpy in
     interpret mode (``static_values=True``) against the port's
@@ -251,7 +263,7 @@ def test_saxpy_kernel_path_matches_jax(monkeypatch):
         ys = lax.dynamic_slice(y, (gid[0],), (chunk,))
         return (x, lax.dynamic_update_slice(y, ref_saxpy(a, xs, ys, interpret=True), (gid[0],)))
 
-    pair = Pair(wl.saxpy_kernel(), 2, monkeypatch, ref_src=ref_saxpy_k)
+    pair = Pair(wl.saxpy_kernel(), 2, monkeypatch, ref_src=ref_saxpy_k, fused=fused)
     pair.lag(lane0=0.3, lane1=0.02)
     n = 4096
     rng = np.random.default_rng(12)
@@ -323,13 +335,15 @@ def test_enqueue_mode_does_not_fence_per_call(monkeypatch):
         cr.dispose()
 
 
-def test_threaded_windows_lose_no_update():
-    """The non-fused case of the reference's threaded-window regression:
-    one thread drives barriers whose fence lag alternates between the lanes
-    (so its next call moves ranges and runs the atomic flush and coverage
+@FUSED
+def test_threaded_windows_lose_no_update(fused):
+    """The reference's threaded-window regression, fused and not: one
+    thread drives barriers whose fence lag alternates between the lanes (so
+    its next call moves ranges and runs the atomic flush and coverage
     reset) while another thread enqueues a different compute id through the
     same cruncher.  Both arrays end exact."""
     cr = ck.NumberCruncher(ck.all_devices().cpus(2), INC)
+    cr.fused_dispatch = fused
     n = 4096
     x = ck.ClArray(np.zeros(n, np.float32), name="x", partial_read=True)
     y = ck.ClArray(np.zeros(n, np.float32), name="y", partial_read=True)
@@ -436,11 +450,29 @@ def test_a_failed_host_lane_phase_surfaces_at_the_barrier():
 
 
 @pytest.mark.parametrize("name, value", [
-    ("fused_dispatch", True), ("fused_batch", 8), ("enqueue_mode_async_enable", False),
-    ("fine_grained_queue_control", True),
+    pytest.param("fused_dispatch", True, id="fused_dispatch-True"),
+    pytest.param("fused_batch", 8, id="fused_batch-8"),
+    pytest.param("enqueue_mode_async_enable", False, id="enqueue_mode_async_enable-False"),
+    pytest.param("fine_grained_queue_control", True, id="fine_grained_queue_control-True"),
 ])
 def test_toggles_of_tiers_not_ported_refuse_another_value(name, value):
-    with ck.NumberCruncher(ck.all_devices().cpus(1), INC) as cr:
-        setattr(cr, name, getattr(cr, name))  # the one value is accepted
-        with pytest.raises(NotPortedError, match=name):
-            setattr(cr, name, value)
+    """``fine_grained_queue_control`` (queue markers, Queue A 4) keeps its
+    one value and refuses another.  The fused tier's toggles are ported:
+    each reads its default, takes another value and reads it back, and
+    takes the default again, as the JAX package's do."""
+    ref = RefCruncher(ref_platforms().cpus().subset(1), INC)
+    try:
+        with ck.NumberCruncher(ck.all_devices().cpus(1), INC) as cr:
+            setattr(cr, name, getattr(cr, name))  # the default is accepted
+            if name == "fine_grained_queue_control":
+                with pytest.raises(NotPortedError, match=name):
+                    setattr(cr, name, value)
+                return
+            default = getattr(cr, name)
+            assert default == getattr(ref, name)
+            for v in (value, default):
+                setattr(cr, name, v)
+                setattr(ref, name, v)
+                assert getattr(cr, name) == getattr(ref, name) == v
+    finally:
+        ref.dispose()

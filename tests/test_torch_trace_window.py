@@ -119,6 +119,9 @@ def test_by_name_sums_each_activity_but_the_leads():
     (["cekirdekler_tpu_torch/tools/time_flash.py", "--parts"], "no CUDA device"),
     (["cekirdekler_tpu_torch/tools/sweep_mandelbrot.py", "--sass", "chiprun_out/sass"],
      "no CUDA device"),
+    (["-m", "cekirdekler_tpu_torch.tools.dispatch_floor"], "a CUDA device"),
+    (["-m", "cekirdekler_tpu_torch.tools.fused_windows"], "a CUDA device"),
+    (["-m", "cekirdekler_tpu_torch.tools.profile_enqueue", "--fused", "off"], "a CUDA device"),
 ])
 def test_card_tools_refuse_without_a_card(cmd, message):
     """The tracing tools exit non-zero and print no result where no CUDA

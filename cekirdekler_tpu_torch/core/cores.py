@@ -1,12 +1,18 @@
 """Cores — the multi-lane scheduler: split / compute / join with iterative
 load balancing, per call or at enqueue-mode sync points.
 
-Counterpart of ``cekirdekler_tpu/core/cores.py`` without its streamed and
-pipelined tiers: one :class:`Worker` per lane, per-compute-id range
-tables, an equal (or, on a mixed fleet, rate-prior-seeded) first split,
-and concurrent per-lane H2D -> ladder launch -> D2H from a thread pool.
-``write_all`` ownership, ``repeat_count`` (with ``repeat_sync_kernel``),
-``ranges_of``, ``benchmarks_of`` and the performance report are kept.
+Counterpart of ``cekirdekler_tpu/core/cores.py`` without its pipelined
+tier: one :class:`Worker` per lane, per-compute-id range tables, an equal
+(or, on a mixed fleet, rate-prior-seeded) first split, and concurrent
+per-lane H2D -> ladder launch -> D2H from a thread pool.  ``write_all``
+ownership, ``repeat_count`` (with ``repeat_sync_kernel``), ``ranges_of``,
+``benchmarks_of``, the performance report and its history
+(:meth:`performance_history`, printed per call with ``performance_feed``)
+are kept, and so are the balancer's toggles: ``fixed_compute_powers``
+(the cruncher's ``normalized_compute_powers_of_devices``) pins the split,
+``adaptive_load_balancer`` (default True; False is the reference's fixed
+damping) and ``smooth_load_balancer`` (default True).  ``no_compute_mode``
+makes a call move its data and launch nothing.
 
 Two modes, as the reference's:
 
@@ -26,6 +32,19 @@ Two modes, as the reference's:
   per compute id only, and loses updates when two ids split one array
   differently in a window (ROADMAP Queue C 8).
 
+Streamed partition transfers (``streamed_transfers``, on by default as in
+the reference; :meth:`_run_streamed`): a lane's range is cut into
+``step * 2^k`` chunks (``core/stream.chunk_plan``), its partition uploads
+are staged chunk by chunk ahead of the first kernel's chunk launches, and
+its downloads issued behind the last kernel's, so a chunk's copies overlap
+other chunks' kernels; the kernel sequence stays kernel-major, so results
+are the monolithic path's bit for bit.  The chunk count is
+``stream_chunks`` when pinned, else ``transfer_tuner``'s choice from the
+lane's measured upload, compute and download times: a key's first call is
+a monolithic measuring run that fences between the phases.  The enqueue
+flush drains a large record in chunks too.  ``last_stream_chunks`` holds
+each lane's last choice.
+
 Fused windows (``fused_dispatch``, on by default as in the reference): when
 enqueue mode repeats one call (:func:`job_signature`) with its operands
 resident and its ranges still, the second call opens a window and every
@@ -40,24 +59,28 @@ dispatched and drained before the re-split flush runs.
 :meth:`compute_fused_batch` defers a batch assembled by its caller in one
 step.
 
-Not ported yet (queued in ROADMAP.md): streamed transfers, pipelines,
-drains, the barrier's health, drain, flight and decision hooks, the fence
-split, the verify gate, ``no_compute_mode``, ``dispatch_gate``,
-``trace_lanes``, and the metrics/trace/obs hooks.
+Not ported yet (queued in ROADMAP.md): pipelines, drains, the barrier's
+health, drain, flight and decision hooks, the fence split, the verify gate,
+the compile cache and ``warmup``, ``dispatch_gate``, ``trace_lanes``, and
+the metrics/trace/obs hooks.
 """
 
 from __future__ import annotations
 
 import threading
 import time
+from collections import deque
 from concurrent.futures import ThreadPoolExecutor
 from contextlib import ExitStack, nullcontext
 from dataclasses import dataclass, field
 from typing import Any, Sequence
 
+import torch
+
 from ..arrays.clarray import ClArray
 from ..errors import ComputeValidationError, FusedBatchError
 from ..hardware import Devices, rate_prior
+from ..kernel.build import LaunchCounter
 from ..kernel.registry import KernelProgram
 from .balance import (
     BalanceHistory,
@@ -67,9 +90,14 @@ from .balance import (
     per_iteration_benches,
     prior_split,
 )
-from .worker import Worker
+from .stream import TransferTuner, chunk_plan
+from .worker import Worker, _ladder
 
-__all__ = ["Cores", "ComputePerf", "job_signature"]
+__all__ = ["Cores", "ComputePerf", "job_signature", "STREAMED"]
+
+#: streamed lane phases, keyed by their kernel sequence (``"a+b"``): the
+#: evidence that a run went through the stream engine
+STREAMED = LaunchCounter()
 
 
 def job_signature(kernel_names, params, compute_id, global_range, local_range,
@@ -139,11 +167,33 @@ class Cores:
         self.global_ranges: dict[int, list[int]] = {}
         self.histories: dict[int, BalanceHistory] = {}
         self._balance_states: dict[int, BalanceState] = {}
+        self._adaptive_load_balancer = True
+        # the continuous ranges of the fixed-damping (parity) balancer
+        self._cont_ranges: dict[int, list[float]] = {}
         self.perf: dict[int, ComputePerf] = {}
+        # the last 64 reports per compute id
+        self.perf_log: dict[int, deque] = {}
+        self.performance_feed = False
+        self.smooth_load_balancer = True
+        # normalizedComputePowersOfDevices: shares summing to 1, or None
+        self.fixed_compute_powers: list[float] | None = None
         self.repeat_count = 1
         self.repeat_sync_kernel: str | None = None
         self.last_compute_id: int | None = None
         self.enqueue_mode = False
+        # I/O only: a call uploads and downloads and launches nothing
+        self.no_compute_mode = False
+        # streamed partition transfers: stream_chunks 0 lets the tuner
+        # choose, n pins n chunks; stream_queue_depth bounds the chunks
+        # staged ahead of the dispatched one (and the staging ring)
+        self.streamed_transfers = True
+        self.stream_chunks = 0
+        self.stream_queue_depth = 2
+        self.transfer_tuner = TransferTuner()
+        # each lane's chunk count in its last streaming candidate phase
+        self.last_stream_chunks: dict[int, int] = {}
+        # (lane, tuner key) that ran once: the next first contact measures
+        self._tuner_warm: set[tuple] = set()
         # guards the enqueue window state below; taken after a worker lock,
         # never before one
         self._lock = threading.Lock()
@@ -181,6 +231,22 @@ class Cores:
             "windows": 0, "fused_iters": 0, "deferred_iters": 0, "disengaged": {}}
 
     @property
+    def adaptive_load_balancer(self) -> bool:
+        """Adaptive per-lane damping (:class:`BalanceState`), the default;
+        False is the reference's fixed 0.3 damping with a flat history.
+        Toggling clears the balancer state of every compute id."""
+        return self._adaptive_load_balancer
+
+    @adaptive_load_balancer.setter
+    def adaptive_load_balancer(self, v: bool) -> None:
+        v = bool(v)
+        if v != self._adaptive_load_balancer:
+            self._adaptive_load_balancer = v
+            self.histories.clear()
+            self._balance_states.clear()
+            self._cont_ranges.clear()
+
+    @property
     def num_devices(self) -> int:
         return len(self.workers)
 
@@ -200,24 +266,42 @@ class Cores:
         n = self.num_devices
         ranges = self.global_ranges.get(compute_id)
         if ranges is None or sum(ranges) != total or len(ranges) != n:
-            priors = self._skewed_priors()
-            if priors is not None and n > 1:
-                ranges = prior_split(total, step, priors, cid=compute_id)
+            if self.fixed_compute_powers is not None:
+                # user-pinned shares (normalizedComputePowersOfDevices)
+                shares = self.fixed_compute_powers
+                ranges = [max(0, int(total * sh / step + 0.5)) * step for sh in shares]
+                diff = total - sum(ranges)
+                while diff != 0:
+                    i = max(range(n), key=lambda k: shares[k])
+                    ranges[i] += step if diff > 0 else -step
+                    diff = total - sum(ranges)
             else:
-                ranges = equal_split(total, n, step)
-        elif rebalance and n > 1:
+                priors = self._skewed_priors()
+                if priors is not None and n > 1:
+                    ranges = prior_split(total, step, priors, cid=compute_id)
+                else:
+                    ranges = equal_split(total, n, step)
+        elif rebalance and n > 1 and self.fixed_compute_powers is None:
             bench = [w.benchmarks.get(compute_id, 0.0) for w in self.workers]
             if all(b > 0 for b in bench):
-                hist = self.histories.setdefault(compute_id, BalanceHistory(weighted=True))
-                state = self._balance_states.setdefault(compute_id, BalanceState())
+                hist = None
+                if self.smooth_load_balancer:
+                    hist = self.histories.setdefault(
+                        compute_id, BalanceHistory(weighted=self.adaptive_load_balancer))
                 # each lane's share of the enqueue flush's D2H drain floors
-                # its cost; the plain path measures none (its H2D/D2H are
-                # inside the bench)
+                # its cost; on the plain path the phase's transfers are
+                # inside its bench, so the floor never binds there
                 transfer = [w.transfer_benchmarks.get(compute_id, 0.0) for w in self.workers]
-                ranges = load_balance(bench, ranges, total, step, hist, state=state,
-                                      transfer_ms=transfer if any(transfer) else None,
-                                      jump_start=True, cid=compute_id,
-                                      rate_prior=self._skewed_priors())
+                if self.adaptive_load_balancer:
+                    state = self._balance_states.setdefault(compute_id, BalanceState())
+                    ranges = load_balance(bench, ranges, total, step, hist, state=state,
+                                          transfer_ms=transfer if any(transfer) else None,
+                                          jump_start=True, cid=compute_id,
+                                          rate_prior=self._skewed_priors())
+                else:
+                    carry = self._cont_ranges.setdefault(compute_id, [])
+                    ranges = load_balance(bench, ranges, total, step, hist, carry=carry,
+                                          cid=compute_id, rate_prior=self._skewed_priors())
         self.global_ranges[compute_id] = ranges
         refs, acc = [], 0
         for r in ranges:
@@ -239,7 +323,8 @@ class Cores:
             if self._sig_equal(sig, self._fused_sig):
                 run = self._fused_run
                 # the mode toggles are cruncher state, not call identity
-                if not self.fused_dispatch or self.repeat_count > 1 or self.repeat_sync_kernel:
+                if (not self.fused_dispatch or self.no_compute_mode or self.repeat_count > 1
+                        or self.repeat_sync_kernel):
                     with self._lock:
                         self._fused_candidate = None
                     self._fused_break("mode-change")
@@ -278,9 +363,16 @@ class Cores:
         # enqueue mode cannot rebalance on per-call walls (they time the
         # dispatch only): ranges hold still between syncs and move on the
         # first call after a barrier, from its fence times
+        old_ranges = list(self.global_ranges.get(compute_id, ()))
         ranges, refs = self._ranges_for(
             compute_id, global_range, step,
             rebalance=not self.enqueue_mode or compute_id in self._enqueue_rebalance)
+        if old_ranges and (len(old_ranges) != len(ranges)
+                           or any(abs(a - b) > step for a, b in zip(ranges, old_ranges))):
+            # a move of more than one step re-partitioned the bytes: the
+            # transfer tuner's observations describe partitions that no
+            # longer exist (a one-step wiggle stays in its byte bucket)
+            self.transfer_tuner.on_repartition()
         split = (global_offset, tuple(ranges))
         with self._lock:
             self._enqueue_rebalance.discard(compute_id)
@@ -338,32 +430,99 @@ class Cores:
         with w.lock:
             w.start_bench(compute_id)
             try:
+                single = self.num_devices == 1
+                streamed, key_bytes = self._run_streamed(
+                    w, kernel_names, params, compute_id, offset, size, local_range,
+                    global_range, value_args, single, write_all_owner)
+                if streamed:
+                    return
                 if self.enqueue_mode:
                     self._enqueue_phase(w, kernel_names, params, compute_id, offset, size,
                                         local_range, global_range, value_args,
-                                        write_all_owner)
+                                        write_all_owner, key_bytes)
                     return
                 if w.stream is None:
                     w.fence()  # work a host lane queued in enqueue mode runs first
                 with w.on_stream():
-                    self._phase(w, kernel_names, params, offset, size, local_range,
-                                global_range, value_args, write_all_owner)
+                    self._phase(w, kernel_names, params, compute_id, offset, size,
+                                local_range, global_range, value_args, write_all_owner,
+                                key_bytes)
             finally:
                 w.end_bench(compute_id)
 
-    def _phase(self, w: Worker, kernel_names, params, offset, size, local_range,
-               global_range, value_args, write_all_owner) -> None:
+    def _build_launchers(self, w: Worker, kernel_names, chunks, local_range: int,
+                         global_range: int) -> None:
+        """Build the launchers of these chunk sizes before a timed phase, so
+        the tuner's walls hold no launcher build (a new chunk size builds
+        one, once)."""
+        for name in kernel_names:
+            for chunk in set(chunks):
+                self.program.launcher(name, chunk, local_range, global_range,
+                                      platform=w.device.type)
+
+    def _measuring(self, w: Worker, tuner_key, key_bytes) -> tuple[bool, Any]:
+        """``(measuring, tuner_key)`` of a monolithic phase.  The tuner's
+        measuring run is a key's first contact, whose wall is split into
+        honest upload, compute and download times (:meth:`_phase`,
+        :meth:`_enqueue_phase`).  The key's first call on a lane comes
+        before it: it carries
+        one-off costs (the kernel's first launch on the card loads its
+        module, 4-5 ms of a 0.6 ms call) that would land in the tuner's C
+        and make chunks look cheap for good, so that call teaches the
+        tuner nothing (the tuner key comes back None)."""
+        if (tuner_key is None or self.no_compute_mode
+                or self.transfer_tuner.has_obs(w.index, tuner_key, key_bytes)):
+            return False, tuner_key
+        if (w.index, tuner_key) not in self._tuner_warm:
+            self._tuner_warm.add((w.index, tuner_key))
+            return False, None
+        return True, tuner_key
+
+    def _phase(self, w: Worker, kernel_names, params, compute_id, offset, size, local_range,
+               global_range, value_args, write_all_owner, key_bytes) -> None:
+        """The monolithic plain path: upload, launch, download, fence.
+        ``key_bytes`` is :meth:`_run_streamed`'s byte key when the phase
+        was a streaming candidate (then the tuner measures or observes it),
+        else None.  A measuring run splits its wall at marks between its
+        phases (the partial-read uploads, the whole-array uploads, the
+        launches, the downloads): on a GPU lane timing events on the lane's
+        stream, read after the phase's own fence, so it waits no more than
+        any other call; on a host lane, which runs inline, the host clock."""
         single = self.num_devices == 1
-        for p in params:
-            fl = p.flags
-            if fl.read and not fl.write_only:
-                epw = fl.elements_per_work_item
-                w.upload(p, offset * epw, size * epw, single or not fl.partial_read)
+        tuner_key = self._tuner_kernel_key(kernel_names, value_args) if key_bytes else None
+        measuring, tuner_key = self._measuring(w, tuner_key, key_bytes)
+        if measuring:
+            self._build_launchers(w, kernel_names, _ladder(size, local_range), local_range,
+                                  global_range)
+        on_card = measuring and w.stream is not None
+        marks: list = []
+
+        def mark() -> None:
+            if on_card:
+                marks.append(torch.cuda.Event(enable_timing=True))
+                marks[-1].record(w.stream)
             else:
+                marks.append(time.perf_counter())
+
+        mark()
+        # the tuner's U holds only the partial-read uploads (those a
+        # streamed phase chunks); whole-array uploads are serial there too
+        for part in (True, False):
+            for p in params:
+                fl = p.flags
+                if fl.read and not fl.write_only and fl.partial_read == part:
+                    epw = fl.elements_per_work_item
+                    w.upload(p, offset * epw, size * epw, single or not fl.partial_read)
+            mark()
+        for p in params:
+            if not (p.flags.read and not p.flags.write_only):
                 w.ensure_resident(p)
-        w.launch(self.program, kernel_names, params, value_args, offset, size,
-                 local_range, global_range, local_range, repeats=self.repeat_count,
-                 sync_kernel=self.repeat_sync_kernel)
+        if not self.no_compute_mode:
+            w.launch(self.program, kernel_names, params, value_args, offset, size,
+                     local_range, global_range, local_range, repeats=self.repeat_count,
+                     sync_kernel=self.repeat_sync_kernel)
+        mark()
+        downloads = 0
         for idx, p in enumerate(params):
             fl = p.flags
             if not (fl.write and not fl.read_only):
@@ -372,23 +531,43 @@ class Cores:
             if fl.write_all:
                 if w.index == write_all_owner.get(idx):
                     w.download(p, 0, p.size, True)
+                    downloads += 1
             else:
                 covers = offset == 0 and size * epw == p.size
                 full = single and not any(q.flags.partial_read for q in params) and covers
                 w.download(p, offset * epw, size * epw, full)
+                downloads += 1
+        mark()
         # the bench covers the whole phase
         w.fence()
+        end = time.perf_counter()
+        if on_card:
+            at = [0.0] + [marks[0].elapsed_time(m) / 1000.0 for m in marks[1:]]
+        else:
+            # unmeasured, the D2H window holds the launches' device time too
+            at = [m - marks[0] for m in marks[:4]] + [end - marks[0]]
+        self._note_transfer(w, tuner_key, compute_id, key_bytes or 0, at[2],
+                            at[4] - at[3] if downloads else 0.0, at[4], fenced=measuring,
+                            u_tune_s=at[1])
 
     def _enqueue_phase(self, w: Worker, kernel_names, params, compute_id, offset, size,
-                       local_range, global_range, value_args, write_all_owner) -> None:
+                       local_range, global_range, value_args, write_all_owner,
+                       key_bytes=None) -> None:
         """Issue one lane's share of an enqueued call without waiting for it:
         uploads the lane's resident data does not cover, then the launches;
         its readbacks become deferred records for :meth:`flush`.  The buffers
         and the upload coverage are settled here, before the work is queued
         (a host lane runs it later, in order), so the next call, and a fused
-        window's engage check, see what this call uploads."""
+        window's engage check, see what this call uploads.  A measuring run
+        (``key_bytes``, :meth:`_measuring`) is timed where its work runs and
+        waits for nothing."""
         single = self.num_devices == 1
+        # the mode toggles as they are now: a host lane runs the work later
         repeats, sync = self.repeat_count, self.repeat_sync_kernel
+        compute = not self.no_compute_mode
+        tuner_key = self._tuner_kernel_key(kernel_names, value_args) if key_bytes else None
+        self._settle_measures(w)
+        measuring, tuner_key = self._measuring(w, tuner_key, key_bytes)
         uploads = []
         with w.on_stream():
             for p in params:
@@ -402,24 +581,275 @@ class Cores:
                         uploads.append((p, offset * epw, size * epw, full))
                         w.claim_upload(p, offset * epw, size * epw, full)
 
-        def work() -> None:
-            for p, lo, n, full in uploads:
+        def upload(ps) -> None:
+            for p, lo, n, full in ps:
                 w.upload(p, lo, n, full)
-            w.launch(self.program, kernel_names, params, value_args, offset, size,
-                     local_range, global_range, local_range, repeats=repeats,
-                     sync_kernel=sync)
 
-        w.issue(work)
+        def launch() -> None:
+            if compute:
+                w.launch(self.program, kernel_names, params, value_args, offset, size,
+                         local_range, global_range, local_range, repeats=repeats,
+                         sync_kernel=sync)
+
+        if measuring:
+            # timed where the work runs, so no enqueued call waits: a host
+            # lane's thread times its own phases; a GPU lane's stream records
+            # timing events, read once they have completed
+            # (:meth:`_settle_measures`)
+            partial = [u for u in uploads if u[0].flags.partial_read]
+            whole = [u for u in uploads if not u[0].flags.partial_read]
+            key = (tuner_key, key_bytes)
+            if w.stream is None:
+                def timed() -> None:
+                    t = [time.perf_counter()]
+                    for step in (lambda: upload(partial), lambda: upload(whole), launch):
+                        step()
+                        t.append(time.perf_counter())
+                    self._observe_measure(w, key, t[1] - t[0], t[2] - t[0], t[3] - t[2])
+
+                w.issue(timed)
+            else:
+                with w.on_stream():
+                    marks = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+                    marks[0].record()
+                    for k, step in enumerate((lambda: upload(partial), lambda: upload(whole),
+                                              launch)):
+                        step()
+                        marks[k + 1].record()
+                w.pending_measures.append((marks, key))
+        else:
+            t0 = time.perf_counter()
+            w.issue(lambda: (upload(uploads), launch()))
+            t_up = time.perf_counter() - t0 if uploads else 0.0
+            self._note_transfer(w, tuner_key, compute_id, key_bytes or 0, t_up, 0.0, t_up)
+        self._defer_readbacks(w, params, compute_id, offset, size, write_all_owner)
+
+    def _observe_measure(self, w: Worker, key, u_tune_s: float, u_s: float, c_s: float) -> None:
+        """Feed an enqueued measuring run's phase times (seconds; no D2H:
+        enqueue mode defers it) to the tuner as a fenced observation."""
+        tuner_key, nbytes = key
+        u_ms, tune_u_ms = u_s * 1000.0, u_tune_s * 1000.0
+        if tune_u_ms > 0.0:
+            self.transfer_tuner.observe(w.index, tuner_key, nbytes, tune_u_ms,
+                                        c_s * 1000.0 + u_ms - tune_u_ms, 0.0,
+                                        wall_ms=u_ms + c_s * 1000.0, fenced=True)
+
+    def _settle_measures(self, w: Worker) -> None:
+        """Read a GPU lane's enqueued measuring runs whose timing events
+        have completed, in order."""
+        while w.pending_measures and w.pending_measures[0][0][-1].query():
+            marks, key = w.pending_measures.pop(0)
+            ms = [marks[0].elapsed_time(m) / 1000.0 for m in marks[1:]]
+            self._observe_measure(w, key, ms[0], ms[1], ms[2] - ms[1])
+
+    def _defer_readbacks(self, w: Worker, params, compute_id, offset, size,
+                         write_all_owner) -> None:
+        """One deferred readback record per written array of this lane's
+        share (write_all: only the owning lane's)."""
         for idx, p in enumerate(params):
             fl = p.flags
             if not (fl.write and not fl.read_only):
                 continue
-            # write_all: only the owning lane defers a readback
             if not fl.write_all or w.index == write_all_owner.get(idx):
                 with self._lock:
                     self._enqueue_seq += 1
                     self._enqueued.append((self._enqueue_seq, w, p, offset, size,
                                            fl.write_all, compute_id))
+
+    # -- streamed partition transfers (reference: the STREAM engine) -------
+    def _stream_key_bytes(self, w: Worker, params, offset: int, size: int,
+                          single: bool) -> int:
+        """Partition-transfer bytes of one phase, the one formula the
+        tuner's ``choose`` and ``observe`` keys share: uncovered
+        partial-read uploads plus immediate ranged downloads.  Runs before
+        the phase's uploads (they change coverage)."""
+        nbytes = 0
+        for p in params:
+            fl = p.flags
+            epw = fl.elements_per_work_item
+            if fl.read and not fl.write_only and fl.partial_read:
+                if not (self.enqueue_mode and w.upload_covers(
+                        p, 0 if single else offset * epw, p.size if single else size * epw)):
+                    nbytes += epw * size * p.host().dtype.itemsize
+            if (not self.enqueue_mode and fl.write and not fl.read_only
+                    and not fl.write_all):
+                nbytes += epw * size * p.host().dtype.itemsize
+        return nbytes
+
+    @staticmethod
+    def _tuner_kernel_key(kernel_names, value_args) -> tuple:
+        """The tuner's kernel key: the kernel names and the values (a value
+        changes the kernel's time); dict values key on their sorted items,
+        unhashable values on the names alone."""
+        try:
+            if isinstance(value_args, dict):
+                vkey = tuple(sorted(value_args.items()))
+            else:
+                vkey = tuple(value_args) if value_args else ()
+            key = (tuple(kernel_names), vkey)
+            hash(key)
+            return key
+        except TypeError:
+            return (tuple(kernel_names), None)
+
+    def _note_transfer(self, w: Worker, tuner_key, compute_id: int, nbytes: int,
+                       u_s: float, d_s: float, wall_s: float, chunks: int = 1,
+                       fenced: bool = False, u_tune_s: float | None = None) -> None:
+        """Record one phase's transfer times: on the plain path the lane's
+        transfer bench (a part of its wall, so the balancer's floor binds
+        only at the enqueue flush's drain, :meth:`_finish_deferred`), and,
+        for a streaming candidate that moved partition bytes, a tuner
+        observation (a fenced monolithic run teaches U, C and D; an
+        unfenced one only clamps; a chunked one teaches the lane's
+        per-chunk overhead).  ``u_tune_s`` holds the tuner's U to the
+        partial-read uploads."""
+        u_ms, d_ms = u_s * 1000.0, d_s * 1000.0
+        if not self.enqueue_mode:
+            w.transfer_benchmarks[compute_id] = u_ms + d_ms
+        tune_u_ms = u_ms if u_tune_s is None else u_tune_s * 1000.0
+        if tuner_key is not None and nbytes > 0 and (tune_u_ms > 0.0 or d_ms > 0.0):
+            c_ms = max(wall_s * 1000.0 - tune_u_ms - d_ms, 0.0)
+            self.transfer_tuner.observe(w.index, tuner_key, nbytes, tune_u_ms, c_ms, d_ms,
+                                        chunks=chunks, wall_ms=wall_s * 1000.0, fenced=fenced)
+
+    def _run_streamed(self, w: Worker, kernel_names, params, compute_id, offset, size,
+                      local_range, global_range, value_args, single,
+                      write_all_owner) -> tuple[bool, int | None]:
+        """The streamed phase of one lane.  Returns ``(handled, key_bytes)``:
+        not handled means the caller runs the monolithic phase, with
+        ``key_bytes`` the phase's :meth:`_stream_key_bytes` when it was a
+        streaming candidate (the tuner chose one chunk) and None when
+        streaming could not apply.
+
+        The caller's thread stages each chunk's uploads (on a GPU lane: an
+        H2D on the lane's H2D stream) and hands the chunk's commit, launch
+        and D2H issue to the lane's stream driver, at most
+        ``stream_queue_depth`` chunks ahead.  Kernel-major as
+        ``Worker.launch``: uploads interleave with the first kernel's chunk
+        launches and downloads with the last one's; kernels between run
+        over the whole range.  Runs under the lane's lock."""
+        if (not self.streamed_transfers or self.no_compute_mode or self.repeat_count > 1
+                or self.repeat_sync_kernel):
+            return False, None
+        self._settle_measures(w)
+        step = local_range
+        max_chunks = size // step if step > 0 else 0
+        if max_chunks < 2:
+            return False, None
+        up_parts: list[ClArray] = []   # partial-read uploads, chunked
+        up_full: list[ClArray] = []    # whole-array uploads, before any launch
+        for p in params:
+            fl = p.flags
+            if fl.read and not fl.write_only:
+                epw = fl.elements_per_work_item
+                full = single or not fl.partial_read
+                if self.enqueue_mode and w.upload_covers(
+                        p, 0 if full else offset * epw, p.size if full else size * epw):
+                    continue
+                (up_parts if fl.partial_read else up_full).append(p)
+        down_parts: list[ClArray] = []
+        if not self.enqueue_mode:
+            down_parts = [p for p in params if p.flags.write and not p.flags.read_only
+                          and not p.flags.write_all]
+        if not up_parts and not down_parts:
+            return False, None
+        nbytes = self._stream_key_bytes(w, params, offset, size, single)
+        tuner_key = self._tuner_kernel_key(kernel_names, value_args)
+        chunks = self.stream_chunks or self.transfer_tuner.choose(
+            w.index, tuner_key, nbytes, max_chunks)
+        chunks = min(max(int(chunks), 1), max_chunks)
+        self.last_stream_chunks[w.index] = chunks
+        if chunks <= 1:
+            return False, nbytes
+        plan = chunk_plan(size, step, chunks)
+        STREAMED.add("+".join(kernel_names))
+        names = list(kernel_names)
+        last = len(names) - 1
+        chunked = [name for ki, name in enumerate(names)
+                   if (up_parts and ki == 0) or (down_parts and ki == last)]
+        self._build_launchers(w, chunked, [csz for _off, csz in plan], local_range,
+                              global_range)
+        self._build_launchers(w, [n for n in names if n not in chunked], _ladder(size, step),
+                              local_range, global_range)
+        t_phase0 = time.perf_counter()
+        if w.stream is None and not self.enqueue_mode:
+            w.fence()  # work a host lane queued in enqueue mode runs first
+        # in enqueue mode a host lane's whole-range work queues behind its
+        # earlier work; on the plain path it runs here
+        run = w.issue if self.enqueue_mode else (lambda fn: fn())
+        w.stream_depth = depth = max(1, int(self.stream_queue_depth))
+        handles: list = []
+        stage_s = 0.0
+        with w.on_stream():
+            for p in params:
+                w.ensure_resident(p)
+            w.begin_streamed()
+            for p in up_full:
+                run(lambda p=p: w.upload(p, 0, p.size, True))
+            for p in up_parts:
+                w.transfers["h2d", p.name] += 1
+            for p in down_parts:
+                w.transfers["d2h", p.name] += 1
+            try:
+                for ki, name in enumerate(names):
+                    do_up = bool(up_parts) and ki == 0
+                    do_down = bool(down_parts) and ki == last
+                    if not do_up and not do_down:
+                        run(lambda name=name: w.launch(
+                            self.program, [name], params, value_args, offset, size,
+                            local_range, global_range, local_range))
+                        continue
+                    for coff, csz in plan:
+                        boff = offset + coff
+                        staged: list = []
+                        if do_up:
+                            t0 = time.perf_counter()
+                            staged = [w.stage_upload_chunk(
+                                p, boff * p.flags.elements_per_work_item,
+                                csz * p.flags.elements_per_work_item) for p in up_parts]
+                            stage_s += time.perf_counter() - t0
+
+                        def run_chunk(name=name, boff=boff, csz=csz, staged=staged,
+                                      do_down=do_down) -> None:
+                            for st in staged:
+                                w.commit_upload(st)
+                            w.launch(self.program, [name], params, value_args, boff, csz,
+                                     local_range, global_range, local_range)
+                            if do_down:
+                                for p in down_parts:
+                                    epw = p.flags.elements_per_work_item
+                                    handles.append(
+                                        w.download_chunk_async(p, boff * epw, csz * epw))
+
+                        w.stream_dispatch_async(run_chunk, depth)
+                    w.drain_stream_dispatch()
+            except BaseException:
+                # no closure may outlive the lane lock the caller holds; the
+                # first error outranks a drain's
+                try:
+                    w.drain_stream_dispatch()
+                except Exception:  # noqa: BLE001 - the first error wins
+                    pass
+                raise
+            finally:
+                w.end_streamed()
+            if self.enqueue_mode:
+                self._defer_readbacks(w, params, compute_id, offset, size, write_all_owner)
+            else:
+                for idx, p in enumerate(params):
+                    fl = p.flags
+                    if (fl.write and not fl.read_only and fl.write_all
+                            and w.index == write_all_owner.get(idx)):
+                        handles.append(w.download_async(p, 0, p.size, True))
+        t0d = time.perf_counter()
+        for h in handles:
+            Worker.finish_download(h)
+        if not self.enqueue_mode:
+            w.fence()  # the bench covers the whole phase
+        t_down = time.perf_counter() - t0d if handles else 0.0
+        self._note_transfer(w, tuner_key, compute_id, nbytes, stage_s, t_down,
+                            time.perf_counter() - t_phase0, chunks=len(plan))
+        return True, nbytes
 
     def _record_perf(self, compute_id: int, t_start: float, ranges: list[int]) -> None:
         perf = ComputePerf(
@@ -429,7 +859,10 @@ class Cores:
             total_ms=(time.perf_counter() - t_start) * 1000.0,
         )
         self.perf[compute_id] = perf
+        self.perf_log.setdefault(compute_id, deque(maxlen=64)).append(perf)
         self.last_compute_id = compute_id
+        if self.performance_feed:
+            print(perf.report(self.device_names()))
 
     # -- fused windows (reference: the enqueue dispatch-floor collapse) -----
     @staticmethod
@@ -454,7 +887,9 @@ class Cores:
         if not self._sig_equal(sig, candidate):
             return
         reason = None
-        if self.repeat_count > 1 or self.repeat_sync_kernel:
+        if self.no_compute_mode:
+            reason = "no-compute"
+        elif self.repeat_count > 1 or self.repeat_sync_kernel:
             # each call runs its repeats as one dispatch already
             reason = "repeat-mode"
         else:
@@ -511,7 +946,13 @@ class Cores:
             self.fused_stats["deferred_iters"] += 1
         if pending >= max(1, int(self.fused_batch)):
             self._fused_flush()
-        self.last_compute_id = run.compute_id
+        if self.performance_feed:
+            # the feed prints a row per call; otherwise a deferral stays a
+            # counter increment and the window's dispatch records one row
+            self._record_perf(run.compute_id, t_start,
+                              self.global_ranges.get(run.compute_id, []))
+        else:
+            self.last_compute_id = run.compute_id
         return True
 
     def _dispatch_fused(self, run: _FusedRun, iters: int) -> None:
@@ -589,7 +1030,7 @@ class Cores:
         with self._lock:
             run = self._fused_run
             if (run is None or not self._sig_equal(self._fused_sig, sig)
-                    or not self.fused_dispatch or self.repeat_count > 1
+                    or not self.fused_dispatch or self.no_compute_mode or self.repeat_count > 1
                     or self.repeat_sync_kernel or run.compute_id in self._enqueue_rebalance
                     or any(w.coverage_epoch != ep for w, ep in run.epochs)):
                 return False
@@ -657,15 +1098,36 @@ class Cores:
         """Start the D2H of the newest record per (worker, array), in
         chronological order.  Between two flushes an array keeps one split
         (a re-split flushes first), so the lanes' records of one array do
-        not overlap.  ``lock_each`` takes each worker's lock per record
+        not overlap.  With streamed transfers a large record drains in
+        chunks (``stream_chunks``, or the tuner's choice for the
+        ``"flush-d2h"`` key), so one chunk's host copy overlaps the next
+        chunks' D2H; finishing in issue order keeps the host writes in
+        order.  ``lock_each`` takes each worker's lock per record
         (:meth:`flush`; the atomic rebalance flush already holds them
         all).  Returns ``(handle, worker, cid)`` entries."""
         handles = []
         for _, w, p, offset, size, write_all, cid in self._latest_records(pending):
             epw = p.flags.elements_per_work_item
-            lo, n = (0, p.size) if write_all else (offset * epw, size * epw)
             with (w.lock if lock_each else nullcontext()):
-                handles.append((w.download_async(p, lo, n, write_all), w, cid))
+                if write_all:
+                    handles.append((w.download_async(p, 0, p.size, True), w, cid))
+                    continue
+                chunks = 1
+                if self.streamed_transfers and size > 1:
+                    nbytes = size * epw * p.host().dtype.itemsize
+                    chunks = self.stream_chunks or self.transfer_tuner.choose(
+                        w.index, "flush-d2h", nbytes, size, has_compute=False)
+                if chunks <= 1:
+                    handles.append((w.download_async(p, offset * epw, size * epw, False),
+                                    w, cid))
+                    continue
+                w.stream_depth = max(1, int(self.stream_queue_depth))
+                w.transfers["d2h", p.name] += 1  # the record, once; its chunks apart
+                for coff, csz in chunk_plan(size, 1, chunks):
+                    handles.append((w.download_chunk_async(p, (offset + coff) * epw, csz * epw),
+                                    w, cid))
+                # later work on the lane waits for these copies
+                w.end_streamed()
         return handles
 
     def _finish_deferred(self, entries, iters: dict[int, int]) -> None:
@@ -755,6 +1217,8 @@ class Cores:
                     errs.append(e)
             if errs:
                 raise errs[0]
+            for w in self.workers:
+                self._settle_measures(w)
             if measure:
                 for w in self.workers:
                     bench = (done_at[w.index] - t0) * 1000.0
@@ -783,8 +1247,22 @@ class Cores:
     def benchmarks_of(self, compute_id: int) -> list[float]:
         return [w.benchmarks.get(compute_id, 0.0) for w in self.workers]
 
+    def performance_history(self, compute_id: int) -> list[ComputePerf]:
+        """The last 64 reports of ``compute_id``, oldest first."""
+        return list(self.perf_log.get(compute_id, ()))
+
     def ranges_of(self, compute_id: int) -> list[int]:
         return list(self.global_ranges.get(compute_id, []))
+
+    def _lane_config(self) -> dict:
+        """The lanes' configuration as the reference reports it: devices,
+        range tables and the transfer toggles with each lane's last chunk
+        count."""
+        return {"devices": self.device_names(),
+                "ranges": {str(cid): list(r) for cid, r in self.global_ranges.items()},
+                "enqueue_mode": self.enqueue_mode, "fused_dispatch": self.fused_dispatch,
+                "streamed_transfers": self.streamed_transfers,
+                "stream_chunks": dict(self.last_stream_chunks)}
 
     def dispose(self) -> None:
         """Dispose every lane, then raise the first failure a lane's last

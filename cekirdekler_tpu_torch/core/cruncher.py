@@ -1,24 +1,31 @@
-"""NumberCruncher — the user-facing facade over the plain :class:`Cores`.
+"""NumberCruncher — the user-facing facade over :class:`Cores`.
 
 Counterpart of ``cekirdekler_tpu/core/cruncher.py``: construct from an
 :class:`AcceleratorType` flag or an explicit :class:`Devices` selection
 plus a kernel source (C-subset string, ``@kernel`` Python functions, or a
 mix).  ``AcceleratorType.GPU`` selects the CUDA devices and raises
-:class:`DeviceSelectionError` where there is none.  Of the reference's
-runtime toggles ``repeat_count`` and ``enqueue_mode`` (with ``flush`` and
-``barrier``) are ported; the balancer runs as the reference's default
-(adaptive, smoothed).  Enqueue mode runs as the reference's with
-``fused_dispatch=False``: the toggles of tiers that are not ported
-(``fused_dispatch``, ``fused_batch``, ``enqueue_mode_async_enable``,
-``fine_grained_queue_control``) read their value and raise
-:class:`NotPortedError` when set to another.
+:class:`DeviceSelectionError` where there is none.  The reference's
+runtime toggles are ported with its defaults: ``repeat_count``,
+``enqueue_mode`` (with ``flush`` and ``barrier``), the fused tier
+(``fused_dispatch``, ``fused_batch``, ``fused_stats``), streamed transfers
+(``streamed_transfers`` True, ``stream_chunks`` 0 = the tuner's choice,
+``stream_queue_depth`` 2, ``transfer_tuner``), the balancer
+(``normalized_compute_powers_of_devices`` None, ``adaptive_load_balancer``
+True, ``smooth_load_balancer`` True), ``no_compute_mode`` False,
+``performance_feed`` False with ``performance_history`` and
+``last_compute_performance_report``, and ``enqueue_mode_async_enable``
+(stored; a lane's enqueued work is always asynchronous).  Not ported:
+``fine_grained_queue_control`` (queue markers, ROADMAP Queue A 4), which
+reads False and raises :class:`NotPortedError` when set True,
+``dispatch_gate``, ``fence_split``, ``pipeline_lookahead`` and the debug
+endpoints.
 """
 
 from __future__ import annotations
 
 from typing import Sequence
 
-from ..errors import NotPortedError
+from ..errors import CekirdeklerError, NotPortedError
 from ..hardware import AcceleratorType, Devices, devices_for_type
 from ..kernel.registry import KernelProgram, PythonKernel
 from .cores import Cores
@@ -130,6 +137,111 @@ class NumberCruncher:
         """Fused windows dispatched, iterations fused and deferred, and the
         disengages by reason."""
         return self.cores.fused_stats
+
+    @property
+    def streamed_transfers(self) -> bool:
+        """Streamed partition transfers (default True): a lane's uploads and
+        downloads move in chunks that overlap other chunks' kernels (copy
+        streams on a GPU lane), chunk counts chosen by
+        :attr:`transfer_tuner` unless :attr:`stream_chunks` pins them;
+        results are the monolithic path's bit for bit."""
+        return self.cores.streamed_transfers
+
+    @streamed_transfers.setter
+    def streamed_transfers(self, v: bool) -> None:
+        self.cores.streamed_transfers = bool(v)
+
+    @property
+    def stream_chunks(self) -> int:
+        """Pinned chunk count of streamed transfers (0 = the tuner's
+        choice, 1 = monolithic)."""
+        return self.cores.stream_chunks
+
+    @stream_chunks.setter
+    def stream_chunks(self, v: int) -> None:
+        self.cores.stream_chunks = max(0, int(v))
+
+    @property
+    def stream_queue_depth(self) -> int:
+        """Chunks staged ahead of the dispatched one (default 2), and the
+        page-locked staging slots of a pageable array."""
+        return self.cores.stream_queue_depth
+
+    @stream_queue_depth.setter
+    def stream_queue_depth(self, v: int) -> None:
+        self.cores.stream_queue_depth = max(1, int(v))
+
+    @property
+    def transfer_tuner(self):
+        """The chunk-count tuner (``core/stream.TransferTuner``): seed it
+        with ``seed_link`` or let the lanes' runs teach it."""
+        return self.cores.transfer_tuner
+
+    @property
+    def no_compute_mode(self) -> bool:
+        """I/O only (reference noComputeMode): a call uploads and reads
+        back as usual and launches no kernel."""
+        return self.cores.no_compute_mode
+
+    @no_compute_mode.setter
+    def no_compute_mode(self, v: bool) -> None:
+        self.cores.no_compute_mode = bool(v)
+
+    @property
+    def performance_feed(self) -> bool:
+        """Print each call's performance report (default False)."""
+        return self.cores.performance_feed
+
+    @performance_feed.setter
+    def performance_feed(self, v: bool) -> None:
+        self.cores.performance_feed = bool(v)
+
+    @property
+    def last_compute_performance_report(self) -> str:
+        """The last call's per-lane report (reference
+        lastComputePerformanceReport)."""
+        return self.cores.performance_report()
+
+    def performance_history(self, compute_id: int):
+        """The last 64 :class:`ComputePerf` reports of ``compute_id``."""
+        return self.cores.performance_history(compute_id)
+
+    @property
+    def smooth_load_balancer(self) -> bool:
+        """Smooth the balancer's shares over its history (default True)."""
+        return self.cores.smooth_load_balancer
+
+    @smooth_load_balancer.setter
+    def smooth_load_balancer(self, v: bool) -> None:
+        self.cores.smooth_load_balancer = bool(v)
+
+    @property
+    def adaptive_load_balancer(self) -> bool:
+        """Adaptive per-lane damping (default True); False is the
+        reference's fixed 0.3 damping.  Toggling clears the balancer's
+        state."""
+        return self.cores.adaptive_load_balancer
+
+    @adaptive_load_balancer.setter
+    def adaptive_load_balancer(self, v: bool) -> None:
+        self.cores.adaptive_load_balancer = bool(v)
+
+    @property
+    def normalized_compute_powers_of_devices(self) -> list[float] | None:
+        """Fixed shares per lane (normalized to sum 1), or None: the split
+        is then the balancer's."""
+        return self.cores.fixed_compute_powers
+
+    @normalized_compute_powers_of_devices.setter
+    def normalized_compute_powers_of_devices(self, powers: Sequence[float] | None) -> None:
+        if powers is None:
+            self.cores.fixed_compute_powers = None
+            return
+        powers = [float(p) for p in powers]
+        if len(powers) != self.num_devices:
+            raise CekirdeklerError(f"need {self.num_devices} compute powers, got {len(powers)}")
+        s = sum(powers)
+        self.cores.fixed_compute_powers = [p / s for p in powers]
 
     @property
     def enqueue_mode_async_enable(self) -> bool:

@@ -26,6 +26,22 @@ lane queued before.  :meth:`launch_fused` runs a window's iterations and
 ``KernelProgram.fused_launcher``: on a GPU lane through its CUDA graphs
 (``kernel/graphs.py``), on a host lane as a host loop.
 
+Streamed partition transfers (``Cores._run_streamed``) add the chunk
+primitives: :meth:`stage_upload_chunk` / :meth:`commit_upload` and
+:meth:`download_chunk_async`, dispatched chunk by chunk through
+:meth:`stream_dispatch_async` (a host lane's stream driver, drained by
+:meth:`drain_stream_dispatch`; a GPU lane issues them on the caller's
+thread).  A GPU lane copies on two copy streams beside its compute
+stream, one each way, ordered by CUDA events: a chunk's kernels wait for
+its H2D, its D2H waits for its last kernel.  An array whose host memory
+is page-locked (a ``fast`` array) is copied directly; a pageable one goes
+through a ring of page-locked staging slots, each reused only after the
+copy that last used it has completed, and a D2H reaches the host array
+at :meth:`finish_download`.  A host lane runs the chunks in order on its
+queue.  Every device buffer a copy stream touches is recorded on that
+stream (``record_stream``).  ``transfers`` counts an array's range once
+per transfer, chunked or not; ``chunk_transfers`` counts the chunk copies.
+
 The ladder (``step * 2^k`` chunks) stays for parity with the reference's
 chunking: every launch geometry the balancer can produce is one of
 O(log(range/step)) cached launch functions.
@@ -70,6 +86,64 @@ def _host_tensor(arr: ClArray) -> torch.Tensor:
     return torch.from_numpy(arr.host())
 
 
+def _pinned(arr: ClArray) -> bool:
+    """True when the array's host storage is page-locked (a ``fast`` array
+    on a CUDA host): a copy from or to it needs no staging."""
+    fast = getattr(arr, "_fast", None)
+    return bool(fast is not None and getattr(fast, "pinned", False))
+
+
+class _Slot:
+    """One page-locked staging buffer of a lane's ring, with the event of
+    the last copy that used it and, for a D2H, the handle whose host copy
+    is still owed."""
+
+    def __init__(self):
+        self.buf: torch.Tensor | None = None
+        self.event = None
+        self.pending: "_Download | None" = None
+
+    def view(self, nbytes: int) -> torch.Tensor:
+        if self.buf is None or self.buf.numel() < nbytes:
+            self.buf = torch.empty(max(nbytes, 1 << 16), dtype=torch.uint8, pin_memory=True)
+        return self.buf[:nbytes]
+
+
+class _Download:
+    """A D2H in flight on a GPU lane: its completion event and, when it
+    went through a staging slot, the host copy :meth:`Worker.finish_download`
+    still owes."""
+
+    def __init__(self, event, slot: _Slot | None = None, src: torch.Tensor | None = None,
+                 dst: torch.Tensor | None = None):
+        self.event = event
+        self.slot = slot
+        self.src = src
+        self.dst = dst
+        self.done = False
+
+    def finish(self) -> None:
+        if self.done:
+            return
+        self.event.synchronize()
+        if self.slot is not None:
+            self.dst.copy_(self.src)
+            if self.slot.pending is self:
+                self.slot.pending = None
+        self.done = True
+
+
+class _Ring:
+    """A lane's page-locked staging slots for one direction, used in turn."""
+
+    def __init__(self):
+        self.slots: list[_Slot] = []
+        self.turn = 0
+
+
+_lane_thread = threading.local()
+
+
 class _HostQueue:
     """A host lane's stream: work submitted here runs in order on one
     thread; :meth:`synchronize` waits for all of it and raises the first
@@ -81,10 +155,18 @@ class _HostQueue:
         self._mu = threading.Lock()
 
     def submit(self, fn: Callable[[], Any]) -> Future:
+        def run() -> Any:
+            _lane_thread.queue = self
+            return fn()
+
         with self._mu:
-            fut = self._pool.submit(fn)
+            fut = self._pool.submit(run)
             self._pending.append(fut)
         return fut
+
+    def on_thread(self) -> bool:
+        """True on this queue's own thread (inside work it runs)."""
+        return getattr(_lane_thread, "queue", None) is self
 
     def synchronize(self) -> None:
         with self._mu:
@@ -192,8 +274,16 @@ class Worker:
         # serializes whole lane phases of concurrent host threads
         self.lock = threading.RLock()
         self.stream = torch.cuda.Stream(device) if device.type == "cuda" else None
+        # the copy streams of streamed transfers, one each way (GPU lane)
+        self.h2d_stream = torch.cuda.Stream(device) if self.stream is not None else None
+        self.d2h_stream = torch.cuda.Stream(device) if self.stream is not None else None
         self._host_queue: _HostQueue | None = None
         self._driver: _DriverQueue | None = None
+        self._stream_driver: _DriverQueue | None = None
+        # page-locked staging rings for pageable arrays, one each way
+        self._up_ring = _Ring()
+        self._down_ring = _Ring()
+        self._slot_mu = threading.Lock()
         self.graphs = LaneGraphs(device) if self.stream is not None else None
         self._buffers: dict[int, torch.Tensor] = {}
         self._buffer_owner: dict[int, ClArray] = {}  # strong refs, like the reference
@@ -207,8 +297,14 @@ class Worker:
         # per-compute-id share of the enqueue flush's D2H drain, per
         # iteration (ms): the balancer's transfer floor
         self.transfer_benchmarks: dict[int, float] = {}
-        # transfers issued, keyed ("h2d" | "d2h", array name)
+        # transfers issued, keyed ("h2d" | "d2h", array name): a range counts
+        # once whether it moved whole or in chunks
         self.transfers: Counter = Counter()
+        # the chunk copies of streamed transfers, keyed the same way
+        self.chunk_transfers: Counter = Counter()
+        # enqueued measuring runs of the transfer tuner on this GPU lane:
+        # (timing events, key), read by Cores once the events complete
+        self.pending_measures: list = []
 
     def on_stream(self):
         """Context that makes this lane's stream current (no-op on host)."""
@@ -261,6 +357,75 @@ class Worker:
         first failure."""
         if self._driver is not None:
             self._driver.drain()
+
+    # -- stream driver (streamed transfers) ----------------------------------
+    def stream_preflight(self) -> None:
+        """Raise a failure of an earlier streamed-transfer closure without
+        queuing anything (and without starting the driver)."""
+        if self._stream_driver is not None:
+            self._stream_driver.preflight()
+
+    def stream_dispatch_async(self, fn: Callable[[], None], depth: int = 2) -> None:
+        """Queue a streamed-transfer closure (commit + launch + D2H issue).
+        A host lane queues it on its stream driver (a ``_DriverQueue`` on
+        the lane's queue, after the work queued there before); ``depth``
+        bounds how many chunks the caller may stage ahead of the dispatched
+        one.  It is not the fused driver: these closures run while the
+        submitter holds the lane's lock, so they never take it, and a fused
+        closure queued ahead of them would deadlock the drain.  A GPU lane
+        runs the closure here, with its compute stream current: what it
+        issues is asynchronous on the lane's streams already, and a driver
+        thread only adds a hand-off between two Python threads to every
+        chunk (``tools/stream_chunks.py`` times both)."""
+        if self.stream is not None:
+            with self.on_stream():
+                fn()
+            return
+        if self._stream_driver is None:
+            self._stream_driver = _DriverQueue(f"ck-stream-lane-{self.index}", self._queue())
+        self._stream_driver.submit(fn, depth)
+
+    def drain_stream_dispatch(self) -> None:
+        """Wait until every streamed-transfer closure has run (host side;
+        the device's completion is the fence's), raising the first
+        failure."""
+        if self._stream_driver is not None:
+            self._stream_driver.drain()
+
+    def begin_streamed(self) -> None:
+        """Order the copy streams after the work already on the compute
+        stream (a chunk's H2D must not overwrite a buffer an earlier kernel
+        still reads)."""
+        if self.stream is not None:
+            self.h2d_stream.wait_stream(self.stream)
+            self.d2h_stream.wait_stream(self.stream)
+
+    def end_streamed(self) -> None:
+        """Order the compute stream after every copy issued on the copy
+        streams, so work queued on the lane later runs after them."""
+        if self.stream is not None:
+            self.stream.wait_stream(self.h2d_stream)
+            self.stream.wait_stream(self.d2h_stream)
+
+    #: staging slots a ring holds (``Cores`` sets its ``stream_queue_depth``)
+    stream_depth = 2
+
+    def _slot(self, ring: _Ring) -> _Slot:
+        """The next slot of a staging ring (grown to ``stream_depth``
+        slots), free for a new copy: the copy that last used it has
+        completed, and a D2H's host copy has been made."""
+        with self._slot_mu:
+            k, ring.turn = ring.turn, ring.turn + 1
+            if len(ring.slots) < max(1, self.stream_depth):
+                ring.slots.append(_Slot())
+                slot = ring.slots[-1]
+            else:
+                slot = ring.slots[k % len(ring.slots)]
+        if slot.pending is not None:
+            slot.pending.finish()
+        if slot.event is not None:
+            slot.event.synchronize()
+        return slot
 
     # -- benchmarks ----------------------------------------------------------
     def start_bench(self, compute_id: int) -> None:
@@ -331,6 +496,97 @@ class Worker:
             buf[sl].copy_(host[sl], non_blocking=True)
         self.claim_upload(arr, offset_elems, size_elems, full)
         self.transfers["h2d", arr.name] += 1
+
+    def invalidate(self, arr: ClArray) -> None:
+        """Drop the lane's buffer and coverage of ``arr``: the next call
+        uploads it whole again."""
+        self._buffers.pop(id(arr), None)
+        self._buffer_owner.pop(id(arr), None)
+        self._uploaded.pop(id(arr), None)
+
+    def stage_upload_chunk(self, arr: ClArray, offset_elems: int, size_elems: int):
+        """Start the H2D of one chunk of a streamed partition upload on the
+        caller's thread, before its kernels are dispatched; returns the
+        handle :meth:`commit_upload` takes.  A GPU lane copies on its H2D
+        stream into the lane's buffer (from the host array when it is
+        page-locked, else through a staging slot) and records an event; a
+        host lane copies the slice aside, to be written in order."""
+        sl = slice(offset_elems, offset_elems + size_elems)
+        host = _host_tensor(arr)[sl]
+        self.chunk_transfers["h2d", arr.name] += 1
+        buf = self._buffers[id(arr)]
+        if self.stream is None:
+            return (arr, offset_elems, size_elems, host.clone(), buf)
+        src = host
+        slot = None
+        if not _pinned(arr):
+            slot = self._slot(self._up_ring)
+            src = slot.view(host.numel() * host.element_size()).view(host.dtype)
+            src.copy_(host)
+        with torch.cuda.stream(self.h2d_stream):
+            buf[sl].copy_(src, non_blocking=True)
+            done = torch.cuda.Event()
+            done.record(self.h2d_stream)
+        buf.record_stream(self.h2d_stream)
+        if slot is not None:
+            slot.event = done
+        return (arr, offset_elems, size_elems, done, buf)
+
+    def commit_upload(self, staged) -> None:
+        """Make a staged chunk visible to the lane's next kernels: a GPU
+        lane's compute stream waits for the chunk's H2D event; a host lane
+        writes the slice.  Runs in the lane's order (the stream driver)."""
+        arr, off, n, data, target = staged
+        sl = slice(off, off + n)
+        buf = self._buffers[id(arr)]
+        if self.stream is None:
+            buf[sl].copy_(data)
+        else:
+            self.stream.wait_event(data)
+            if buf is not target:
+                # a kernel gave the array a new buffer since the chunk was staged
+                buf[sl].copy_(target[sl])
+        self._record_upload(arr, off, n)
+
+    def download_chunk_async(self, arr: ClArray, offset_elems: int, size_elems: int):
+        """One chunk of a streamed partition download (or of the flush's
+        chunked drain), ordered after the lane's work issued so far; a
+        handle for :meth:`finish_download`.  A GPU lane copies on its D2H
+        stream after an event on the compute stream, into the host array
+        when it is page-locked, else into a staging slot whose host copy
+        :meth:`finish_download` makes.  A host lane copies in the lane's
+        order."""
+        sl = slice(offset_elems, offset_elems + size_elems)
+        self.chunk_transfers["d2h", arr.name] += 1
+        if self.stream is None:
+            if self._host_queue is not None and not self._host_queue.on_thread():
+                return self._host_queue.submit(lambda: self._copy_down(arr, sl))
+            self._copy_down(arr, sl)
+            return None
+        buf = self._buffers[id(arr)]
+        host = _host_tensor(arr)[sl]
+        ready = torch.cuda.Event()
+        ready.record(self.stream)
+        slot = None if _pinned(arr) else self._slot(self._down_ring)
+        self.d2h_stream.wait_event(ready)
+        with torch.cuda.stream(self.d2h_stream):
+            if slot is None:
+                dst = host
+            else:
+                dst = slot.view(host.numel() * host.element_size()).view(host.dtype)
+            dst.copy_(buf[sl], non_blocking=True)
+            done = torch.cuda.Event()
+            done.record(self.d2h_stream)
+        buf.record_stream(self.d2h_stream)
+        if slot is None:
+            return _Download(done)
+        handle = _Download(done, slot, dst, host)
+        slot.event = done
+        slot.pending = handle
+        return handle
+
+    def _copy_down(self, arr: ClArray, sl: slice) -> None:
+        _host_tensor(arr)[sl].copy_(self._buffers[id(arr)][sl])
 
     # -- launch --------------------------------------------------------------
     def _ladder_call(self, program: KernelProgram, kernel_names: tuple, launcher: Callable,
@@ -431,9 +687,12 @@ class Worker:
 
     @staticmethod
     def finish_download(handle) -> None:
-        """Block until a :meth:`download_async` has landed in host memory."""
+        """Block until a :meth:`download_async` or
+        :meth:`download_chunk_async` has landed in host memory."""
         if isinstance(handle, Future):
             handle.result()
+        elif isinstance(handle, _Download):
+            handle.finish()
         elif handle is not None:
             handle.synchronize()
 
@@ -443,6 +702,8 @@ class Worker:
         of queued work."""
         if self.stream is not None:
             self.stream.synchronize()
+            self.h2d_stream.synchronize()
+            self.d2h_stream.synchronize()
         elif self._host_queue is not None:
             self._host_queue.synchronize()
 
@@ -450,12 +711,19 @@ class Worker:
         try:
             try:
                 self.drain_dispatch()
+                self.drain_stream_dispatch()
             finally:
                 self.fence()
         finally:
-            if self._driver is not None:
-                self._driver.close()
-                self._driver = None
+            for q in (self._driver, self._stream_driver):
+                if q is not None:
+                    q.close()
+            self._driver = self._stream_driver = None
+            for slot in self._down_ring.slots:
+                if slot.pending is not None:
+                    slot.pending.finish()
+            self._up_ring = _Ring()
+            self._down_ring = _Ring()
             if self.graphs is not None:
                 self.graphs.clear()
             if self._host_queue is not None:

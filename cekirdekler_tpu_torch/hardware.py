@@ -13,10 +13,21 @@ carrying on quietly on the CPU.
 the reference: kinds are the names ``torch.cuda.get_device_name()``
 reports.  An unknown CUDA kind falls back to the H100 row, named as the
 fallback in the resolved kind.
+
+The reference's selectors are kept under their names (``accelerators``,
+``with_dedicated_memory``, ``with_host_memory_sharing``,
+``with_most_compute_units``, ``with_highest_memory_available``,
+``with_highest_nbody_performance``, ``Platforms.with_most_devices``), as
+are its partitions (``Device.as_partitions``: scheduler lanes of one
+device, each with its own ``Worker``, buffers and CUDA stream).  Its
+TPU-only names map to the GPU names: ``Devices.tpus`` / ``gpus`` (both
+kept), ``Device.is_tpu`` -> ``Device.is_gpu``, ``Platform.num_tpus`` ->
+``Platform.num_gpus``.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import enum
 from dataclasses import dataclass
 from typing import Iterable, Iterator, Sequence
@@ -120,11 +131,15 @@ class AcceleratorType(enum.IntFlag):
 
 @dataclass(frozen=True)
 class Device:
-    """One lane: a CUDA device, or one virtual host-CPU lane."""
+    """One lane: a CUDA device, or one virtual host-CPU lane.  A partition
+    (``partition_cores`` > 0) is one of several lanes on the same device;
+    its ``partition_id`` is part of its identity."""
 
     torch_device: torch.device
     kind: str
     lane_id: int = 0  # distinguishes virtual CPU lanes
+    partition_cores: int = 0  # > 0: a lane among partitions of one device
+    partition_id: int = 0
 
     @property
     def platform(self) -> str:
@@ -140,9 +155,10 @@ class Device:
 
     @property
     def name(self) -> str:
-        if self.is_gpu:
-            return f"{self.kind} #{self.torch_device.index}"
-        return f"cpu #{self.lane_id}"
+        base = f"{self.kind} #{self.torch_device.index}" if self.is_gpu else f"cpu #{self.lane_id}"
+        if self.partition_cores:
+            return f"{base}/p{self.partition_id}"
+        return base
 
     @property
     def vendor(self) -> str:
@@ -154,6 +170,8 @@ class Device:
 
     @property
     def compute_units(self) -> int:
+        if self.partition_cores:
+            return self.partition_cores
         if self.is_gpu:
             return torch.cuda.get_device_properties(self.torch_device).multi_processor_count
         return 1
@@ -163,6 +181,32 @@ class Device:
         if self.is_gpu:
             return int(torch.cuda.get_device_properties(self.torch_device).total_memory)
         return 0
+
+    @property
+    def memory_available_bytes(self) -> int:
+        """Free device memory (``torch.cuda.mem_get_info``); 0 on a host
+        lane, as the reference reads a device without memory stats."""
+        if self.is_gpu:
+            return int(torch.cuda.mem_get_info(self.torch_device)[0])
+        return 0
+
+    def copy(self) -> "Device":
+        return dataclasses.replace(self)
+
+    def as_partitions(self, num: int) -> "Devices":
+        """``num`` scheduler lanes on this device (reference
+        ``createDeviceAsPartition``): the balancer splits a range across
+        them, and each runs on its own ``Worker`` with its own buffers and
+        CUDA stream."""
+        if num <= 0:
+            raise ValueError("partition count must be positive")
+        cores = max(1, self.compute_units // num)
+        return Devices(dataclasses.replace(self, partition_cores=cores, partition_id=i)
+                       for i in range(num))
+
+    @property
+    def is_partition(self) -> bool:
+        return self.partition_cores > 0
 
     def log_info(self) -> str:
         mem = self.memory_bytes
@@ -209,8 +253,10 @@ class Devices(Sequence[Device]):
     def __add__(self, other: "Devices") -> "Devices":
         out: list[Device] = []
         for d in list(self._devices) + list(other._devices):
-            if d.is_cpu and any(o.is_cpu and o.lane_id == d.lane_id for o in out):
-                # a second CPU selection adds lanes, numbered after ours
+            if (d.is_cpu and not d.is_partition
+                    and any(o.is_cpu and o.lane_id == d.lane_id for o in out)):
+                # a second CPU selection adds lanes, numbered after ours;
+                # partitions are distinct lanes already and keep their ids
                 d = Device(d.torch_device, d.kind,
                            1 + max(o.lane_id for o in out if o.is_cpu))
             if d not in out:
@@ -220,8 +266,11 @@ class Devices(Sequence[Device]):
     def __repr__(self) -> str:  # pragma: no cover - cosmetic
         return f"Devices([{', '.join(d.name for d in self._devices)}])"
 
+    def _filtered(self, pred) -> "Devices":
+        return Devices(d for d in self._devices if pred(d))
+
     def gpus(self) -> "Devices":
-        return Devices(d for d in self._devices if d.is_gpu)
+        return self._filtered(lambda d: d.is_gpu)
 
     accelerators = gpus
     tpus = gpus
@@ -232,6 +281,37 @@ class Devices(Sequence[Device]):
         if n is not None:
             return cpus(n)
         return Devices(d for d in self._devices if d.is_cpu)
+
+    def with_dedicated_memory(self) -> "Devices":
+        """reference: devicesWithDedicatedMemory"""
+        return self._filtered(lambda d: d.dedicated_memory)
+
+    def with_host_memory_sharing(self) -> "Devices":
+        """reference: devicesWithHostMemorySharing"""
+        return self._filtered(lambda d: not d.dedicated_memory)
+
+    def with_most_compute_units(self) -> "Devices":
+        """reference: devicesWithMostComputeUnits"""
+        if not self._devices:
+            return Devices()
+        best = max(d.compute_units for d in self._devices)
+        return self._filtered(lambda d: d.compute_units == best)
+
+    def with_highest_memory_available(self) -> "Devices":
+        """Every device, most free memory first (reference:
+        devicesWithHighestMemoryAvailable)."""
+        return Devices(sorted(self._devices, key=lambda d: d.memory_available_bytes,
+                              reverse=True))
+
+    def with_highest_nbody_performance(self, n: int = 2048, iters: int = 3) -> "Devices":
+        """Every device, fastest first by ``ops.nbody.microbenchmark``
+        (reference: devicesWithHighestDirectNbodyPerformance)."""
+        from .ops import nbody  # local import, as the reference's
+
+        timed = [(nbody.microbenchmark(d.torch_device, n=n, iters=iters), i, d)
+                 for i, d in enumerate(self._devices)]
+        timed.sort(key=lambda t: (t[0], t[1]))
+        return Devices(d for _, _, d in timed)
 
     def subset(self, count: int) -> "Devices":
         return self[:count]
@@ -267,6 +347,12 @@ class Platform:
     def num_gpus(self) -> int:
         return len(self.devices().gpus())
 
+    def num_cpus(self) -> int:
+        return len(self.devices().cpus())
+
+    def num_accelerators(self) -> int:
+        return self.num_gpus()
+
     def log_info(self) -> str:
         return f"Platform: {self.name} (vendor={self.vendor}, devices={len(self._devices)})"
 
@@ -299,8 +385,20 @@ class Platforms(Sequence[Platform]):
             out = out + p.devices()
         return out
 
+    def with_most_devices(self) -> "Platforms":
+        """reference: platformsWithMostDevices"""
+        if not self._items:
+            return Platforms([])
+        best = max(len(p._devices) for p in self._items)
+        return Platforms([p for p in self._items if len(p._devices) == best])
+
     def gpus(self) -> Devices:
         return self.devices().gpus()
+
+    accelerators = gpus
+
+    def cpus(self) -> Devices:
+        return self.devices().cpus()
 
     def log_info(self) -> str:
         text = "\n".join(p.log_info() for p in self._items) or "(no CUDA platform)"

@@ -7,17 +7,20 @@ the kernel-language version (``workloads.NBODY_SRC``, which the emitter
 runs on its loop form).  It is several PyTorch calls, not a kernel: the
 reference's version is one XLA program for the TPU, and on the card the
 emitted kernel is the fast path.  ``chip_smoke.py`` times it beside the
-emitted kernel.  The reference's ``microbenchmark`` (device ranking) is not
-ported here: it waits for the port's device selection.
+emitted kernel.  :func:`microbenchmark` times one step of it on one
+device, the ranking behind ``Devices.with_highest_nbody_performance``.
 """
 
 from __future__ import annotations
 
+import time
+
+import numpy as np
 import torch
 
 from ..kernel.registry import kernel
 
-__all__ = ["SOFTENING", "nbody_accels", "nbody_kernel"]
+__all__ = ["SOFTENING", "nbody_accels", "nbody_kernel", "microbenchmark"]
 
 SOFTENING = 1e-4  # workloads.NBODY_SRC's +0.0001f
 
@@ -50,3 +53,26 @@ def nbody_kernel():
         return x, y, z, vx, vy, vz
 
     return nBody
+
+
+def microbenchmark(device, n: int = 2048, iters: int = 3) -> float:
+    """Seconds per full n-body step (:func:`nbody_accels` of every body on
+    every body) on ``device``, lower is faster: the reference's ranking
+    metric (``Tester.nBody`` per device).  Positions are seeded; on a CUDA
+    device every clock read follows ``torch.cuda.synchronize(device)``."""
+    dev = torch.device(device)
+    rng = np.random.default_rng(0)
+    pos = [torch.from_numpy(rng.standard_normal(n).astype(np.float32)).to(dev)
+           for _ in range(3)]
+
+    def fence() -> None:
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+
+    nbody_accels(*pos, *pos)  # warm
+    fence()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        nbody_accels(*pos, *pos)
+    fence()
+    return (time.perf_counter() - t0) / max(iters, 1)

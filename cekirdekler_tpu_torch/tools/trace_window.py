@@ -62,6 +62,30 @@ def kernel_records(prof) -> list[tuple[str, float]]:
             and LEAD_KERNEL not in e.name]
 
 
+def intervals(prof) -> list[tuple[str, float, float]]:
+    """(name, start µs, end µs) of each device record of ``prof`` (kernels
+    and copies) but the lead kernels', in the trace's own clock."""
+    import torch
+
+    out = []
+    for e in prof.events():
+        if getattr(e, "device_type", None) == torch.autograd.DeviceType.CPU:
+            continue
+        if LEAD_KERNEL in e.name:
+            continue
+        out.append((e.name, float(e.time_range.start), float(e.time_range.end)))
+    return out
+
+
+def overlapping(prof, first: str, second: str) -> list[tuple[str, str]]:
+    """Pairs of device records of ``prof``, one whose name holds ``first``
+    and one whose name holds ``second``, that ran at the same time."""
+    recs = intervals(prof)
+    a = [r for r in recs if first in r[0]]
+    b = [r for r in recs if second in r[0]]
+    return [(x[0], y[0]) for x in a for y in b if x[1] < y[2] and y[1] < x[2]]
+
+
 def by_name(prof) -> list[tuple[str, float, int]]:
     """(name, device ms, records) of each activity in ``prof`` but the lead
     kernels, the longest first."""

@@ -16,11 +16,17 @@ is the counterpart of ``__graft_entry__.entry()``'s forward step,
 (``tests/test_parallel.py``, T = 16384 over sp = 8).  :func:`measure_rtt`
 and :func:`dispatch_floor_sweep` measure what a call costs the host, the
 fused-iteration dispatch's reason to be (``tools/dispatch_floor.py``).
+:func:`nbody_e2e` is the reference's n-body loop end to end (n = 8192, 150
+balanced iterations in enqueue windows).  :func:`measure_stream_overlap`,
+:func:`overlap_chunk_sweep` and :func:`duplex_ceiling` measure the streamed
+transfers: the overlap they realize against the link's own duplex ceiling,
+and the tuner's chunk count against a sweep (``tools/overlap_sweep.py``).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
 import time
 from dataclasses import dataclass, field
 
@@ -28,6 +34,7 @@ import numpy as np
 
 from .arrays.clarray import ClArray
 from .core.cruncher import NumberCruncher
+from .errors import NotPortedError
 from .hardware import Devices, all_devices
 from .kernel.registry import kernel
 
@@ -50,6 +57,11 @@ __all__ = [
     "REQUEST_BATCHES",
     "measure_rtt",
     "dispatch_floor_sweep",
+    "STREAM_HEAVY_SRC",
+    "nbody_e2e",
+    "measure_stream_overlap",
+    "overlap_chunk_sweep",
+    "duplex_ceiling",
 ]
 
 # One pixel per work item; escape-iteration count written as float.
@@ -111,6 +123,21 @@ __kernel void streamAdd(__global float* a, __global float* b, __global float* c)
 """
 
 
+# Streaming with a per-element loop: compute commensurate with transfer
+# (the overlap measurements' heavy kernel).
+STREAM_HEAVY_SRC = """
+__kernel void streamHeavy(__global float* a, __global float* b, __global float* c,
+                          int iters) {
+    int i = get_global_id(0);
+    float acc = a[i];
+    for (int k = 0; k < iters; k++) {
+        acc = acc + b[i] * 0.25f;
+    }
+    c[i] = acc;
+}
+"""
+
+
 def mandelbrot_cuda_kernel():
     """The mandelbrot workload as the hand-written CUDA kernel
     (``ops/mandelbrot.py``) behind a :class:`PythonKernel` of the same
@@ -145,41 +172,69 @@ def saxpy_kernel():
     return saxpy_k
 
 
+def _host_parts(n: int, fn) -> None:
+    """Run ``fn(lo, hi)`` over ``n`` items in contiguous parts on host
+    threads (numpy leaves the interpreter lock in its array loops)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    parts = max(1, min(8, os.cpu_count() or 1, n // 4096))
+    bounds = [n * k // parts for k in range(parts + 1)]
+    with ThreadPoolExecutor(max_workers=parts) as pool:
+        for f in [pool.submit(fn, lo, hi) for lo, hi in zip(bounds, bounds[1:])]:
+            f.result()
+
+
 def mandelbrot_host(width: int, height: int, x0: float, y0: float, dx: float,
                     dy: float, max_iter: int) -> np.ndarray:
-    """Host reference implementation (vectorized numpy) for self-checking."""
-    px = np.arange(width * height, dtype=np.int64)
-    cx = np.float32(x0) + np.float32(dx) * (px % width).astype(np.float32)
-    cy = np.float32(y0) + np.float32(dy) * (px // width).astype(np.float32)
-    zx = np.zeros_like(cx)
-    zy = np.zeros_like(cy)
+    """Host reference implementation (vectorized numpy) for self-checking:
+    each pass runs on the pixels still inside the radius only, with the
+    kernel's f32 arithmetic per pixel, over parts of the image on host
+    threads."""
     it = np.zeros(width * height, dtype=np.int32)
-    active = np.ones(width * height, dtype=bool)
-    for _ in range(max_iter):
-        zx2 = zx * zx
-        zy2 = zy * zy
-        active = active & (zx2 + zy2 < 4.0)
-        if not active.any():
-            break
-        t = zx2 - zy2 + cx
-        zy = np.where(active, 2.0 * zx * zy + cy, zy)
-        zx = np.where(active, t, zx)
-        it = it + active.astype(np.int32)
+
+    def part(lo: int, hi: int) -> None:
+        px = np.arange(lo, hi, dtype=np.int64)
+        cx = np.float32(x0) + np.float32(dx) * (px % width).astype(np.float32)
+        cy = np.float32(y0) + np.float32(dy) * (px // width).astype(np.float32)
+        live_px, zx, zy = px, np.zeros_like(cx), np.zeros_like(cy)
+        for _ in range(max_iter):
+            zx2 = zx * zx
+            zy2 = zy * zy
+            live = zx2 + zy2 < 4.0
+            if not live.all():
+                live_px, zx, zy, zx2, zy2, cx, cy = (
+                    a[live] for a in (live_px, zx, zy, zx2, zy2, cx, cy))
+                if live_px.size == 0:
+                    break
+            t = zx2 - zy2 + cx
+            zy = 2.0 * zx * zy + cy
+            zx = t
+            it[live_px] += 1
+
+    _host_parts(width * height, part)
     return it.astype(np.float32)
 
 
-def nbody_host_step(x, y, z, vx, vy, vz, dt: float):
-    """Host reference for one nBody velocity update (numpy O(n^2))."""
+def nbody_host_step(x, y, z, vx, vy, vz, dt: float, rows: int = 256):
+    """Host reference for one nBody velocity update (numpy O(n^2) in f64),
+    ``rows`` bodies at a time on host threads (each body's sum is over all
+    bodies, so the blocks change no bit)."""
     xs, ys, zs = (a.astype(np.float64) for a in (x, y, z))
-    ddx = xs[None, :] - xs[:, None]
-    ddy = ys[None, :] - ys[:, None]
-    ddz = zs[None, :] - zs[:, None]
-    r2 = ddx * ddx + ddy * ddy + ddz * ddz + 0.0001
-    inv = 1.0 / (r2 * np.sqrt(r2))
-    vx2 = vx + (ddx * inv).sum(axis=1).astype(np.float32) * dt
-    vy2 = vy + (ddy * inv).sum(axis=1).astype(np.float32) * dt
-    vz2 = vz + (ddz * inv).sum(axis=1).astype(np.float32) * dt
-    return vx2, vy2, vz2
+    acc = [np.empty(xs.size, np.float64) for _ in range(3)]
+
+    def part(first: int, last: int) -> None:
+        for lo in range(first, last, rows):
+            sl = slice(lo, min(lo + rows, last))
+            ddx = xs[None, :] - xs[sl, None]
+            ddy = ys[None, :] - ys[sl, None]
+            ddz = zs[None, :] - zs[sl, None]
+            r2 = ddx * ddx + ddy * ddy + ddz * ddz + 0.0001
+            inv = 1.0 / (r2 * np.sqrt(r2))
+            for a, d in zip(acc, (ddx, ddy, ddz)):
+                a[sl] = (d * inv).sum(axis=1)
+
+    _host_parts(xs.size, part)
+    return tuple(v + a.astype(np.float32) * dt for v, a in zip((vx, vy, vz), acc))
 
 
 @dataclass
@@ -307,6 +362,107 @@ def run_nbody(devices: Devices | None = None, n: int = 8192, iters: int = 10,
         return {"n": n, "per_iter_ms": times, "gpairs_per_sec": pairs_per_sec / 1e9,
                 "checked": bool(check), "host_check_max_err": max_err}
     finally:
+        cr.dispose()
+
+
+def _nbody_rig(n: int, prefix: str):
+    """The n-body arrays from seed 42: positions read whole, velocities
+    partial-read (one construction for every n-body run)."""
+    rng = np.random.default_rng(42)
+    pos = (rng.random((3, n), dtype=np.float32) - 0.5) * 2.0
+    xyz = [ClArray(pos[i].copy(), name=f"{prefix}{c}", read_only=True)
+           for i, c in enumerate("xyz")]
+    vel = [ClArray(n, np.float32, name=f"{prefix}v{c}", partial_read=True) for c in "xyz"]
+    return pos, xyz, vel
+
+
+def nbody_e2e(devices: Devices | None = None, n: int = 8192, iters: int = 150,
+              window: int = 50, dt: float = 0.0001, local_range: int = 256,
+              tolerance: float = 0.01, attribution: bool = False,
+              probe_iters: int | None = None, device_timeline_dir: str | None = None,
+              fused: bool = True) -> dict:
+    """The reference's n-body loop end to end (``workloads.nbody_e2e``):
+    n = 8192, ``iters`` load-balanced iterations through ``compute()`` in
+    enqueue windows of ``window`` calls (a barrier each), after a
+    synchronous first step checked against the host O(n^2) step within
+    ``tolerance``.  The GPUs of ``devices`` (default: every CUDA device)
+    are the lanes; a single card is split into 2 partition lanes, so the
+    balancer moves shares on one device.  With ``fused`` (the default) the
+    fused windows dispatch the repeated calls; three untimed calls warm
+    the fused ladder first.  Returns Gpairs/s over the timed loop, its
+    wall, the host check's error, the first and last ranges, the
+    convergence iteration and the loop's fused-window counts.
+    ``attribution`` and ``device_timeline_dir`` need the span tracer and
+    the device timeline (ROADMAP Queue A 5) and raise
+    :class:`NotPortedError`."""
+    if attribution or device_timeline_dir:
+        raise NotPortedError("nbody_e2e attribution and device_timeline_dir need the span "
+                             "tracer and device timelines (ROADMAP Queue A 5)")
+    devs = _default_devices(devices)
+    if len(devs.gpus()):
+        devs = devs.gpus()
+    lanes = len(devs)
+    if lanes == 1:
+        devs = devs[0].as_partitions(2)
+        lanes = 2
+    pos, (x, y, z), vel = _nbody_rig(n, "e")
+    zeros = np.zeros(n, np.float32)
+    expected = nbody_host_step(pos[0], pos[1], pos[2], zeros, zeros, zeros, dt)
+    cid = 7010
+    cr = NumberCruncher(devs, NBODY_SRC)
+    cr.fused_dispatch = fused
+    group = x.next_param(y, z, *vel)
+    try:
+        group.compute(cr, cid, "nBody", n, local_range, values=(n, dt))
+        max_err = max(float(np.abs(got.host() - want).max())
+                      for got, want in zip(vel, expected))
+        if max_err > tolerance:
+            raise AssertionError(f"nBody e2e mismatch: max err {max_err} > {tolerance}")
+        if fused:
+            # the window engages on the first repeat: call 3 is deferred, and
+            # the barrier dispatches it, building the fused ladder untimed
+            cr.enqueue_mode = True
+            for _ in range(3):
+                group.compute(cr, cid, "nBody", n, local_range, values=(n, dt))
+            cr.barrier()
+        stats0 = {k: cr.fused_stats[k] for k in ("windows", "fused_iters", "deferred_iters")}
+        stats0["disengaged"] = dict(cr.fused_stats["disengaged"])
+        traj: list[list[int]] = []
+        cr.enqueue_mode = True
+        t0 = time.perf_counter()
+        for k in range(iters):
+            group.compute(cr, cid, "nBody", n, local_range, values=(n, dt))
+            traj.append(cr.ranges_of(cid))
+            if (k + 1) % window == 0:
+                cr.barrier()
+        cr.enqueue_mode = False  # the flush
+        wall = time.perf_counter() - t0
+        fstats = cr.fused_stats
+        return {
+            "n": n, "iters": iters, "lanes": lanes, "window": window,
+            "gpairs_per_sec": round(n * n * iters / wall / 1e9, 3),
+            "wall_ms": round(wall * 1e3, 1),
+            "checked": True,
+            "host_check_max_err": round(max_err, 5),
+            "ranges_first": traj[0],
+            "ranges_final": traj[-1],
+            "convergence_iters": _converged_at(traj, local_range),
+            "fused": {
+                "enabled": bool(fused),
+                "windows": fstats["windows"] - stats0["windows"],
+                "fused_iters": fstats["fused_iters"] - stats0["fused_iters"],
+                "deferred_iters": fstats["deferred_iters"] - stats0["deferred_iters"],
+                "disengaged": {k: v - stats0["disengaged"].get(k, 0)
+                               for k, v in fstats["disengaged"].items()
+                               if v - stats0["disengaged"].get(k, 0) > 0},
+            },
+        }
+    finally:
+        if cr.enqueue_mode:
+            try:
+                cr.enqueue_mode = False
+            except Exception:  # noqa: BLE001 - the loop's own error is the one raised
+                pass
         cr.dispose()
 
 
@@ -604,3 +760,372 @@ def run_ring_attention(mesh, B: int, T: int, H: int, D: int, dtype, causal: bool
                              "forward_backward": B * T / both if grad else None},
             "launches": {"parts": delta(0), "dead": delta(1), "plain_flash": delta(2),
                          "plain_flash_bwd": delta(3)}}
+
+
+class _LinkProbe:
+    """Fresh payloads of ``n`` floats each way between the host (page-locked
+    where CUDA is present) and ``dev``, so no transfer can be skipped, with
+    the H2D, D2H and simultaneous (two streams) copies the duplex ceiling
+    compares.  Each ``t_*`` returns the copy's host wall in seconds."""
+
+    def __init__(self, dev, n: int):
+        import torch
+
+        self.dev = torch.device(dev)
+        self.cuda = self.dev.type == "cuda"
+        pin = self.cuda
+        self.host_src = torch.arange(n, dtype=torch.float32).pin_memory() if pin else \
+            torch.arange(n, dtype=torch.float32)
+        self.host_dst = torch.empty(n, dtype=torch.float32, pin_memory=pin)
+        self.dev_dst = torch.empty(n, dtype=torch.float32, device=self.dev)
+        self.base = torch.zeros(n, dtype=torch.float32, device=self.dev)
+        self.streams = ((torch.cuda.Stream(self.dev), torch.cuda.Stream(self.dev))
+                        if self.cuda else (None, None))
+        self.k = 0
+
+    def _sync(self) -> None:
+        if self.cuda:
+            import torch
+
+            torch.cuda.synchronize(self.dev)
+
+    def _fresh(self):
+        self.k += 1
+        self.host_src[0] = self.k
+        y = self.base + float(self.k)
+        self._sync()
+        return y
+
+    def _on(self, stream):
+        import contextlib
+
+        import torch
+
+        return torch.cuda.stream(stream) if stream is not None else contextlib.nullcontext()
+
+    def t_h2d(self) -> float:
+        self._fresh()
+        t0 = time.perf_counter()
+        with self._on(self.streams[0]):
+            self.dev_dst.copy_(self.host_src, non_blocking=True)
+        self._sync()
+        return time.perf_counter() - t0
+
+    def t_d2h(self) -> float:
+        y = self._fresh()
+        t0 = time.perf_counter()
+        with self._on(self.streams[1]):
+            self.host_dst.copy_(y, non_blocking=True)
+        self._sync()
+        return time.perf_counter() - t0
+
+    def t_duplex(self) -> float:
+        y = self._fresh()
+        t0 = time.perf_counter()
+        with self._on(self.streams[0]):
+            self.dev_dst.copy_(self.host_src, non_blocking=True)
+        with self._on(self.streams[1]):
+            self.host_dst.copy_(y, non_blocking=True)
+        self._sync()
+        return time.perf_counter() - t0
+
+
+def measure_stream_overlap(devices: Devices | None = None, n: int = 1 << 22, blobs: int = 8,
+                           local_range: int = 256, pipeline_type: int | None = None,
+                           reps: int = 3, heavy_iters: int | str = 0,
+                           compute_factor: float = 1.0, duplex_probe: bool = False,
+                           streamed: bool = False) -> dict:
+    """The read/compute/write overlap the streamed path realizes on the
+    first lane of ``devices`` (reference ``measure_stream_overlap``, its
+    ``streamed=True`` path): ``reps`` interleaved rounds each time a read
+    phase (the partition uploads of ``a`` and ``b``, ``blobs`` slices), a
+    compute phase (the kernel over the resident data), a write phase (the
+    D2H of ``c``) and a streamed ``compute()`` of all three; per phase the
+    median.  ``overlap_fraction`` = (r + c + w - p) / (r + c + w -
+    max(r, c, w)), raw: 1 is perfect overlap, 0 serial.  ``heavy_iters``
+    swaps streamAdd for a kernel looping that many times per element
+    (``"auto"`` calibrates it so compute is ``compute_factor`` times read +
+    write).  ``duplex_probe`` adds pure H2D, D2H and simultaneous copies
+    to every round, seeds the tuner from a probe taken first, and reports
+    the per-round overlap ceiling (``trace/ceiling.py``).  The streamed
+    rounds follow two untimed settle runs (the tuner's measuring run and
+    its first chunked run).  The pipelined engines (``streamed=False``,
+    ``pipeline_type``) are ROADMAP Queue A 6 and raise
+    :class:`NotPortedError`."""
+    if not streamed or pipeline_type is not None:
+        raise NotPortedError("measure_stream_overlap measures the streamed path only; the "
+                             "pipelined engines (streamed=False, pipeline_type) are ROADMAP "
+                             "Queue A 6")
+    devs = _default_devices(devices).require_nonempty("a CUDA device").subset(1)
+    kname = "streamHeavy" if heavy_iters else "streamAdd"
+    auto_balance = heavy_iters == "auto"
+    if auto_balance:
+        heavy_iters = 1000  # placeholder until calibrated below
+    kvals = (heavy_iters,) if heavy_iters else ()
+    cr = NumberCruncher(devs, STREAM_HEAVY_SRC if heavy_iters else STREAM_SRC)
+    w = cr.cores.workers[0]
+    a = ClArray(n, np.float32, name="ov_a", partial_read=True, read_only=True)
+    b = ClArray(n, np.float32, name="ov_b", partial_read=True, read_only=True)
+    c = ClArray(n, np.float32, name="ov_c", write_only=True)
+    a.host()[:] = np.arange(n, dtype=np.float32) % 97
+    b.host()[:] = np.arange(n, dtype=np.float32) % 89
+    blob = n // blobs
+
+    def fence() -> None:
+        cr.barrier()
+
+    def phase_read() -> None:
+        for arr in (a, b):
+            w.invalidate(arr)
+        with w.on_stream():
+            for k in range(blobs):
+                for arr in (a, b):
+                    w.upload(arr, k * blob, blob, False)
+
+    def compute_at(vals) -> None:
+        with w.on_stream():
+            w.ensure_resident(c)
+            for k in range(blobs):
+                w.launch(cr.program, [kname], [a, b, c], vals, k * blob, blob, local_range, n,
+                         local_range)
+
+    def phase_write() -> None:
+        from .core.worker import Worker
+
+        handles = [w.download_async(c, k * blob, blob, False) for k in range(blobs)]
+        for h in handles:
+            Worker.finish_download(h)
+
+    def phase_streamed() -> None:
+        for arr in (a, b, c):
+            w.invalidate(arr)
+        a.next_param(b, c).compute(cr, 7004, kname, n, local_range, values=kvals)
+
+    def timed(fn, needs_fence: bool, rtt: float) -> float:
+        t0 = time.perf_counter()
+        fn()
+        if needs_fence:
+            fence()
+        total = (time.perf_counter() - t0) * 1000.0
+        if needs_fence:
+            total -= rtt
+        return max(total, 1e-6)
+
+    def rtt_now() -> float:
+        t0 = time.perf_counter()
+        fence()
+        return (time.perf_counter() - t0) * 1000.0
+
+    try:
+        # warm: every path once
+        phase_read()
+        compute_at(kvals)
+        fence()
+        phase_write()
+        phase_streamed()
+        if auto_balance:
+            rtt0 = rtt_now()
+
+            def t_read_once() -> float:
+                t0 = time.perf_counter()
+                phase_read()
+                fence()
+                return (time.perf_counter() - t0) * 1000.0 - rtt0
+
+            t_r0 = max(min(t_read_once(), t_read_once()), 1e-3)
+
+            def t_compute_at(iters: int) -> float:
+                t0 = time.perf_counter()
+                compute_at((iters,))
+                fence()
+                return (time.perf_counter() - t0) * 1000.0 - rtt0
+
+            c1 = min(t_compute_at(2000), t_compute_at(2000))
+            c2 = min(t_compute_at(6000), t_compute_at(6000))
+            if c2 - c1 <= 0:
+                heavy_iters = 30000
+            else:
+                slope = (c2 - c1) / 4000.0
+                intercept = max(c1 - 2000.0 * slope, 0.0)
+                # capped so the exactness check's quarter-integer sums stay exact
+                heavy_iters = int(min(max((compute_factor * 2.0 * t_r0 - intercept) / slope,
+                                          1000), 150_000))
+            kvals = (heavy_iters,)
+        samples: dict[str, list[float]] = {k: [] for k in
+                                           ("r", "c", "w", "p", "rtt", "h2d", "d2h", "dup")}
+        probe = None
+        if duplex_probe:
+            probe = _LinkProbe(devs[0].torch_device, n)
+
+            def probe_duplex(rtt: float, into: dict | None = None) -> None:
+                dst = samples if into is None else into
+                for key, t in (("h2d", probe.t_h2d), ("d2h", probe.t_d2h),
+                               ("dup", probe.t_duplex)):
+                    wall = t() * 1000.0
+                    dst[key].append(max(wall - rtt, wall * 0.05))
+
+            # seed the tuner from one probe under the rounds' link weather
+            scratch: dict = {"h2d": [], "d2h": [], "dup": []}
+            probe_duplex(rtt_now(), into=scratch)
+            mib = (4.0 * n) / float(1 << 20)
+            cr.transfer_tuner.seed_link(w.index, scratch["h2d"][0] / mib,
+                                        scratch["d2h"][0] / mib)
+        # the warm run's measuring run saw the pre-calibration workload
+        cr.transfer_tuner.on_repartition()
+        retunes0 = cr.transfer_tuner.retunes
+        # untimed settle: the measuring run, then the first chunked run
+        phase_streamed()
+        phase_streamed()
+        for _ in range(reps):
+            rtt = rtt_now()
+            samples["rtt"].append(rtt)
+            samples["r"].append(timed(phase_read, True, rtt))
+            samples["c"].append(timed(lambda: compute_at(kvals), True, rtt))
+            samples["w"].append(timed(phase_write, False, rtt))
+            samples["p"].append(timed(phase_streamed, False, rtt))
+            if duplex_probe:
+                probe_duplex(rtt)
+
+        def med(key: str) -> float:
+            vals = sorted(samples[key])
+            return vals[len(vals) // 2]
+
+        t_r, t_c, t_w, t_p = med("r"), med("c"), med("w"), med("p")
+        serial = t_r + t_c + t_w
+        ideal = serial - max(t_r, t_c, t_w)
+        overlap = (serial - t_p) / ideal if ideal > 1e-9 else 0.0
+        spread = max((max(samples[k]) - min(samples[k])) / max(med(k), 1e-9)
+                     for k in ("r", "w", "p"))
+        chunks = cr.cores.last_stream_chunks.get(w.index, 1)
+        ceiling_keys: dict = {}
+        if duplex_probe:
+            from .trace.ceiling import RepSample, ceiling_report
+
+            reps_full = [RepSample(r=samples["r"][i], c=samples["c"][i], w=samples["w"][i],
+                                   p=samples["p"][i], h2d=samples["h2d"][i],
+                                   d2h=samples["d2h"][i], dup=samples["dup"][i])
+                         for i in range(len(samples["p"])) if i < len(samples["dup"])]
+            ceiling_keys = {
+                "duplex_h2d_ms": round(med("h2d"), 3),
+                "duplex_d2h_ms": round(med("d2h"), 3),
+                "duplex_ms": round(med("dup"), 3),
+                "compute_transfer_ratio": round(t_c / max(t_r + t_w, 1e-9), 2),
+                **ceiling_report(reps_full, max(chunks, 1)),
+            }
+        if heavy_iters:
+            want = a.host() + heavy_iters * 0.25 * b.host()
+            np.testing.assert_allclose(c.host(), want, rtol=1e-6)
+        else:
+            np.testing.assert_allclose(c.host(), a.host() + b.host())
+        return {
+            "t_read_ms": t_r, "t_compute_ms": t_c, "t_write_ms": t_w, "t_pipelined_ms": t_p,
+            "t_serial_ms": serial, "rtt_ms": med("rtt"),
+            "overlap_fraction": overlap,  # raw
+            "sample_spread": spread,
+            "n": n, "blobs": blobs, "reps": reps,
+            "heavy_iters": int(heavy_iters) if heavy_iters else 0,
+            "transfer_path": "streamed-ladder",
+            "stream_chunks": chunks,
+            "autotuner_retunes": cr.transfer_tuner.retunes - retunes0,
+            **ceiling_keys,
+        }
+    finally:
+        cr.dispose()
+
+
+def overlap_chunk_sweep(devices: Devices | None = None,
+                        ns: tuple[int, ...] = (1 << 20, 1 << 22),
+                        chunk_counts: tuple[int, ...] = (1, 2, 4, 8, 16, 32),
+                        local_range: int = 256, reps: int = 3, heavy_iters: int = 400) -> dict:
+    """Chunk count x array size sweep of the streamed path on the first lane
+    of ``devices`` (reference ``overlap_chunk_sweep``): per size the
+    streamed ``compute()``'s median wall with the chunk count pinned at
+    each candidate, then the tuner's own choice after the sweep taught it
+    the lane, and its wall against the sweep's best
+    (``choice_vs_optimum``, 1.0 = the tuner found the measured optimum)."""
+    devs = _default_devices(devices).require_nonempty("a CUDA device").subset(1)
+    kname = "streamHeavy" if heavy_iters else "streamAdd"
+    kvals = (heavy_iters,) if heavy_iters else ()
+    bad = [n for n in ns if n < local_range or n % local_range]
+    if bad:
+        raise ValueError(f"sweep sizes {bad} are not multiples of local_range {local_range} "
+                         "— compute() would reject them; pass --local")
+    # one chunk (the monolithic path) is always swept
+    chunk_counts = tuple(sorted({1, *(int(c) for c in chunk_counts)}))
+    sizes_out: list[dict] = []
+    for n in ns:
+        cr = NumberCruncher(devs, STREAM_HEAVY_SRC if heavy_iters else STREAM_SRC)
+        w = cr.cores.workers[0]
+        a = ClArray(n, np.float32, name="sw_a", partial_read=True, read_only=True)
+        b = ClArray(n, np.float32, name="sw_b", partial_read=True, read_only=True)
+        c = ClArray(n, np.float32, name="sw_c", write_only=True)
+        a.host()[:] = np.arange(n, dtype=np.float32) % 97
+        b.host()[:] = np.arange(n, dtype=np.float32) % 89
+
+        def run_once() -> float:
+            for arr in (a, b, c):
+                w.invalidate(arr)
+            t0 = time.perf_counter()
+            a.next_param(b, c).compute(cr, 7104, kname, n, local_range, values=kvals)
+            return (time.perf_counter() - t0) * 1000.0
+
+        try:
+            rows: list[dict] = []
+            max_chunks = max(1, n // local_range)
+            for cc in chunk_counts:
+                if cc > max_chunks:
+                    continue
+                cr.stream_chunks = cc
+                run_once()  # warm: launchers and the tuner's observation
+                rows.append({"chunks": cc,
+                             "wall_ms": round(float(np.median([run_once()
+                                                                for _ in range(reps)])), 3)})
+            best = min(rows, key=lambda r: r["wall_ms"])
+            cr.stream_chunks = 0
+            run_once()
+            auto_wall = float(np.median([run_once() for _ in range(reps)]))
+            chosen = cr.cores.last_stream_chunks.get(w.index, 1)
+            sizes_out.append({
+                "n": n, "mib": round((3 * 4 * n) / float(1 << 20), 1), "rows": rows,
+                "sweep_best_chunks": best["chunks"], "sweep_best_ms": best["wall_ms"],
+                "autotuner_chunks": chosen, "autotuner_ms": round(auto_wall, 3),
+                "choice_vs_optimum": round(auto_wall / max(best["wall_ms"], 1e-9), 3),
+            })
+        finally:
+            cr.dispose()
+            for arr in (a, b, c):
+                arr.dispose()
+    return {"note": ("streamed-path walls (ms, median of reps) per pinned chunk count; "
+                     "autotuner row = the count Cores.transfer_tuner chooses after the sweep "
+                     "taught it this lane's link"),
+            "heavy_iters": heavy_iters, "local_range": local_range, "reps": reps,
+            "sizes": sizes_out}
+
+
+def duplex_ceiling(n: int = 1 << 22, reps: int = 3, device=None) -> dict:
+    """The host link's duplex capacity on ``device`` (default: the first
+    CUDA device): page-locked H2D and D2H of ``n`` floats at once on two
+    streams against each alone, best of ``reps``, RTT subtracted (floored
+    at 5% of the wall).  ``ceiling`` = (h2d + d2h - duplex) / (h2d + d2h -
+    max(h2d, d2h)): 1.0 both directions at full rate together, 0.0 a
+    serial link; the bound an overlap of reads and writes is judged
+    against."""
+    dev = (device if device is not None
+           else _default_devices(None).require_nonempty("a CUDA device")[0].torch_device)
+    probe = _LinkProbe(dev, n)
+    rtt = measure_rtt(device=dev) if probe.cuda else 0.0
+
+    def sub_rtt(wall: float) -> float:
+        return max(wall - rtt, wall * 0.05)
+
+    h2d = min(sub_rtt(probe.t_h2d()) for _ in range(reps))
+    d2h = min(sub_rtt(probe.t_d2h()) for _ in range(reps))
+    dup = min(sub_rtt(probe.t_duplex()) for _ in range(reps))
+    denom = h2d + d2h - max(h2d, d2h)
+    ceiling = (h2d + d2h - dup) / denom if denom > 0 else 0.0
+    ceiling = min(max(ceiling, 0.0), 1.0)
+    gb = n * 4 / 1e9
+    return {"h2d_ms": round(h2d * 1e3, 3), "d2h_ms": round(d2h * 1e3, 3),
+            "duplex_ms": round(dup * 1e3, 3), "h2d_gbps": round(gb / max(h2d, 1e-9), 3),
+            "d2h_gbps": round(gb / max(d2h, 1e-9), 3), "ceiling": round(ceiling, 3),
+            "rtt_ms": round(rtt * 1e3, 3), "bytes": n * 4}

@@ -80,6 +80,33 @@ Phases, each of which raises on failure (the script then exits non-zero):
    balancer drains it from the prior split to one or two steps, where
    the quantization freeze holds it; at 256 that takes 15-25 calls (see
    ``check_balancer`` for why one late step is allowed);
+5b. device selection: every selector of the reference on one GPU lane
+   plus one host lane (the card first by the n-body microbenchmark, free
+   memory as ``torch.cuda.mem_get_info`` reads it), the platform counts,
+   and two partition lanes of the card through ``compute()`` on the
+   emitted mandelbrot: image exact, both lanes on the CUDA route, two
+   streams;
+5c. streamed transfers (GPU lane): emitted and hand mandelbrot
+   2048x2048x256 (``readback="every"``), emitted streamAdd and saxpy at
+   2^24, each monolithic, at 4 chunks pinned and at the tuner's choice,
+   6 calls each on a new cruncher: outputs equal the monolithic run's
+   bit for bit, the pinned run launches 4 chunks a call and copies 4
+   chunks a call per array, the emitted kernels stay on their forms, no
+   kernel source is built anew; a ``torch.profiler`` trace of a 4-chunk
+   mandelbrot call (read through ``tools/trace_window.py``) at max_iter
+   256 (printed) and 2048, where a chunk's D2H must run beside a later
+   chunk's kernel; then, printed: streamed against monolithic Mpixels/s
+   and streamAdd GB/s A B B A on one cruncher, the tuner's chunk
+   counts, ``measure_stream_overlap(streamed=True, duplex_probe=True)``
+   and ``duplex_ceiling()``.  The main path above runs with streamed
+   transfers on (the default) and prints its streamed phases;
+5d. n-body end to end: ``workloads.nbody_e2e`` at n = 8192, 150
+   iterations in enqueue windows of 50, fused, over two partition lanes
+   of the card: the host check within 0.01, every launch on the loop
+   form;
+5e. ``no_compute_mode`` on the GPU lane, per call and enqueued: the
+   arrays move (transfers counted), no kernel launches, the host array
+   keeps its values, and the fused refusal ``no-compute`` is counted;
 6. transformer: the flagship transformer's forward at the default width
    (vocab 32000, d_model 512, 4 layers, 8 heads of 64, d_ff 2048, bf16,
    ``attention="flash"``, seeded random weights) on ``cuda:0``.  With every
@@ -1512,6 +1539,344 @@ def check_mandelbrot_sync12(ck, wl, gpus, card: str, ref_img: np.ndarray) -> dic
     return out
 
 
+def check_devices(ck, wl, gpus, mods) -> None:
+    """Device selection on one GPU lane plus one host lane: every selector
+    the reference has, the card ranked first by the n-body microbenchmark,
+    free memory as ``torch.cuda.mem_get_info`` reads it, and two partition
+    lanes of the card through ``compute()`` on the emitted mandelbrot
+    (image exact, both lanes on the CUDA route, two streams)."""
+    import torch
+
+    from cekirdekler_tpu_torch.hardware import Platform, Platforms
+
+    reg, graphs, cuda_backend, mandel_op, ew_op = mods
+    card = gpus[0]
+    host = ck.all_devices().cpus(1)
+    mixed = gpus.subset(1) + host
+    want = {"accelerators": [card], "with_dedicated_memory": [card],
+            "with_host_memory_sharing": [host[0]], "with_most_compute_units": [card],
+            "with_highest_memory_available": [card, host[0]],
+            "with_highest_nbody_performance": [card, host[0]]}
+    got = {name: list(getattr(mixed, name)()) for name in want}
+    print(f"selectors on {[d.name for d in mixed]}: "
+          f"{ {k: [d.name for d in v] for k, v in got.items()} }")
+    if got != want:
+        raise AssertionError(f"device selectors: {got}, want {want}")
+    free0 = torch.cuda.mem_get_info(card.torch_device)[0]
+    avail = card.memory_available_bytes
+    free1 = torch.cuda.mem_get_info(card.torch_device)[0]
+    print(f"{card.name}: memory_available_bytes {avail}, mem_get_info {free0} / {free1}")
+    if not min(free0, free1) <= avail <= max(free0, free1) or host[0].memory_available_bytes:
+        raise AssertionError(f"memory_available_bytes {avail} against mem_get_info "
+                             f"{free0} / {free1}; host lane {host[0].memory_available_bytes}")
+    plats = Platforms([Platform("cuda", tuple(gpus)), Platform("cpu", tuple(ck.all_devices()
+                                                                           .cpus(2)))])
+    counts = ([p.num_accelerators() for p in plats], [p.num_cpus() for p in plats],
+              [p.name for p in plats.with_most_devices()], len(plats.accelerators()),
+              len(plats.cpus()))
+    print(f"platforms (accelerators, cpus, with_most_devices, all accelerators, all cpus): "
+          f"{counts}")
+    if counts[:2] != ([len(gpus), 0], [0, 2]) or counts[3:] != (len(gpus), 2):
+        raise AssertionError(f"platform counts {counts}")
+    parts = card.as_partitions(2)
+    W = H = 1024
+    ref = wl.mandelbrot_host(W, H, -2.0, -1.25, 2.5 / W, 2.5 / H, 64)
+    reset_counts(reg, graphs, cuda_backend, mandel_op, ew_op)
+    with ck.NumberCruncher(parts, wl.MANDELBROT_SRC) as cr:
+        r = wl.run_mandelbrot(None, W, H, 64, iters=4, warmup=1, local_range=256,
+                              keep_image=True, cruncher=cr)
+        streams = [w.stream for w in cr.cores.workers]
+        names = cr.cores.device_names()
+    routes = dict(reg.launch_counts)
+    gate_exact(r.image.ravel(), ref, "mandelbrot over two partition lanes")
+    print(f"partition lanes {names}: ranges per call {r.ranges_per_iter}, routes {routes}, "
+          f"streams {[s.cuda_stream for s in streams]}")
+    if (len({s.cuda_stream for s in streams}) != 2 or routes["torch"] or routes["cuda"] <= 0
+            or min(min(x) for x in r.ranges_per_iter) <= 0):
+        raise AssertionError(f"partition lanes: streams {streams}, routes {routes}, ranges "
+                             f"{r.ranges_per_iter}")
+
+
+def stream_cases(ck, wl):
+    """(label, source, kernel, values, arrays(), range, output index) of the
+    streamed phase: the main path's kernels at its shapes, the arrays made
+    anew from a seed for each run."""
+    vals = (-2.0, -1.25, 2.5 / 2048, 2.5 / 2048, 2048, 256)
+    big = 1 << 24
+
+    def image():
+        return [ck.ClArray(2048 * 2048, np.float32, name="img", read=False, write=True,
+                           fast=True)]
+
+    def stream():  # page-locked arrays, as run_stream's: copied directly
+        rng = np.random.default_rng(21)
+        arrs = [ck.ClArray(big, np.float32, name=k, partial_read=True, read_only=True,
+                           fast=True) for k in "ab"]
+        for arr in arrs:
+            arr.host()[:] = rng.standard_normal(big).astype(np.float32)
+        return arrs + [ck.ClArray(big, np.float32, name="c", write_only=True, fast=True)]
+
+    def saxpy():  # pageable arrays, as the main path's saxpy: through the staging ring
+        rng = np.random.default_rng(22)
+        return [ck.ClArray(rng.standard_normal(big).astype(np.float32), name="x",
+                           partial_read=True, read_only=True),
+                ck.ClArray(rng.standard_normal(big).astype(np.float32), name="y",
+                           partial_read=True)]
+
+    return [("emitted mandelbrot", wl.MANDELBROT_SRC, "mandelbrot", vals, image, 2048 * 2048),
+            ("hand mandelbrot", wl.mandelbrot_cuda_kernel(), "mandelbrot", vals, image,
+             2048 * 2048),
+            ("emitted streamAdd", wl.STREAM_SRC, "streamAdd", (), stream, big),
+            ("emitted saxpy", SAXPY_SRC, "saxpy", (ALPHA,), saxpy, big)]
+
+
+STREAM_CALLS = 6
+
+
+def streamed_run(ck, gpus, mods, case, chunks: int | None, calls: int = STREAM_CALLS) -> dict:
+    """``calls`` plain-path calls of one streamed case on a new GPU-lane
+    cruncher: ``chunks`` None is the monolithic path
+    (``streamed_transfers = False``), 0 the tuner's choice, n pinned.
+    Returns the outputs, the launch counts, the chunk copies, the chunk
+    counts per call and each call's host wall."""
+    from cekirdekler_tpu_torch.core import cores as cores_mod
+    from cekirdekler_tpu_torch.kernel import build
+
+    reg, graphs, cuda_backend, mandel_op, ew_op = mods
+    label, source, kname, vals, arrays, n = case
+    arrs = arrays()
+    group = arrs[0].next_param(*arrs[1:]) if len(arrs) > 1 else arrs[0]
+    built = len(build._loaded)
+    with ck.NumberCruncher(gpus.subset(1), source) as cr:
+        cr.streamed_transfers = chunks is not None
+        cr.stream_chunks = chunks or 0
+        reset_counts(reg, graphs, cuda_backend, mandel_op, ew_op)
+        cores_mod.STREAMED.reset()
+        walls, per_call, compiled = [], [], []
+        for _ in range(calls):
+            t0 = time.perf_counter()
+            group.compute(cr, 7200, kname, n, 256, values=vals)
+            walls.append((time.perf_counter() - t0) * 1e3)
+            per_call.append(cr.cores.last_stream_chunks.get(0, 1))
+            compiled.append(cr.program.compiled_count)
+        w = cr.cores.workers[0]
+        return dict(outputs=[a.host().copy() for a in arrs],
+                    counts=launch_counts(reg, cuda_backend, mandel_op, ew_op),
+                    chunk_copies=dict(w.chunk_transfers), transfers=dict(w.transfers),
+                    streamed=cores_mod.STREAMED.count, chunks=per_call, walls=walls,
+                    compiled=compiled, built=len(build._loaded) - built)
+
+
+def gate_streamed_case(ck, gpus, mods, case, ref_img: np.ndarray | None,
+                       calls: int = STREAM_CALLS) -> None:
+    """One streamed case monolithic, at 4 chunks pinned and at the tuner's
+    choice, ``calls`` calls each: outputs bit for bit the monolithic run's
+    (and the image ``ref_img``), the pinned run's launches 4 a call and its
+    chunk copies 4 a call per array moved, no plain version on the card,
+    the emitted kernels on their forms, no kernel built anew."""
+    from cekirdekler_tpu_torch.core.worker import _ladder
+
+    forms_of = {"mandelbrot": "escape", "streamAdd": "stream", "saxpy": "stream"}
+    label, _src, kname, _vals, _arrays, n = case
+    on_card = gpus[0].is_gpu
+    mono = streamed_run(ck, gpus, mods, case, None, calls)
+    runs = {4: streamed_run(ck, gpus, mods, case, 4, calls),
+            0: streamed_run(ck, gpus, mods, case, 0, calls)}
+    for chunks, run in runs.items():
+        for k, (a, b) in enumerate(zip(run["outputs"], mono["outputs"])):
+            gate_exact(a, b, f"streamed {label} ({chunks or 'tuner'} chunks): output {k} "
+                             "against the monolithic run")
+        if ref_img is not None:
+            gate_exact(run["outputs"][0], ref_img, f"streamed {label}: image")
+        print(f"streamed {label}, {calls} calls, stream_chunks={chunks}: chunks per "
+              f"call {run['chunks']}, streamed phases {run['streamed']}, walls "
+              f"{[round(x, 3) for x in run['walls']]} ms (monolithic "
+              f"{[round(x, 3) for x in mono['walls']]}); launches {run['counts']}; chunk "
+              f"copies {run['chunk_copies']}; transfers {run['transfers']}; launchers "
+              f"{run['compiled']}; new builds {run['built']}")
+        counts = run["counts"]
+        if on_card and (counts["routes"]["torch"] or "cuda" in counts["elementwise plain"]):
+            raise AssertionError(f"streamed {label}: a plain version ran on the card: {counts}")
+        if on_card and "hand" not in label:
+            gate_forms(counts["forms"], {kname: forms_of[kname]})
+        # a chunk launches the lane's built kernel: no source is built
+        # anew, and at a pinned count no call adds a launcher after the
+        # first (the tuner's counts may add one per new chunk size)
+        if run["built"] or (chunks and len(set(run["compiled"])) > 1):
+            raise AssertionError(f"streamed {label}: built {run['built']} kernels anew, "
+                                 f"launchers per call {run['compiled']}")
+    pinned = runs[4]
+    launches = sum(pinned["counts"]["routes"].values())
+    want_launches = 4 * calls
+    copies = sum(pinned["chunk_copies"].values())
+    arrays_moved = len(pinned["transfers"])
+    if (pinned["chunks"] != [4] * calls or pinned["streamed"] != calls
+            or launches != want_launches or copies != 4 * calls * arrays_moved):
+        raise AssertionError(f"streamed {label} at 4 chunks: chunks {pinned['chunks']}, "
+                             f"streamed phases {pinned['streamed']}, launches {launches} "
+                             f"(want {want_launches}; monolithic "
+                             f"{len(_ladder(n, 256)) * calls}), chunk copies "
+                             f"{pinned['chunk_copies']}")
+
+
+def check_streamed(ck, wl, gpus, mods, ref_img: np.ndarray) -> dict:
+    """Streamed partition transfers on the GPU lane: each case of
+    :func:`stream_cases` through :func:`gate_streamed_case`; then a
+    profiler trace of a pinned mandelbrot call at the main path's max_iter
+    (printed) and at 2048, which must show a chunk's D2H beside a later
+    chunk's kernel; then the streamed against monolithic rates A B B A on
+    one cruncher, and the overlap and duplex measurements (printed, not
+    gated).  Returns the rates."""
+    for case in stream_cases(ck, wl):
+        gate_streamed_case(ck, gpus, mods, case, ref_img if "mandelbrot" in case[0] else None)
+    # the mechanism itself: a chunk's D2H runs beside a later chunk's kernel.  Where
+    # a chunk's kernel is shorter than the host's issue of a chunk (about 0.1-0.2
+    # ms), the card idles between chunks and the copies may not meet a kernel;
+    # at max_iter 2048 a chunk's kernel outlasts the issue, so they must
+    for max_iter in (256, 2048):
+        pairs = traced_overlap(ck, wl, gpus, max_iter)
+        if max_iter == 2048 and not pairs:
+            raise AssertionError("the trace of a streamed call shows no chunk D2H running beside "
+                                 "a later chunk's kernel: the engine runs serially")
+    return stream_rates(ck, wl, gpus)
+
+
+def traced_overlap(ck, wl, gpus, max_iter: int) -> list:
+    """One 4-chunk streamed mandelbrot call at 2048x2048 and ``max_iter``
+    under ``torch.profiler`` (after an untraced one), its image exact;
+    prints the trace's kernels and copies and returns the pairs of a chunk
+    D2H and a kernel that ran at the same time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from cekirdekler_tpu_torch.tools import trace_window
+
+    W = 2048
+    vals = (-2.0, -1.25, 2.5 / W, 2.5 / W, W, max_iter)
+    out = ck.ClArray(W * W, np.float32, name="img", read=False, write=True, fast=True)
+    with ck.NumberCruncher(gpus.subset(1), wl.MANDELBROT_SRC) as cr:
+        cr.streamed_transfers = False
+        out.compute(cr, 7201, "mandelbrot", W * W, 256, values=vals)
+        want = out.host().copy()
+        cr.streamed_transfers = True
+        cr.stream_chunks = 4
+        out.compute(cr, 7201, "mandelbrot", W * W, 256, values=vals)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            trace_window.open_window()
+            out.compute(cr, 7201, "mandelbrot", W * W, 256, values=vals)
+            torch.cuda.synchronize()
+    pairs = trace_window.overlapping(prof, "Memcpy DtoH", "ck_kernel")
+    recs = [(nm[:24], round(a, 1), round(b, 1)) for nm, a, b in trace_window.intervals(prof)]
+    print(f"trace of one 4-chunk mandelbrot call at max_iter {max_iter} (name, start µs, end "
+          f"µs): {recs}; a chunk D2H beside a kernel: {len(pairs)} pairs")
+    gate_exact(out.host(), want, f"traced streamed mandelbrot at max_iter {max_iter} against "
+                                 "the monolithic run")
+    return pairs
+
+
+def stream_rates(ck, wl, gpus) -> dict:
+    """Streamed (the tuner's choice) against monolithic, A B B A on one
+    cruncher a case: mandelbrot Mpixels/s by both routes
+    (``readback="every"``) and streamAdd GB/s; then
+    ``measure_stream_overlap(streamed=True, duplex_probe=True)`` and
+    ``duplex_ceiling()``.  Printed with the tuner's chunk counts."""
+    out = {}
+    for label, source in (("C-subset", wl.MANDELBROT_SRC),
+                          ("hand kernel", wl.mandelbrot_cuda_kernel())):
+        with ck.NumberCruncher(gpus.subset(1), source) as cr:
+            wl.run_mandelbrot(None, 2048, 2048, 256, local_range=256, cruncher=cr)
+            row = []
+            for streamed in (True, False, False, True):
+                cr.streamed_transfers = streamed
+                r = wl.run_mandelbrot(None, 2048, 2048, 256, local_range=256, cruncher=cr)
+                row.append(round(r.mpixels_per_sec, 1))
+            out[f"mandelbrot {label}"] = row
+            print(f"mandelbrot 2048x2048x256 ({label}, readback='every') Mpixels/s, streamed / "
+                  f"monolithic / monolithic / streamed: {row}; tuner's chunks "
+                  f"{dict(cr.cores.last_stream_chunks)}")
+    n = 1 << 24  # page-locked arrays, as run_stream's
+    a = ck.ClArray(n, np.float32, name="a", fast=True, partial_read=True, read_only=True)
+    b = ck.ClArray(n, np.float32, name="b", fast=True, partial_read=True, read_only=True)
+    c = ck.ClArray(n, np.float32, name="c", fast=True, write_only=True)
+    a.host()[:] = np.arange(n, dtype=np.float32) % 97
+    b.host()[:] = np.arange(n, dtype=np.float32) % 89
+    with ck.NumberCruncher(gpus.subset(1), wl.STREAM_SRC) as cr:
+        row, chunks = [], []
+        for streamed in (True, True, False, False, True, True):
+            cr.streamed_transfers = streamed
+            best = float("inf")
+            for _ in range(5):
+                t0 = time.perf_counter()
+                a.next_param(b, c).compute(cr, 7202, "streamAdd", n, 256)
+                best = min(best, time.perf_counter() - t0)
+            row.append(round(12 * n / best / 1e9, 2))
+            chunks.append(cr.cores.last_stream_chunks.get(0, 1) if streamed else 1)
+        gate_exact(c.host(), a.host() + b.host(), "streamAdd A B B A")
+    # the first block warms the tuner (its measuring run and first chunked runs)
+    out["streamAdd"] = row[1:5]
+    print(f"streamAdd 2^24 GB/s (12 bytes an item over the best of 5 calls), streamed / "
+          f"monolithic / monolithic / streamed: {row[1:5]} (warm block {row[0]}, last {row[5]}); "
+          f"chunks {chunks}")
+    ov = wl.measure_stream_overlap(gpus, n=1 << 22, streamed=True, duplex_probe=True, reps=5)
+    print(f"measure_stream_overlap(streamed=True, duplex_probe=True): {json.dumps(ov)}")
+    dc = wl.duplex_ceiling()
+    print(f"duplex_ceiling(): {json.dumps(dc)}")
+    out["overlap"] = {k: ov.get(k) for k in ("overlap_fraction", "stream_chunks",
+                                             "overlap_ceiling", "achieved_vs_ceiling")}
+    out["duplex_ceiling"] = dc["ceiling"]
+    return out
+
+
+def check_nbody_e2e(wl, gpus, mods) -> dict:
+    """``nbody_e2e`` at n = 8192: 150 iterations in enqueue windows of 50,
+    fused, over two partition lanes of the card; the host check within
+    0.01 and every n-body launch on the loop form."""
+    reg, graphs, cuda_backend, mandel_op, ew_op = mods
+    reset_counts(reg, graphs, cuda_backend, mandel_op, ew_op)
+    r = wl.nbody_e2e(gpus.subset(1), n=8192, iters=150, window=50)
+    forms = dict(cuda_backend.FORMS.by_key)
+    routes = dict(reg.launch_counts)
+    print(f"nbody_e2e n=8192, 150 iterations, windows of 50: {json.dumps(r)}; forms {forms}; "
+          f"routes {routes}; graphs {dict(graphs.GRAPHS.by_key)}")
+    gate_forms(forms, {"nBody": "loop"})
+    if r["host_check_max_err"] > 0.01 or routes["torch"] or r["lanes"] != 2:
+        raise AssertionError(f"nbody_e2e: {r}, routes {routes}")
+    return r
+
+
+def check_no_compute(ck, wl, gpus, mods) -> None:
+    """``no_compute_mode`` on the GPU lane: per call and in enqueue mode the
+    arrays move (H2D and D2H counted) and no kernel launches, the host
+    output keeps what it held, and an enqueue repeat counts the fused
+    refusal ``no-compute``."""
+    reg, graphs, cuda_backend, mandel_op, ew_op = mods
+    n = 1 << 20
+    y0 = np.arange(n, dtype=np.float32) % 13
+    x = ck.ClArray(np.ones(n, np.float32), name="x", read_only=True, fast=True)
+    y = ck.ClArray(y0.copy(), name="y", partial_read=True, fast=True)
+    with ck.NumberCruncher(gpus.subset(1), SAXPY_SRC) as cr:
+        cr.no_compute_mode = True
+        reset_counts(reg, graphs, cuda_backend, mandel_op, ew_op)
+        x.next_param(y).compute(cr, 7300, "saxpy", n, 256, values=(ALPHA,))
+        cr.enqueue_mode = True
+        for _ in range(3):
+            x.next_param(y).compute(cr, 7301, "saxpy", n, 256, values=(ALPHA,))
+        cr.enqueue_mode = False
+        counts = launch_counts(reg, cuda_backend, mandel_op, ew_op)
+        transfers = dict(cr.cores.workers[0].transfers)
+        stats = json.loads(json.dumps(cr.fused_stats))
+    print(f"no_compute_mode: launches {counts}, transfers {transfers}, fused_stats {stats}")
+    gate_exact(y.host(), y0, "no_compute_mode y")
+    # the per-call call uploads x and y and reads y back; the enqueued calls
+    # find both resident and read y back once, at the flush
+    want = {("h2d", "x"): 1, ("h2d", "y"): 1, ("d2h", "y"): 2}
+    if (sum(counts["routes"].values()) or counts["emitted"] or transfers != want
+            or stats["disengaged"].get("no-compute", 0) != 2):
+        raise AssertionError(f"no_compute_mode: launches {counts}, transfers {transfers}, "
+                             f"fused_stats {stats}")
+
+
 def main() -> int:
     import torch
 
@@ -1710,12 +2075,15 @@ def main() -> int:
               f"max_abs_err {r['max_abs_err']}")
 
     phase("main path (GPU lane)")
+    from cekirdekler_tpu_torch.core import cores as cores_mod
+
     gpus = ck.all_devices().gpus()
     ref_img = wl.mandelbrot_host(W, H, -2.0, -1.25, 2.5 / W, 2.5 / H, iters)
     cuda_backend.LAUNCHES.reset()
     cuda_backend.FORMS.reset()
     mandel_op.LAUNCHES.reset()
     registry.reset_launch_counts()
+    cores_mod.STREAMED.reset()
     res = {}
     for label, hand in (("C-subset", False), ("hand kernel", True)):
         r = wl.run_mandelbrot(gpus, W, H, iters, local_range=256, keep_image=True,
@@ -1743,7 +2111,8 @@ def main() -> int:
     counts["mandelbrot.cu"] = mandel_op.LAUNCHES.count
     routes = dict(registry.launch_counts)
     forms = dict(cuda_backend.FORMS.by_key)
-    print(f"launch counts on the main path: {counts}; routes {routes}; emitter forms {forms}")
+    print(f"launch counts on the main path: {counts}; routes {routes}; emitter forms {forms}; "
+          f"streamed lane phases {dict(cores_mod.STREAMED.by_key)}")
     for name in ("mandelbrot", "nBody", "streamAdd", "saxpy", "mandelbrot.cu"):
         if counts.get(name, 0) <= 0:
             raise AssertionError(f"kernel {name} never launched on the main path")
@@ -1792,6 +2161,18 @@ def main() -> int:
     phase("balancer (GPU + host lane)")
     check_balancer(ck, wl, gpus.subset(1) + ck.all_devices().cpus(1),
                    [rate_prior(kind), rate_prior("cpu")])
+
+    phase("device selection")
+    check_devices(ck, wl, gpus, mods)
+
+    phase("streamed transfers (GPU lane)")
+    stream_res = check_streamed(ck, wl, gpus, mods, ref_img)
+
+    phase("n-body end to end (two partition lanes)")
+    check_nbody_e2e(wl, gpus, mods)
+
+    phase("no_compute_mode (GPU lane)")
+    check_no_compute(ck, wl, gpus, mods)
 
     phase("transformer forward")
     rows["flash_attention"]["launches"] = check_transformer(wl, fa_op, card)
@@ -1846,7 +2227,8 @@ def main() -> int:
             **{key: rr[key] for key in ("kernel_route", "fp32_ms", "fp32_bound_ms", "torch_ops_ms")
                if key in rr},
         })
-    print(f"mpixels_per_sec: {json.dumps(res)}; total {time.perf_counter() - t_all:.1f} s")
+    print(f"mpixels_per_sec: {json.dumps(res)}; streamed against monolithic: "
+          f"{json.dumps(stream_res)}; total {time.perf_counter() - t_all:.1f} s")
     print(f"profiler records found lost and read at their kernel's mean: {trace_window.lost}; "
           f"traces taken again for a garbled record or more lost: {len(trace_window.defects)}")
     for defect in trace_window.defects:

@@ -363,3 +363,85 @@ def test_nbody_bound_counts_fp32_pipe_and_mufu_instructions():
     assert ms == pytest.approx(8192 * 8192 * 22 / (132 * 128 * 1.98e9) * 1e3)
     assert 0.0441 < ms < 0.0442
     assert 8192 * 8192 * 2 / (132 * 16 * 1.98e9) * 1e3 < ms
+
+
+# -- the streamed-transfer and no_compute_mode gates, on a host lane ----------------
+
+def _mods():
+    from cekirdekler_tpu_torch.kernel import cuda_backend, graphs, registry
+    from cekirdekler_tpu_torch.ops import elementwise, mandelbrot
+
+    return registry, graphs, cuda_backend, mandelbrot, elementwise
+
+
+def _small_cases():
+    """The streamed phase's cases at a host lane's size: a 64x64 image and
+    4096-float streamAdd and saxpy, each with its arrays from a seed."""
+    import cekirdekler_tpu_torch as ck
+    from cekirdekler_tpu_torch import workloads as wl
+
+    w, n = 64, 4096
+    vals = (-2.0, -1.25, 2.5 / w, 2.5 / w, w, 32)
+
+    def image():
+        return [ck.ClArray(w * w, np.float32, name="img", read=False, write=True)]
+
+    def stream():
+        rng = np.random.default_rng(3)
+        return [ck.ClArray(rng.standard_normal(n).astype(np.float32), name=k,
+                           partial_read=True, read_only=True) for k in "ab"] + [
+            ck.ClArray(n, np.float32, name="c", write_only=True)]
+
+    def saxpy():
+        rng = np.random.default_rng(4)
+        return [ck.ClArray(rng.standard_normal(n).astype(np.float32), name="x",
+                           partial_read=True, read_only=True),
+                ck.ClArray(rng.standard_normal(n).astype(np.float32), name="y",
+                           partial_read=True)]
+
+    img = wl.mandelbrot_host(w, w, *vals[:4], 32)
+    return [(("emitted mandelbrot", wl.MANDELBROT_SRC, "mandelbrot", vals, image, w * w), img),
+            (("emitted streamAdd", wl.STREAM_SRC, "streamAdd", (), stream, n), None),
+            (("emitted saxpy", chip_smoke.SAXPY_SRC, "saxpy", (chip_smoke.ALPHA,), saxpy, n),
+             None)]
+
+
+@pytest.mark.parametrize("k", [0, 1, 2], ids=["mandelbrot", "streamAdd", "saxpy"])
+def test_the_streamed_gate_passes_the_port_on_a_host_lane(k):
+    import cekirdekler_tpu_torch as ck
+
+    case, img = _small_cases()[k]
+    chip_smoke.gate_streamed_case(ck, _lanes(1), _mods(), case, img, calls=3)
+
+
+def test_the_streamed_gate_fails_on_a_lost_chunk(monkeypatch):
+    """A D2H that skips each call's last chunk (a modelled race that lets
+    a chunk's copy miss its data)."""
+    import cekirdekler_tpu_torch as ck
+    from cekirdekler_tpu_torch.core.worker import Worker
+
+    copy = Worker.download_chunk_async
+
+    def lossy(self, arr, off, n):
+        if off + n == arr.size:
+            return None
+        return copy(self, arr, off, n)
+
+    monkeypatch.setattr(Worker, "download_chunk_async", lossy)
+    case, img = _small_cases()[1]
+    with pytest.raises(AssertionError, match="against the monolithic run"):
+        chip_smoke.gate_streamed_case(ck, _lanes(1), _mods(), case, img, calls=3)
+
+
+def test_the_no_compute_gate_passes_the_port_and_fails_a_launch(monkeypatch):
+    import cekirdekler_tpu_torch as ck
+    from cekirdekler_tpu_torch import workloads as wl
+    from cekirdekler_tpu_torch.core.cores import Cores
+
+    chip_smoke.check_no_compute(ck, wl, _lanes(1), _mods())
+    # a cruncher that forgets the mode launches, and the gate says so
+    monkeypatch.setattr(Cores, "no_compute_mode", property(lambda self: False,
+                                                           lambda self, v: None),
+                        raising=False)
+    with pytest.raises(AssertionError, match="no_compute_mode"):
+        chip_smoke.check_no_compute(ck, wl, _lanes(1), _mods())

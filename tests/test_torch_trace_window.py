@@ -122,6 +122,9 @@ def test_by_name_sums_each_activity_but_the_leads():
     (["-m", "cekirdekler_tpu_torch.tools.dispatch_floor"], "a CUDA device"),
     (["-m", "cekirdekler_tpu_torch.tools.fused_windows"], "a CUDA device"),
     (["-m", "cekirdekler_tpu_torch.tools.profile_enqueue", "--fused", "off"], "a CUDA device"),
+    (["-m", "cekirdekler_tpu_torch.tools.overlap_sweep", "--ns", "4096"], "a CUDA device"),
+    (["-m", "cekirdekler_tpu_torch.tools.stream_chunks"], "a CUDA device"),
+    (["cekirdekler_tpu_torch/tools/mixed_enqueue.py"], "a CUDA device"),
 ])
 def test_card_tools_refuse_without_a_card(cmd, message):
     """The tracing tools exit non-zero and print no result where no CUDA

@@ -5,12 +5,25 @@ The same user API as the JAX package — ``NumberCruncher``, ``ClArray`` /
 Python kernels, the per-compute-id load balancer over lanes — running on
 CUDA devices (and host-CPU lanes selected explicitly), with the kernels
 the JAX package wrote in Pallas written by hand in CUDA C++ for Hopper
-(``csrc/``, ``kernel/cuda_backend.py``).  This package never imports JAX
-or the JAX package.
+(``csrc/``, ``kernel/cuda_backend.py``), and the reference's observability
+hooks (``metrics``, ``trace``, ``obs``: the metrics registry, spans, the
+decision log with its replay, the flight recorder; ``utils.faultinject``,
+the fault plane).  This package never imports JAX or the JAX package.
 """
 
 from .arrays.clarray import ClArray, ParameterGroup, TransferFlags, wrap
-from .arrays.fastarr import FastArr
+from .arrays.fastarr import (
+    BFloat16Arr,
+    ByteArr,
+    DoubleArr,
+    FastArr,
+    FloatArr,
+    HalfArr,
+    IntArr,
+    LongArr,
+    UIntArr,
+    type_code_for_dtype,
+)
 from .core.cruncher import NumberCruncher
 from .errors import (
     CekirdeklerError,
@@ -19,13 +32,30 @@ from .errors import (
     KernelCompileError,
     KernelLanguageError,
 )
-from .hardware import AcceleratorType, Device, Devices, all_devices, cpus, devices_for_type
+from .hardware import (
+    AcceleratorType,
+    Device,
+    Devices,
+    Platform,
+    Platforms,
+    all_devices,
+    cpus,
+    devices_for_type,
+    platforms,
+)
 from .kernel.registry import KernelProgram, PythonKernel, kernel
+from . import metrics  # the always-on metrics registry
+from . import obs  # decision log, replay, flight recorder
+from . import trace  # spans and the fence split
+
+__version__ = "0.1.0"
 
 __all__ = [
-    "AcceleratorType", "CekirdeklerError", "ClArray", "ComputeValidationError",
-    "Device", "DeviceSelectionError", "Devices", "FastArr", "KernelCompileError",
-    "KernelLanguageError", "KernelProgram", "NumberCruncher", "ParameterGroup",
-    "PythonKernel", "TransferFlags", "all_devices", "cpus", "devices_for_type",
-    "kernel", "wrap",
+    "AcceleratorType", "BFloat16Arr", "ByteArr", "CekirdeklerError", "ClArray",
+    "ComputeValidationError", "Device", "DeviceSelectionError", "Devices", "DoubleArr",
+    "FastArr", "FloatArr", "HalfArr", "IntArr", "KernelCompileError",
+    "KernelLanguageError", "KernelProgram", "LongArr", "NumberCruncher", "ParameterGroup",
+    "Platform", "Platforms", "PythonKernel", "TransferFlags", "UIntArr", "all_devices",
+    "cpus", "devices_for_type", "kernel", "metrics", "obs", "platforms", "trace",
+    "type_code_for_dtype", "wrap",
 ]

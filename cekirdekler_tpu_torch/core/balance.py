@@ -2,9 +2,12 @@
 from measured per-lane wall times.
 
 A copy of ``cekirdekler_tpu/core/balance.py`` with its arithmetic unchanged
-(the port never imports the JAX package).  The decision-record, metric and
-flight-recorder hooks are left out until observability is ported; nothing
-that feeds a decision was touched.  ``BalanceState.from_dict`` and
+(the port never imports the JAX package), with the reference's hooks: the
+``prior-split`` and ``load-balance`` decision records (their inputs a
+snapshot of the carried state before the call changes it, so
+``obs/replay.py`` and the reference's replayer re-execute them bit for
+bit), the ``balance-freeze`` / ``balance-jump`` flight events and the
+balancer's counters and gauge.  ``BalanceState.from_dict`` and
 ``BalanceHistory.from_dict`` are new: they carry a mid-run balancer state
 across from plain numbers (e.g. ``dataclasses.asdict`` of the reference's
 objects).
@@ -30,6 +33,10 @@ Cores.cs:595-604).
 from __future__ import annotations
 
 from dataclasses import dataclass, field
+
+from ..metrics.registry import REGISTRY
+from ..obs.decisions import DECISIONS
+from ..obs.flight import FLIGHT
 
 __all__ = [
     "load_balance",
@@ -139,7 +146,6 @@ class BalanceHistory:
                    rows=[[float(v) for v in r] for r in d["rows"]],
                    weighted=bool(d["weighted"]))
 
-
 @dataclass
 class BalanceState:
     """Per-compute-id continuous balancer state with *adaptive* per-chip
@@ -188,7 +194,6 @@ class BalanceState:
                    prev_delta=[float(v) for v in d["prev_delta"]],
                    damp=[float(v) for v in d["damp"]],
                    jumped=bool(d["jumped"]), warm=bool(d["warm"]))
-
 
 def per_iteration_benches(
     window_ms: dict[int, float], iters: dict[int, int]
@@ -245,7 +250,10 @@ def prior_split(
     exactly (the homogeneous degenerate case is bit-identical, so a
     same-kind fleet's decision history does not change shape).
 
-    ``cid`` is provenance only (the math never reads it).
+    Pure and replayable: one ``prior-split`` decision record with the
+    complete inputs (``obs/replay.py`` re-executes it bit-identically;
+    the recorded priors are what ``ckreplay whatif --set
+    rate_prior=off`` removes to quantify the seeding win offline).
     """
     if step <= 0:
         raise ValueError("step must be positive")
@@ -266,7 +274,17 @@ def prior_split(
         range(num), key=lambda i: (-(cont[i] - base[i]), -safe[i], i))
     for i in order[:leftover]:
         base[i] += 1
-    return [b * step for b in base]
+    ranges = [b * step for b in base]
+    if DECISIONS.enabled:
+        DECISIONS.record("prior-split", {
+            "total": int(total), "step": int(step),
+            "priors": [float(p) for p in priors],
+            "cid": cid,
+        }, {
+            "ranges": [int(r) for r in ranges],
+            "shares": list(shares),
+        })
+    return ranges
 
 
 def load_balance(
@@ -321,12 +339,52 @@ def load_balance(
     step.  One-shot per state (``BalanceState.jumped``); every later
     iteration runs the normal damped adaptive loop.
 
-    ``cid`` and ``rate_prior`` — provenance only, kept for signature
-    parity with the reference (the math never reads them).
+    ``cid`` — provenance only: the compute id this iteration balances,
+    carried into the decision record so replay/what-if can chain one
+    id's sequence (the math never reads it).
+
+    ``rate_prior`` — provenance only, like ``cid``: the per-lane
+    throughput priors that seeded this chain's FIRST split
+    (:func:`prior_split`; ``None`` for an equal-split chain).  The math
+    never reads it — the prior's entire effect is the starting ranges —
+    but recording it on every iteration lets ``ckreplay whatif --set
+    rate_prior=off`` rebuild the counterfactual equal-split chain from
+    the log alone, and keeps replay-verify bit-identical (a recorded
+    input, not a behavior change).
+
+    Every iteration records one ``load-balance`` decision into
+    ``obs.decisions.DECISIONS`` with the COMPLETE inputs (benches,
+    ranges, floors, damping, and the pre-call history/carry/state
+    snapshots) and outputs (action, new ranges, shares, effective
+    times, continuous state) — the event-sourced provenance
+    ``tools/ckreplay.py`` replay-verifies bit-identically.
     """
     n = len(ranges)
     if n == 1:
         return [total]
+    # provenance snapshot at ENTRY, before the sum-repair/reset paths
+    # mutate anything: replay re-executes this call from exactly here
+    rec = None
+    if DECISIONS.enabled:
+        rec = {
+            "benchmarks": [float(b) for b in benchmarks],
+            "ranges": [int(r) for r in ranges],
+            "total": int(total), "step": int(step),
+            "damping": float(damping),
+            "transfer_ms": (None if transfer_ms is None
+                            else [float(t) for t in transfer_ms]),
+            "jump_start": bool(jump_start),
+            "cid": cid,
+            "rate_prior": (None if rate_prior is None
+                           else [float(p) for p in rate_prior]),
+            "history": None if history is None else {
+                "depth": int(history.depth),
+                "weighted": bool(history.weighted),
+                "rows": [list(r) for r in history.rows],
+            },
+            "carry": None if carry is None else list(carry),
+            "state": None if state is None else _state_snapshot(state),
+        }
     if sum(ranges) != total:
         ranges = equal_split(total, n, step)
         if carry is not None:
@@ -346,8 +404,10 @@ def load_balance(
 
     # 1-2: normalized throughput shares (measured on the quantized ranges)
     safe = [max(b, 1e-9) for b in benchmarks]
+    floor_bound = [False] * n
     if transfer_ms is not None and len(transfer_ms) == n:
         # transfer floor: effective time = max(compute bench, link time)
+        floor_bound = [max(t, 0.0) > s for s, t in zip(safe, transfer_ms)]
         safe = [max(s, max(t, 0.0)) for s, t in zip(safe, transfer_ms)]
     tot_b = sum(safe)
 
@@ -379,6 +439,32 @@ def load_balance(
                     history.smooth(shares)
                 state.cont = [float(r) for r in ranges]
                 state.prev_delta = [0.0] * n
+                REGISTRY.counter(
+                    "ck_balance_freeze_total",
+                    "quantization-floor freezes (split held, churn avoided)",
+                ).inc()
+                FLIGHT.event("balance-freeze", ranges=list(ranges))
+                if rec is not None:
+                    DECISIONS.record("load-balance", rec, {
+                        "action": "freeze",
+                        "ranges": [int(r) for r in ranges],
+                        "shares": list(shares),
+                        "effective_ms": list(safe),
+                        "floor_bound": list(floor_bound),
+                        "cont": [float(r) for r in ranges],
+                        "freeze": {
+                            "mean_ms": mean_b,
+                            "one_step_work_ms": one_step_work,
+                            "excess_ms": safe[i_max] - mean_b,
+                            "lane": i_max,
+                            # the margin IN EFFECT at decision time —
+                            # explain must render the constant this
+                            # freeze actually compared against, not
+                            # whatever the code ships later
+                            "margin": FREEZE_MARGIN,
+                        },
+                        "state_after": _state_snapshot(state),
+                    })
                 return list(ranges)
 
     # 3: optional smoothing
@@ -391,13 +477,16 @@ def load_balance(
     do_jump = (
         state is not None and jump_start and not state.jumped and state.warm
     )
+    jump_armed = False
     if state is not None and jump_start and not state.jumped and not state.warm:
+        jump_armed = True
         # arm only: first-window benches routinely carry one lane's jit
         # compile and the tuner's measuring fence — jumping undamped
         # onto a compile-inflated bench would near-starve that lane in
         # one step, so this iteration runs damped and the NEXT measured
         # rebalance jumps on clean benches
         state.warm = True
+    action = "jump" if do_jump else ("damped" if state is not None else "fixed")
     if do_jump:
         # transfer-aware warm start: one undamped jump to the
         # rate-implied split (second-window benches carry per-item cost
@@ -407,6 +496,14 @@ def load_balance(
         cont = [total * v for v in shares]
         state.prev_delta = [cont[i] - base[i] for i in range(n)]
         state.cont = list(cont)
+        REGISTRY.counter(
+            "ck_balance_jump_total",
+            "one-shot undamped warm-start jumps to the rate-implied split",
+        ).inc()
+        FLIGHT.event(
+            "balance-jump",
+            target=[round(total * v, 1) for v in shares],
+        )
     elif state is not None:
         # a lagging smoother in the loop lowers the stable gain ceiling
         # (delay ~3 iters × gain must stay < 1): cap tighter when history on
@@ -427,6 +524,10 @@ def load_balance(
         if s > 0:
             cont = [c * (total / s) for c in cont]
         state.cont = list(cont)
+        REGISTRY.gauge(
+            "ck_balance_damp_mean",
+            "mean adaptive per-chip damping (carry state health)",
+        ).set(sum(state.damp) / n)
     else:
         cont = [base[i] - (base[i] - total * shares[i]) * damping for i in range(n)]
     if carry is not None:
@@ -458,5 +559,29 @@ def load_balance(
             i = max(candidates, key=lambda k: quant[k])
             quant[i] -= step
             diff += step
+    if rec is not None:
+        DECISIONS.record("load-balance", rec, {
+            "action": action,
+            "jump_armed": jump_armed,
+            "ranges": [int(x) for x in quant],
+            "shares": list(shares),
+            "effective_ms": list(safe),
+            "floor_bound": list(floor_bound),
+            "cont": list(cont),
+            "state_after": _state_snapshot(state),
+        })
     return quant
 
+
+def _state_snapshot(state: BalanceState | None) -> dict | None:
+    """The replay-sufficient view of a :class:`BalanceState` — every
+    field the next iteration's math reads."""
+    if state is None:
+        return None
+    return {
+        "cont": list(state.cont),
+        "prev_delta": list(state.prev_delta),
+        "damp": list(state.damp),
+        "jumped": state.jumped,
+        "warm": state.warm,
+    }

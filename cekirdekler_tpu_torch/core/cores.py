@@ -59,10 +59,24 @@ dispatched and drained before the re-split flush runs.
 :meth:`compute_fused_batch` defers a batch assembled by its caller in one
 step.
 
-Not ported yet (queued in ROADMAP.md): pipelines, drains, the barrier's
-health, drain, flight and decision hooks, the fence split, the verify gate,
-the compile cache and ``warmup``, ``dispatch_gate``, ``trace_lanes``, and
-the metrics/trace/obs hooks.
+The reference's hooks are at its sites: the lanes' rate-prior gauges; on a
+range-table change a ``split``/``rebalance`` span, a ``rebalance`` flight
+event and the balancer's counters and share gauges; an ``enqueue`` span
+per call; ``record_crash`` when a call, a drain or a barrier fails (a
+postmortem only under ``CK_POSTMORTEM_DIR``); the fused path's cached
+counters (a deferral adds one increment), ``fused-engage`` /
+``fused-disengage`` flight events and decision records and its spans; the
+streamed phase's ``stream-choice`` event, chunk-count gauge and
+``pipeline-stage`` span; and the barrier's ``fence`` span, ``barrier``
+flight event, ``ck_barrier_seconds`` histogram, the ``lane-stall`` fault
+site and the decision log's spill.  With :attr:`fence_split` on, a barrier
+fences each compute id of a mixed window in last-dispatch order
+(``Worker.fence_cid``) and feeds the balancer marginal per-id times
+(``trace/attribution.split_fence_benches``).
+
+Not ported yet (queued in ROADMAP.md): pipelines, the health and drain
+hooks, the debug port, the verify gate, the compile cache and ``warmup``
+(with its ``cache-warmup`` record), ``dispatch_gate`` and ``trace_lanes``.
 """
 
 from __future__ import annotations
@@ -78,10 +92,16 @@ from typing import Any, Sequence
 import torch
 
 from ..arrays.clarray import ClArray
-from ..errors import ComputeValidationError, FusedBatchError
+from ..errors import ComputeValidationError, FusedBatchError, InjectedFaultError
 from ..hardware import Devices, rate_prior
 from ..kernel.build import LaunchCounter
 from ..kernel.registry import KernelProgram
+from ..metrics.registry import REGISTRY
+from ..obs.decisions import DECISIONS
+from ..obs.flight import FLIGHT, record_crash
+from ..trace.attribution import split_fence_benches
+from ..trace.spans import TRACER
+from ..utils.faultinject import FAULTS
 from .balance import (
     BalanceHistory,
     BalanceState,
@@ -163,6 +183,9 @@ class Cores:
         # GPU + host-CPU fleet seeds its first split from these
         self.lane_kinds: list[str] = [d.kind for d in devices]
         self.rate_priors: list[float] = [rate_prior(k) for k in self.lane_kinds]
+        for i, kind in enumerate(self.lane_kinds):
+            REGISTRY.gauge("ck_lane_rate_prior", "table-derived relative-rate prior per lane",
+                           lane=i, ck_lane_kind=kind).set(self.rate_priors[i])
         self.pool = ThreadPoolExecutor(max_workers=max(1, len(self.workers)))
         self.global_ranges: dict[int, list[int]] = {}
         self.histories: dict[int, BalanceHistory] = {}
@@ -209,6 +232,14 @@ class Cores:
         self._enqueue_cids: set[int] = set()
         self._enqueue_iters: dict[int, int] = {}
         self._enqueue_rebalance: set[int] = set()
+        # the window's compute ids in last-dispatch order (the fence split)
+        self._enqueue_cid_order: list[int] = []
+        # per-cid fence split at barriers (off by default: one more probe
+        # per compute id of a mixed window)
+        self._fence_split = False
+        # compute_fused_batch preflighted the lanes for this iteration: its
+        # streamed submits skip their fault fire
+        self._batch_preflighted = False
         # id(array) -> (global offset, ranges) of the array's last call: where
         # its freshest data lives on the lanes
         self._splits: dict[int, tuple] = {}
@@ -229,6 +260,19 @@ class Cores:
         self._fused_mu = threading.Lock()
         self.fused_stats: dict[str, Any] = {
             "windows": 0, "fused_iters": 0, "deferred_iters": 0, "disengaged": {}}
+        # cached metric handles: a deferral is one counter increment, and
+        # the per-call and streamed paths do no registry get-or-create
+        self._m_fused_deferred = REGISTRY.counter(
+            "ck_fused_deferred_iters_total", "enqueue calls deferred into fused windows")
+        self._m_fused_windows = REGISTRY.counter(
+            "ck_fused_windows_total", "fused ladder dispatch batches")
+        self._m_fused_iters = REGISTRY.counter(
+            "ck_fused_iters_total", "iterations dispatched via fused ladders")
+        self._m_barriers = REGISTRY.counter("ck_barriers_total", "enqueue-window sync points")
+        self._m_stream_stages = REGISTRY.counter(
+            "ck_pipeline_stages_total", "stage bodies executed", engine="STREAM")
+        self._m_stream_retunes = REGISTRY.counter(
+            "ck_stream_retune_total", "transfer-autotuner re-tunes forced by re-partitions")
 
     @property
     def adaptive_load_balancer(self) -> bool:
@@ -245,6 +289,23 @@ class Cores:
             self.histories.clear()
             self._balance_states.clear()
             self._cont_ranges.clear()
+
+    @property
+    def fence_split(self) -> bool:
+        """Fence each compute id of a mixed enqueue window apart at the
+        barrier and feed the balancer marginal per-id times (reference
+        ``Cores.fence_split``).  Off releases the lanes' probes."""
+        return self._fence_split
+
+    @fence_split.setter
+    def fence_split(self, v: bool) -> None:
+        v = bool(v)
+        self._fence_split = v
+        for w in self.workers:
+            w.track_cid_outputs = v
+            if not v:
+                with w.lock:
+                    w._cid_last_out.clear()
 
     @property
     def num_devices(self) -> int:
@@ -332,7 +393,7 @@ class Cores:
                     self._fused_break("range-change")
                 elif run is not None and any(w.coverage_epoch != ep for w, ep in run.epochs):
                     self._fused_break("non-resident")
-                elif self._fused_defer(t_start):
+                elif self._fused_defer(t_start, kernel_names):
                     return
             else:
                 self._fused_break("signature-change")
@@ -367,12 +428,8 @@ class Cores:
         ranges, refs = self._ranges_for(
             compute_id, global_range, step,
             rebalance=not self.enqueue_mode or compute_id in self._enqueue_rebalance)
-        if old_ranges and (len(old_ranges) != len(ranges)
-                           or any(abs(a - b) > step for a, b in zip(ranges, old_ranges))):
-            # a move of more than one step re-partitioned the bytes: the
-            # transfer tuner's observations describe partitions that no
-            # longer exist (a one-step wiggle stays in its byte bucket)
-            self.transfer_tuner.on_repartition()
+        if ranges != old_ranges:
+            self._note_range_change(compute_id, step, ranges, old_ranges)
         split = (global_offset, tuple(ranges))
         with self._lock:
             self._enqueue_rebalance.discard(compute_id)
@@ -411,16 +468,47 @@ class Cores:
             except Exception as e:  # surface the first lane error
                 errs.append(e)
         if errs:
+            # the black box before the raise (written only when
+            # CK_POSTMORTEM_DIR is set)
+            record_crash("cores.compute", errs[0], lanes=self._lane_config())
             raise errs[0]
+        TRACER.record("enqueue", t_start, cid=compute_id, tag="+".join(kernel_names))
         self._record_perf(compute_id, t_start, ranges)
         if self.enqueue_mode and self.fused_dispatch:
             self._fused_try_engage(kernel_names, params, compute_id, global_range,
                                    local_range, global_offset, value_args, ranges, refs, step)
 
+    def _note_range_change(self, compute_id: int, step: int, ranges: list[int],
+                           old_ranges: list[int]) -> None:
+        """A compute id's range table changed: its span, flight event and
+        balancer metrics; a move of more than one step re-partitioned the
+        bytes, so the transfer tuner's observations describe partitions
+        that no longer exist (a one-step wiggle stays in its byte
+        bucket)."""
+        TRACER.instant("split" if not old_ranges else "rebalance", cid=compute_id,
+                       tag=str(ranges))
+        FLIGHT.event("rebalance", cid=compute_id, ranges=list(ranges), old=list(old_ranges))
+        REGISTRY.counter("ck_rebalance_total", "range-table changes", cid=compute_id).inc()
+        if old_ranges and len(old_ranges) == len(ranges):
+            moved = sum(abs(a - b) for a, b in zip(ranges, old_ranges)) // 2
+            REGISTRY.counter("ck_rebalance_moved_items_total",
+                             "work items shifted between chips by rebalances").inc(moved)
+        for i, r in enumerate(ranges):
+            REGISTRY.gauge("ck_balance_share", "per-chip work-item share",
+                           cid=compute_id, lane=i).set(r)
+        if old_ranges and (len(old_ranges) != len(ranges)
+                           or any(abs(a - b) > step for a, b in zip(ranges, old_ranges))):
+            self.transfer_tuner.on_repartition()
+            self._m_stream_retunes.inc()
+
     def _note_enqueue_call(self, compute_id: int, t_start: float) -> None:
         """Window bookkeeping of one enqueued call.  Caller holds ``_lock``."""
         if self._enqueue_t0 is None:
             self._enqueue_t0 = t_start
+        if compute_id in self._enqueue_cids:
+            # last-dispatch order: a cid's fence probe waits on its last launch
+            self._enqueue_cid_order.remove(compute_id)
+        self._enqueue_cid_order.append(compute_id)
         self._enqueue_cids.add(compute_id)
         self._enqueue_iters[compute_id] = self._enqueue_iters.get(compute_id, 0) + 1
         self._flush_iters[compute_id] = self._flush_iters.get(compute_id, 0) + 1
@@ -434,19 +522,19 @@ class Cores:
                 streamed, key_bytes = self._run_streamed(
                     w, kernel_names, params, compute_id, offset, size, local_range,
                     global_range, value_args, single, write_all_owner)
-                if streamed:
-                    return
-                if self.enqueue_mode:
+                if not streamed and self.enqueue_mode:
                     self._enqueue_phase(w, kernel_names, params, compute_id, offset, size,
                                         local_range, global_range, value_args,
                                         write_all_owner, key_bytes)
-                    return
-                if w.stream is None:
-                    w.fence()  # work a host lane queued in enqueue mode runs first
-                with w.on_stream():
-                    self._phase(w, kernel_names, params, compute_id, offset, size,
-                                local_range, global_range, value_args, write_all_owner,
-                                key_bytes)
+                elif not streamed:
+                    if w.stream is None:
+                        w.fence()  # work a host lane queued in enqueue mode runs first
+                    with w.on_stream():
+                        self._phase(w, kernel_names, params, compute_id, offset, size,
+                                    local_range, global_range, value_args, write_all_owner,
+                                    key_bytes)
+                if w.track_cid_outputs:
+                    w.mark_cid(compute_id)
             finally:
                 w.end_bench(compute_id)
 
@@ -520,7 +608,7 @@ class Cores:
         if not self.no_compute_mode:
             w.launch(self.program, kernel_names, params, value_args, offset, size,
                      local_range, global_range, local_range, repeats=self.repeat_count,
-                     sync_kernel=self.repeat_sync_kernel)
+                     sync_kernel=self.repeat_sync_kernel, compute_id=compute_id)
         mark()
         downloads = 0
         for idx, p in enumerate(params):
@@ -589,7 +677,7 @@ class Cores:
             if compute:
                 w.launch(self.program, kernel_names, params, value_args, offset, size,
                          local_range, global_range, local_range, repeats=repeats,
-                         sync_kernel=sync)
+                         sync_kernel=sync, compute_id=compute_id)
 
         if measuring:
             # timed where the work runs, so no enqueued call waits: a host
@@ -758,7 +846,11 @@ class Cores:
         chunks = self.stream_chunks or self.transfer_tuner.choose(
             w.index, tuner_key, nbytes, max_chunks)
         chunks = min(max(int(chunks), 1), max_chunks)
+        if self.last_stream_chunks.get(w.index) != chunks:
+            # the decision, not the steady state: only a changed count
+            FLIGHT.event("stream-choice", lane=w.index, chunks=chunks, nbytes=nbytes)
         self.last_stream_chunks[w.index] = chunks
+        w.m_chunk_count.set(chunks)
         if chunks <= 1:
             return False, nbytes
         plan = chunk_plan(size, step, chunks)
@@ -771,6 +863,7 @@ class Cores:
                               global_range)
         self._build_launchers(w, [n for n in names if n not in chunked], _ladder(size, step),
                               local_range, global_range)
+        _tt = TRACER.t0()
         t_phase0 = time.perf_counter()
         if w.stream is None and not self.enqueue_mode:
             w.fence()  # work a host lane queued in enqueue mode runs first
@@ -797,7 +890,7 @@ class Cores:
                     if not do_up and not do_down:
                         run(lambda name=name: w.launch(
                             self.program, [name], params, value_args, offset, size,
-                            local_range, global_range, local_range))
+                            local_range, global_range, local_range, compute_id=compute_id))
                         continue
                     for coff, csz in plan:
                         boff = offset + coff
@@ -814,14 +907,16 @@ class Cores:
                             for st in staged:
                                 w.commit_upload(st)
                             w.launch(self.program, [name], params, value_args, boff, csz,
-                                     local_range, global_range, local_range)
+                                     local_range, global_range, local_range,
+                                     compute_id=compute_id)
                             if do_down:
                                 for p in down_parts:
                                     epw = p.flags.elements_per_work_item
                                     handles.append(
                                         w.download_chunk_async(p, boff * epw, csz * epw))
 
-                        w.stream_dispatch_async(run_chunk, depth)
+                        w.stream_dispatch_async(run_chunk, depth,
+                                                preflighted=self._batch_preflighted)
                     w.drain_stream_dispatch()
             except BaseException:
                 # no closure may outlive the lane lock the caller holds; the
@@ -849,6 +944,9 @@ class Cores:
         t_down = time.perf_counter() - t0d if handles else 0.0
         self._note_transfer(w, tuner_key, compute_id, nbytes, stage_s, t_down,
                             time.perf_counter() - t_phase0, chunks=len(plan))
+        self._m_stream_stages.inc()
+        TRACER.record("pipeline-stage", _tt, cid=compute_id, lane=w.index,
+                      tag=f"STREAM x{len(plan)}")
         return True, nbytes
 
     def _record_perf(self, compute_id: int, t_start: float, ranges: list[int]) -> None:
@@ -919,7 +1017,7 @@ class Cores:
                 # a deferral must be a pure launch, with no upload to repeat
                 reason = "partial-upload"
         if reason is not None:
-            self._note_disengage(reason)
+            self._note_disengage(reason, compute_id)
             return
         run = _FusedRun(sig=sig, compute_id=compute_id, kernel_names=tuple(kernel_names),
                         params=tuple(params), value_args=value_args, local_range=local_range,
@@ -932,8 +1030,19 @@ class Cores:
         with self._lock:
             self._fused_sig = sig
             self._fused_run = run
+        FLIGHT.event("fused-engage", cid=compute_id, rows=len(rows))
+        if DECISIONS.enabled:
+            # provenance, not replayable: the engage check reads live
+            # residency
+            DECISIONS.record("fused-engage", {
+                "cid": compute_id,
+                "kernels": list(kernel_names),
+                "global_range": global_range,
+                "local_range": local_range,
+                "lanes": [w.index for w, _off, _size in rows],
+            }, {"engaged": True, "rows": len(rows)})
 
-    def _fused_defer(self, t_start: float) -> bool:
+    def _fused_defer(self, t_start: float, kernel_names) -> bool:
         """Count this call into the open window; False when it closed
         meanwhile (the caller takes the per-call path)."""
         with self._lock:
@@ -944,8 +1053,13 @@ class Cores:
             self._fused_pending += 1
             pending = self._fused_pending
             self.fused_stats["deferred_iters"] += 1
+        self._m_fused_deferred.inc()
         if pending >= max(1, int(self.fused_batch)):
             self._fused_flush()
+        if TRACER.enabled:
+            # the whole call guarded: the tag alone allocates
+            TRACER.record("enqueue", t_start, cid=run.compute_id,
+                          tag="+".join(kernel_names) + " fused-defer")
         if self.performance_feed:
             # the feed prints a row per call; otherwise a deferral stays a
             # counter increment and the window's dispatch records one row
@@ -958,18 +1072,26 @@ class Cores:
     def _dispatch_fused(self, run: _FusedRun, iters: int) -> None:
         """Queue one ``iters``-iteration dispatch per active lane on the
         lanes' drivers.  Every lane is checked for a held failure before any
-        is given the batch; a failure poisons the window, so a caller that
-        catches it cannot defer into it."""
+        is given the batch (an armed ``driver-submit`` fault fires there, once
+        per lane); a failure poisons the window, so a caller that catches it
+        cannot defer into it."""
         t0 = time.perf_counter()
+        _tt = TRACER.t0()
+        cid = run.compute_id
+
+        def dispatch(w: Worker, off: int, size: int) -> None:
+            w.launch_fused(self.program, run.kernel_names, run.params, run.value_args, off,
+                           size, run.local_range, run.global_range, run.step, iters,
+                           compute_id=cid)
+            if w.track_cid_outputs:
+                w.mark_cid(cid)
+
         try:
             for w, _off, _size in run.rows:
                 w.dispatch_preflight()
             for w, off, size in run.rows:
-                w.dispatch_async(
-                    lambda w=w, off=off, size=size: w.launch_fused(
-                        self.program, run.kernel_names, run.params, run.value_args, off, size,
-                        run.local_range, run.global_range, run.step, iters),
-                    depth=self.fused_queue_depth)
+                w.dispatch_async(lambda w=w, off=off, size=size: dispatch(w, off, size),
+                                 depth=self.fused_queue_depth, preflighted=True)
         except Exception:
             with self._lock:
                 self._fused_sig = None
@@ -979,7 +1101,11 @@ class Cores:
         with self._lock:
             self.fused_stats["windows"] += 1
             self.fused_stats["fused_iters"] += iters
-        self._record_perf(run.compute_id, t0, self.global_ranges.get(run.compute_id, []))
+        self._m_fused_windows.inc()
+        self._m_fused_iters.inc(iters)
+        self._record_perf(cid, t0, self.global_ranges.get(cid, []))
+        FLIGHT.event("fused-window", cid=cid, iters=iters)
+        TRACER.record("fused", _tt, cid=cid, tag=f"x{iters}")
 
     def _fused_flush(self) -> None:
         """Dispatch the deferred iterations; the window stays open."""
@@ -1003,15 +1129,27 @@ class Cores:
                 self._dispatch_fused(run, k)
         self._fused_drain()
 
-    def _note_disengage(self, reason: str) -> None:
+    def _note_disengage(self, reason: str, cid: int | None) -> None:
+        """The one disengage-accounting path: ``fused_stats``, the
+        ``ck_fused_disengage_total`` counter by reason, a flight event, a
+        decision record and a ``fused`` span."""
         with self._lock:
             d = self.fused_stats["disengaged"]
             d[reason] = d.get(reason, 0) + 1
+        REGISTRY.counter("ck_fused_disengage_total",
+                         "fused-window refusals/breaks by named reason", reason=reason).inc()
+        FLIGHT.event("fused-disengage", reason=reason, cid=cid)
+        if DECISIONS.enabled:
+            DECISIONS.record("fused-disengage", {"cid": cid}, {"reason": reason})
+        TRACER.instant("fused", cid=cid, tag=f"disengage:{reason}")
 
     def _fused_break(self, reason: str) -> None:
         """Close the window and count why."""
+        with self._lock:
+            run = self._fused_run
+        cid = run.compute_id if run is not None else None
         self._fused_close()
-        self._note_disengage(reason)
+        self._note_disengage(reason, cid)
 
     def _fused_drain(self) -> None:
         errs = []
@@ -1021,6 +1159,7 @@ class Cores:
             except Exception as e:  # noqa: BLE001 - raised after every lane
                 errs.append(e)
         if errs:
+            record_crash("cores.fused_drain", errs[0], lanes=self._lane_config())
             raise errs[0]
 
     def _batch_defer(self, sig: tuple, k: int, t_start: float) -> bool:
@@ -1053,9 +1192,10 @@ class Cores:
         window cannot open, every iteration is a per-call compute.  Needs
         :attr:`enqueue_mode`.  Returns ``{"iters", "fused", "ladder_iters",
         "per_call_iters"}``.  A failure raises :class:`FusedBatchError` with
-        the iterations applied before it; its residue is never ``clean``
-        here (the port has no fault injection, whose preflight refusals are
-        the clean ones)."""
+        the iterations applied before it; its residue is ``clean`` only when
+        an injected fault refused it at a preflight, before anything of it
+        was queued.  With the fault plane armed, each per-call iteration
+        preflights every lane first."""
         iters = int(iters)
         if iters < 1:
             raise ComputeValidationError(f"compute_fused_batch needs iters >= 1, got {iters}")
@@ -1072,12 +1212,24 @@ class Cores:
                     ladder = iters - done
                     done = iters
                     break
-                self.compute(kernel_names, params, compute_id, global_range, local_range,
-                             global_offset=global_offset, value_args=value_args)
+                if FAULTS.enabled:
+                    # an armed driver-submit fires here, before anything of
+                    # this iteration reached a lane; its submits then skip it
+                    for w in self.workers:
+                        w.stream_preflight()
+                self._batch_preflighted = True
+                try:
+                    self.compute(kernel_names, params, compute_id, global_range, local_range,
+                                 global_offset=global_offset, value_args=value_args)
+                finally:
+                    self._batch_preflighted = False
                 done += 1
         except Exception as e:
-            raise FusedBatchError(cause=type(e).__name__, applied_iters=done,
-                                  requested_iters=iters, clean=False, original=e) from e
+            cause = (f"injected:{e.point}" if isinstance(e, InjectedFaultError)
+                     else type(e).__name__)
+            raise FusedBatchError(cause=cause, applied_iters=done, requested_iters=iters,
+                                  clean=bool(getattr(e, "_ck_clean_window", False)),
+                                  original=e) from e
         return {"iters": iters, "fused": ladder > 0, "ladder_iters": ladder,
                 "per_call_iters": iters - ladder}
 
@@ -1184,10 +1336,14 @@ class Cores:
         lane, each lane's fence-retire time since the window's first call
         becomes its bench, per iteration (``per_iteration_benches``), for
         every compute id it ran in the window, and those ids are armed to
-        rebalance on their next call.  An open fused window is dispatched and
-        drained first, so the fences cover it.  A dispatch or fence failure
-        is raised after every lane has been fenced; the window closes either
-        way."""
+        rebalance on their next call.  With :attr:`fence_split` on and more
+        than one compute id in the window, each lane first fences each id's
+        last launch in last-dispatch order (``Worker.fence_cid``) and an id's
+        bench is its marginal time (``split_fence_benches``).  An open fused
+        window is dispatched and drained first, so the fences cover it.  An
+        armed ``lane-stall`` fault delays a lane's fence.  A dispatch or
+        fence failure is raised after every lane has been fenced; the
+        window closes either way."""
         n = self.num_devices
         errs: list[Exception] = []
         try:
@@ -1195,19 +1351,38 @@ class Cores:
                 self._fused_close()
             except Exception as e:  # noqa: BLE001 - the lanes are fenced all the same
                 errs.append(e)
+            self._m_barriers.inc()
+            _mt0 = time.perf_counter()
+            t_b = TRACER.t0()
             with self._lock:
                 t0 = self._enqueue_t0
                 window_cids = set(self._enqueue_cids)
+                window_cid_order = list(self._enqueue_cid_order)
                 window_iters = dict(self._enqueue_iters)
             measure = self.enqueue_mode and t0 is not None and n > 1
+            split_order = (window_cid_order
+                           if self.fence_split and measure and len(window_cids) > 1 else [])
             done_at: dict[int, float] = {}
+            comp_at: dict[int, list[tuple[int, float]]] = {}
 
             def fence_timed(w: Worker) -> None:
+                if FAULTS.enabled:
+                    d = FAULTS.delay_s("lane-stall", lane=w.index, where="barrier")
+                    if d > 0.0:
+                        time.sleep(d)
+                comps: list[tuple[int, float]] = []
+                for cid in split_order:
+                    rng = self.global_ranges.get(cid)
+                    if rng is not None and rng[w.index] <= 0:
+                        continue  # this lane never ran the id
+                    if w.fence_cid(cid):
+                        comps.append((cid, time.perf_counter()))
                 w.fence()
                 done_at[w.index] = time.perf_counter()
+                comp_at[w.index] = comps
 
             if n == 1:
-                fences = [self.workers[0].fence]
+                fences = [lambda: fence_timed(self.workers[0])]
             else:
                 fences = [self.pool.submit(fence_timed, w).result for w in self.workers]
             for wait in fences:
@@ -1216,24 +1391,37 @@ class Cores:
                 except Exception as e:
                     errs.append(e)
             if errs:
+                record_crash("cores.barrier", errs[0], lanes=self._lane_config())
                 raise errs[0]
             for w in self.workers:
                 self._settle_measures(w)
             if measure:
+                FLIGHT.event("barrier", lanes={
+                    w.index: round((done_at[w.index] - t0) * 1000.0, 3) for w in self.workers
+                }, iters=max(1, sum(window_iters.values())))
                 for w in self.workers:
                     bench = (done_at[w.index] - t0) * 1000.0
-                    window_ms = {cid: bench for cid in window_cids
+                    splits = split_fence_benches(comp_at.get(w.index, ()), t0)
+                    window_ms = {cid: splits.get(cid, bench) for cid in window_cids
                                  if self.global_ranges.get(cid, [1] * n)[w.index] > 0}
                     with w.lock:
                         w.benchmarks.update(per_iteration_benches(window_ms, window_iters))
                 with self._lock:
                     self._enqueue_rebalance |= window_cids
+            TRACER.record("fence", t_b, tag="barrier")
         finally:
+            REGISTRY.histogram("ck_barrier_seconds", "barrier wall time").observe(
+                time.perf_counter() - _mt0)
+            # a throttled metric sample into the flight ring, and the
+            # decision log's throttled spill (armed by CK_DECISION_LOG)
+            FLIGHT.maybe_sample_metrics()
+            DECISIONS.maybe_spill()
             self._enqueue_window_closed()
 
     def _enqueue_window_closed(self) -> None:
         with self._lock:
             self._enqueue_cids.clear()
+            self._enqueue_cid_order.clear()
             self._enqueue_iters.clear()
             self._enqueue_t0 = None
 
@@ -1266,7 +1454,9 @@ class Cores:
 
     def dispose(self) -> None:
         """Dispose every lane, then raise the first failure a lane's last
-        fence surfaced."""
+        fence surfaced.  The decision log's tail is spilled first (under
+        ``CK_DECISION_LOG``)."""
+        DECISIONS.maybe_spill(force=True)
         errs = []
         for w in self.workers:
             try:

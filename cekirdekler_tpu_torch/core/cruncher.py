@@ -14,11 +14,11 @@ runtime toggles are ported with its defaults: ``repeat_count``,
 True, ``smooth_load_balancer`` True), ``no_compute_mode`` False,
 ``performance_feed`` False with ``performance_history`` and
 ``last_compute_performance_report``, and ``enqueue_mode_async_enable``
-(stored; a lane's enqueued work is always asynchronous).  Not ported:
-``fine_grained_queue_control`` (queue markers, ROADMAP Queue A 4), which
-reads False and raises :class:`NotPortedError` when set True,
-``dispatch_gate``, ``fence_split``, ``pipeline_lookahead`` and the debug
-endpoints.
+(stored; a lane's enqueued work is always asynchronous), and
+``fence_split`` False.  Not ported: ``fine_grained_queue_control`` (queue
+markers, ROADMAP Queue A 4), which reads False and raises
+:class:`NotPortedError` when set True, ``dispatch_gate``,
+``pipeline_lookahead``, ``health_report`` and the debug endpoints.
 """
 
 from __future__ import annotations
@@ -83,6 +83,18 @@ class NumberCruncher:
     @repeat_kernel_name.setter
     def repeat_kernel_name(self, name: str | None) -> None:
         self.cores.repeat_sync_kernel = name
+
+    @property
+    def fence_split(self) -> bool:
+        """Per-compute-id fence splitting at enqueue-mode barriers: marginal
+        per-id benches from completion-order probes instead of one
+        whole-window fence time charged to every id of a mixed window.
+        Costs one more probe per id per barrier; off by default."""
+        return self.cores.fence_split
+
+    @fence_split.setter
+    def fence_split(self, v: bool) -> None:
+        self.cores.fence_split = bool(v)
 
     @property
     def enqueue_mode(self) -> bool:

@@ -2,9 +2,11 @@
 online transfer autotuner.
 
 A copy of ``cekirdekler_tpu/core/stream.py`` with its arithmetic unchanged
-(the port never imports the JAX package).  Its decision-record and
-flight-recorder hooks are left out until observability is ported; nothing
-that feeds a choice was touched.  On a GPU lane the execution half is
+(the port never imports the JAX package), with the reference's hooks: the
+``transfer-choose`` and ``transfer-observe`` decision records (their
+inputs the tuner's stored state before the call changes it, so the
+reference's replayer re-executes them too) and the ``stream-retune``
+flight event.  On a GPU lane the execution half is
 ``Cores._run_streamed`` with the ``Worker`` chunk primitives, which copy on
 the lane's copy streams while its compute stream runs the chunks' kernels.
 The text below is the reference's.
@@ -82,6 +84,7 @@ from __future__ import annotations
 import threading
 from dataclasses import dataclass
 
+from ..obs.decisions import DECISIONS
 from .worker import _ladder
 
 __all__ = [
@@ -280,17 +283,44 @@ class TransferTuner:
         per-phase host windows measure async *dispatch* cost, not link
         time — EMA'ing those into U/D would decay the honest monolithic
         estimates toward zero, flip the model back to 1 chunk, and
-        oscillate the path between streamed and monolithic forever."""
+        oscillate the path between streamed and monolithic forever.
+
+        Records one ``transfer-observe`` decision (arguments + the
+        pre-call stored state → the post-call stored state) so the
+        model-update arithmetic itself is replay-verifiable."""
         key = self._key(lane, kernel_key, nbytes)
         u, c, d = max(u_ms, 0.0), max(c_ms, 0.0), max(d_ms, 0.0)
+        rec = post = None
         with self._mu:
             cur = self._obs.get(key)
+            if DECISIONS.enabled:
+                rec = {
+                    "lane": int(lane), "kernel_key": kernel_key,
+                    "nbytes": int(nbytes),
+                    "bucket": self.bytes_bucket(nbytes),
+                    "u_ms": u, "c_ms": c, "d_ms": d,
+                    "chunks": int(chunks),
+                    "wall_ms": None if wall_ms is None else float(wall_ms),
+                    "fenced": bool(fenced),
+                    "obs": None if cur is None else {
+                        "u_ms": cur.u_ms, "c_ms": cur.c_ms,
+                        "d_ms": cur.d_ms, "count": cur.count,
+                        "stale": cur.stale,
+                    },
+                    "overhead_ms": self._overhead.get(
+                        lane, self.overhead_ms),
+                    "default_overhead_ms": self.overhead_ms,
+                    "ema": self.ema,
+                }
             if cur is None:
                 if chunks > 1:
                     # a chunked run cannot decompose its own wall into
                     # honest phases (the overlap is what it hides) —
                     # without a monolithic baseline there is nothing
                     # sound to store
+                    if rec is not None:
+                        DECISIONS.record("transfer-observe", rec,
+                                         {"stored": False})
                     return
                 # first contact stores unconditionally: the engine's
                 # measuring-run protocol guarantees it is fenced, and a
@@ -350,6 +380,20 @@ class TransferTuner:
                 implied = max((wall_ms - base) / (chunks - 1), 0.0)
                 cur_ov = self._overhead.get(lane, self.overhead_ms)
                 self._overhead[lane] = cur_ov + self.ema * (implied - cur_ov)
+            if rec is not None:
+                after = self._obs.get(key)  # None when the stale streak
+                post = {                    # (or a flip) dropped the key
+                    "stored": True,
+                    "obs": None if after is None else {
+                        "u_ms": after.u_ms, "c_ms": after.c_ms,
+                        "d_ms": after.d_ms, "count": after.count,
+                        "stale": after.stale,
+                    },
+                    "overhead_ms": self._overhead.get(
+                        lane, self.overhead_ms),
+                }
+        if rec is not None:
+            DECISIONS.record("transfer-observe", rec, post)
 
     def has_obs(self, lane: int, kernel_key, nbytes: int) -> bool:
         """Whether the key already has a stored (monolithic-honest)
@@ -369,14 +413,22 @@ class TransferTuner:
         and fall back to the link seed until re-observed."""
         with self._mu:
             if lane is None:
+                dropped = len(self._obs)
                 self._obs.clear()
                 self._last_choice.clear()
             else:
-                for k in [k for k in self._obs if k[0] == lane]:
+                doomed = [k for k in self._obs if k[0] == lane]
+                dropped = len(doomed)
+                for k in doomed:
                     del self._obs[k]
                 for k in [k for k in self._last_choice if k[0] == lane]:
                     del self._last_choice[k]
             self.retunes += 1
+        # flight-record the decision (outside the lock — the recorder is
+        # lock-free and must not nest under the tuner's mutex)
+        from ..obs.flight import FLIGHT
+
+        FLIGHT.event("stream-retune", lane=lane, dropped_keys=dropped)
 
     # -- the choice ----------------------------------------------------------
     def estimate(
@@ -422,13 +474,24 @@ class TransferTuner:
         one step).  First contact per compute key returns 1 — the
         monolithic measuring run that makes every later model honest;
         no-compute keys (``has_compute=False``) model from the duplex
-        seed, or bootstrap by byte size with no seed either.  The inputs
-        come from ONE consistent read under the mutex."""
+        seed, or bootstrap by byte size with no seed either.
+
+        Every call records one ``transfer-choose`` decision (the key,
+        the stored estimates / seed / learned overhead it modeled from,
+        and the chosen count) into ``obs.decisions.DECISIONS`` —
+        replay-verify reconstructs a tuner from exactly that snapshot
+        and asserts the same choice.  The decision inputs come from ONE
+        consistent read under the mutex (previously ``estimate`` and
+        ``lane_overhead_ms`` re-locked separately — a concurrent
+        ``observe`` could change the row between reads)."""
         cap = max(1, int(max_chunks))
         key = self._key(lane, kernel_key, nbytes)
         with self._mu:
             # VALUE copies under the mutex: the _Obs/_LinkSeed objects
-            # are EMA'd in place by concurrent observe()
+            # are EMA'd in place by concurrent observe() — reading their
+            # fields after the lock drops could model (and record) torn
+            # state, and the recorded snapshot would then disagree with
+            # the choice replay-verify re-derives from it
             obs = self._obs.get(key)
             obs_vals = None if obs is None else (
                 obs.u_ms, obs.c_ms, obs.d_ms, obs.count, obs.stale)
@@ -436,8 +499,32 @@ class TransferTuner:
             seed_vals = None if seed is None else (
                 seed.h2d_ms_per_mib, seed.d2h_ms_per_mib)
             ov = self._overhead.get(lane, self.overhead_ms)
+            rec = None
+            if DECISIONS.enabled:
+                rec = {
+                    "lane": int(lane), "kernel_key": kernel_key,
+                    "nbytes": int(nbytes),
+                    "bucket": self.bytes_bucket(nbytes),
+                    "max_chunks": cap, "has_compute": bool(has_compute),
+                    "obs": None if obs_vals is None else {
+                        "u_ms": obs_vals[0], "c_ms": obs_vals[1],
+                        "d_ms": obs_vals[2], "count": obs_vals[3],
+                        "stale": obs_vals[4],
+                    },
+                    "seed": None if seed_vals is None else {
+                        "h2d_ms_per_mib": seed_vals[0],
+                        "d2h_ms_per_mib": seed_vals[1],
+                    },
+                    "overhead_ms": ov,
+                    "default_overhead_ms": self.overhead_ms,
+                    "ema": self.ema,
+                    "candidates": list(self.candidates),
+                }
             if obs_vals is None and has_compute:
                 self._last_choice[key] = 1
+                if rec is not None:
+                    DECISIONS.record("transfer-choose", rec,
+                                     {"chunks": 1, "why": "measuring-run"})
                 return 1  # the measuring run
         if obs_vals is not None:
             est = obs_vals[:3]
@@ -447,7 +534,12 @@ class TransferTuner:
         else:
             est = None
         if est is None:
-            return min(BOOTSTRAP_CHUNKS, cap) if nbytes >= BOOTSTRAP_BYTES else 1
+            best_c = min(BOOTSTRAP_CHUNKS, cap) \
+                if nbytes >= BOOTSTRAP_BYTES else 1
+            if rec is not None:
+                DECISIONS.record("transfer-choose", rec,
+                                 {"chunks": best_c, "why": "bootstrap"})
+            return best_c
         best_c, best_t = 1, None
         for c in self.candidates:
             if c > cap:
@@ -464,4 +556,9 @@ class TransferTuner:
                 # could otherwise never re-engage streaming
                 self._obs.pop(key, None)
             self._last_choice[key] = best_c
+        if rec is not None:
+            DECISIONS.record("transfer-choose", rec, {
+                "chunks": best_c, "why": "model",
+                "predicted_ms": best_t,
+            })
         return best_c

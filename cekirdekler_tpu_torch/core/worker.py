@@ -45,6 +45,18 @@ per transfer, chunked or not; ``chunk_transfers`` counts the chunk copies.
 The ladder (``step * 2^k`` chunks) stays for parity with the reference's
 chunking: every launch geometry the balancer can produce is one of
 O(log(range/step)) cached launch functions.
+
+The reference's hooks, at its sites: each lane caches its metric handles
+at construction (upload and download bytes, fence waits and seconds, the
+drivers' depths, H2D and D2H chunks, the chosen chunk count); uploads,
+downloads, their chunks and launches record spans, host-time spans of
+issue on a GPU lane; a driver closure's failure records a flight event, a
+span and a counter; ``driver-submit`` fires at a driver's submit and
+preflight (and at a GPU lane's inline chunk dispatch, its submit), and
+``slow-link`` scales a transfer's issue time.  :meth:`fence_cid` is the
+per-compute-id completion probe of ``Cores.fence_split``: a GPU lane waits
+on a CUDA event recorded after the compute id's last launch, a host lane
+for the compute id's queued work (:meth:`mark_cid`).
 """
 
 from __future__ import annotations
@@ -62,6 +74,10 @@ import torch
 from ..arrays.clarray import ClArray
 from ..kernel.graphs import LaneGraphs, buffers_key
 from ..kernel.registry import KernelProgram
+from ..metrics.registry import REGISTRY
+from ..obs.flight import FLIGHT
+from ..trace.spans import TRACER
+from ..utils.faultinject import FAULTS
 
 __all__ = ["Worker"]
 
@@ -110,27 +126,39 @@ class _Slot:
 
 
 class _Download:
-    """A D2H in flight on a GPU lane: its completion event and, when it
-    went through a staging slot, the host copy :meth:`Worker.finish_download`
-    still owes."""
+    """A chunk's D2H in flight: on a GPU lane its completion event and,
+    when it went through a staging slot, the host copy
+    :meth:`Worker.finish_download` still owes; on a host lane the future of
+    the copy queued on the lane (None: it ran inline).  Its
+    ``download-chunk`` span covers the wait, as the reference's covers
+    the materialization."""
 
     def __init__(self, event, slot: _Slot | None = None, src: torch.Tensor | None = None,
-                 dst: torch.Tensor | None = None):
+                 dst: torch.Tensor | None = None, lane: int | None = None,
+                 tag: str | None = None, fut: Future | None = None):
         self.event = event
         self.slot = slot
         self.src = src
         self.dst = dst
+        self.lane = lane
+        self.tag = tag
+        self.fut = fut
         self.done = False
 
     def finish(self) -> None:
         if self.done:
             return
-        self.event.synchronize()
+        _tt = TRACER.t0()
+        if self.fut is not None:
+            self.fut.result()
+        if self.event is not None:
+            self.event.synchronize()
         if self.slot is not None:
             self.dst.copy_(self.src)
             if self.slot.pending is self:
                 self.slot.pending = None
         self.done = True
+        TRACER.record("download-chunk", _tt, lane=self.lane, tag=self.tag)
 
 
 class _Ring:
@@ -188,10 +216,17 @@ class _DriverQueue:
     (given per :meth:`submit`) bounds the closures queued or running: a
     host that runs far ahead blocks in :meth:`submit`.  A closure's failure
     is held and raised at the next :meth:`preflight`, :meth:`submit` or
-    :meth:`drain` (the window's sync point)."""
+    :meth:`drain` (the window's sync point), and recorded when it happens
+    (a ``driver-error`` flight event, span and counter).  An armed
+    ``driver-submit`` fault fires at :meth:`preflight` and :meth:`submit`;
+    an error from :meth:`preflight` carries ``_ck_clean_window`` (True for
+    the injected fault: nothing was queued)."""
 
-    def __init__(self, name: str, host_queue: _HostQueue | None = None):
+    def __init__(self, name: str, host_queue: _HostQueue | None = None,
+                 lane: int | None = None, depth_gauge=None):
         self.name = name
+        self.lane = lane
+        self._depth_gauge = depth_gauge
         self._host_queue = host_queue
         self._cond = threading.Condition()
         self._errors: list[Exception] = []
@@ -210,8 +245,17 @@ class _DriverQueue:
             raise e
 
     def preflight(self) -> None:
-        """Raise a held failure without queuing anything."""
+        """Fire the armed ``driver-submit`` fault and raise a held failure
+        without queuing anything."""
+        if FAULTS.enabled:
+            try:
+                FAULTS.raise_if_fired("driver-submit", lane=self.lane, where=self.name)
+            except Exception as e:  # noqa: BLE001 - marker, re-raised
+                e._ck_clean_window = True
+                raise
         with self._cond:
+            if self._errors:
+                self._errors[0]._ck_clean_window = False
             self._raise_held()
 
     def _wait_below(self, n: int) -> None:
@@ -224,11 +268,17 @@ class _DriverQueue:
                 raise RuntimeError(f"driver {self.name!r} thread died with "
                                    f"{self._pending} closure(s) pending")
 
-    def submit(self, fn: Callable[[], None], depth: int = 2) -> None:
+    def submit(self, fn: Callable[[], None], depth: int = 2,
+               preflighted: bool = False) -> None:
+        if FAULTS.enabled and not preflighted:
+            # a caller that ran preflight already fired the point once
+            FAULTS.raise_if_fired("driver-submit", lane=self.lane, where=self.name)
         with self._cond:
             self._raise_held()
             self._wait_below(max(1, int(depth)))
             self._pending += 1
+            if self._depth_gauge is not None:
+                self._depth_gauge.set(self._pending)
         if self._host_queue is not None:
             self._host_queue.submit(lambda: self._execute(fn))
         else:
@@ -240,9 +290,19 @@ class _DriverQueue:
         except Exception as e:  # noqa: BLE001 - raised at the next drain
             with self._cond:
                 self._errors.append(e)
+            try:
+                FLIGHT.event("driver-error", driver=self.name,
+                             exc_type=type(e).__name__, exc=str(e)[:500])
+                TRACER.instant("driver-error", tag=f"{self.name}: {e}")
+                REGISTRY.counter("ck_driver_errors_total",
+                                 "dispatch-driver closure failures").inc()
+            except Exception:  # noqa: BLE001 - observing is optional
+                pass
         finally:
             with self._cond:
                 self._pending -= 1
+                if self._depth_gauge is not None:
+                    self._depth_gauge.set(self._pending)
                 self._cond.notify_all()
 
     def _run(self) -> None:
@@ -305,6 +365,31 @@ class Worker:
         # enqueued measuring runs of the transfer tuner on this GPU lane:
         # (timing events, key), read by Cores once the events complete
         self.pending_measures: list = []
+        # the fence split's completion probes, recorded only while
+        # Cores.fence_split is on: compute id -> a CUDA event after its
+        # last launch (GPU lane), the future of a marker queued behind its
+        # work (host lane), or True (its work ran inline)
+        self.track_cid_outputs = False
+        self._cid_last_out: dict[int, Any] = {}
+        # always-on metric handles, cached here: the lane label is static
+        self._m_upload_bytes = REGISTRY.counter(
+            "ck_upload_bytes_total", "H2D bytes uploaded", lane=index)
+        self._m_download_bytes = REGISTRY.counter(
+            "ck_download_bytes_total", "D2H bytes materialized", lane=index)
+        self._m_fence_waits = REGISTRY.counter(
+            "ck_fence_waits_total", "whole-lane retirement fences", lane=index)
+        self._m_fence_seconds = REGISTRY.histogram(
+            "ck_fence_seconds", "fence wait duration", lane=index)
+        self._m_driver_depth = REGISTRY.gauge(
+            "ck_driver_queue_depth", "fused-dispatch driver FIFO occupancy", lane=index)
+        self._m_h2d_chunks = REGISTRY.counter(
+            "ck_stream_chunks_total", "streamed transfer chunks", dir="h2d", lane=index)
+        self._m_d2h_chunks = REGISTRY.counter(
+            "ck_stream_chunks_total", "streamed transfer chunks", dir="d2h", lane=index)
+        self._m_stream_depth = REGISTRY.gauge(
+            "ck_stream_queue_depth", "streamed-transfer driver FIFO occupancy", lane=index)
+        self.m_chunk_count = REGISTRY.gauge(
+            "ck_stream_chunk_count", "autotuner-chosen chunk count", lane=index)
 
     def on_stream(self):
         """Context that makes this lane's stream current (no-op on host)."""
@@ -329,17 +414,19 @@ class Worker:
     def _driver_queue(self) -> _DriverQueue:
         if self._driver is None:
             self._driver = _DriverQueue(f"ck-driver-lane-{self.index}",
-                                        None if self.stream is not None else self._queue())
+                                        None if self.stream is not None else self._queue(),
+                                        lane=self.index, depth_gauge=self._m_driver_depth)
         return self._driver
 
     def dispatch_preflight(self) -> None:
-        """Raise a failure of an earlier dispatch closure without queuing
-        anything: a fused dispatch runs this on every lane before it queues
-        a closure on any."""
-        if self._driver is not None:
-            self._driver.preflight()
+        """Fire the armed ``driver-submit`` fault and raise a failure of an
+        earlier dispatch closure, without queuing anything: a fused
+        dispatch runs this on every lane before it queues a closure on
+        any."""
+        self._driver_queue().preflight()
 
-    def dispatch_async(self, fn: Callable[[], None], depth: int = 2) -> None:
+    def dispatch_async(self, fn: Callable[[], None], depth: int = 2,
+                       preflighted: bool = False) -> None:
         """Queue a dispatch closure on this lane's driver; a GPU lane runs
         it under the lane's lock, a host lane on its queue after the work
         queued there before.  At most ``depth`` closures are in flight."""
@@ -350,7 +437,7 @@ class Worker:
                 with self.lock:
                     work()
 
-        self._driver_queue().submit(fn, depth)
+        self._driver_queue().submit(fn, depth, preflighted=preflighted)
 
     def drain_dispatch(self) -> None:
         """Wait until every queued dispatch closure has run, raising the
@@ -360,12 +447,22 @@ class Worker:
 
     # -- stream driver (streamed transfers) ----------------------------------
     def stream_preflight(self) -> None:
-        """Raise a failure of an earlier streamed-transfer closure without
-        queuing anything (and without starting the driver)."""
+        """Fire the armed ``driver-submit`` fault and raise a failure of an
+        earlier streamed-transfer closure without queuing anything (and
+        without starting the driver)."""
         if self._stream_driver is not None:
             self._stream_driver.preflight()
+            return
+        if FAULTS.enabled:
+            try:
+                FAULTS.raise_if_fired("driver-submit", lane=self.index,
+                                      where=f"stream:lane{self.index}")
+            except Exception as e:  # noqa: BLE001 - marker, re-raised
+                e._ck_clean_window = True
+                raise
 
-    def stream_dispatch_async(self, fn: Callable[[], None], depth: int = 2) -> None:
+    def stream_dispatch_async(self, fn: Callable[[], None], depth: int = 2,
+                              preflighted: bool = False) -> None:
         """Queue a streamed-transfer closure (commit + launch + D2H issue).
         A host lane queues it on its stream driver (a ``_DriverQueue`` on
         the lane's queue, after the work queued there before); ``depth``
@@ -376,14 +473,21 @@ class Worker:
         runs the closure here, with its compute stream current: what it
         issues is asynchronous on the lane's streams already, and a driver
         thread only adds a hand-off between two Python threads to every
-        chunk (``tools/stream_chunks.py`` times both)."""
+        chunk (``tools/stream_chunks.py`` times both).  An armed
+        ``driver-submit`` fault fires here on either lane, as at the
+        reference's submit."""
         if self.stream is not None:
+            if FAULTS.enabled and not preflighted:
+                FAULTS.raise_if_fired("driver-submit", lane=self.index,
+                                      where=f"stream:lane{self.index}")
             with self.on_stream():
                 fn()
             return
         if self._stream_driver is None:
-            self._stream_driver = _DriverQueue(f"ck-stream-lane-{self.index}", self._queue())
-        self._stream_driver.submit(fn, depth)
+            self._stream_driver = _DriverQueue(f"ck-stream-lane-{self.index}", self._queue(),
+                                               lane=self.index,
+                                               depth_gauge=self._m_stream_depth)
+        self._stream_driver.submit(fn, depth, preflighted=preflighted)
 
     def drain_stream_dispatch(self) -> None:
         """Wait until every streamed-transfer closure has run (host side;
@@ -485,17 +589,33 @@ class Worker:
         else:
             self._record_upload(arr, offset_elems, size_elems)
 
+    def _slow_link(self, where: str, t0: float) -> None:
+        """An armed ``slow-link`` fault: sleep ``(factor-1)`` times the
+        transfer's measured issue time, plus its ``delay_ms``."""
+        d = FAULTS.delay_s("slow-link", lane=self.index, where=where,
+                           base_s=time.perf_counter() - t0)
+        if d > 0.0:
+            time.sleep(d)
+
     def upload(self, arr: ClArray, offset_elems: int, size_elems: int, full: bool) -> None:
         """H2D of the whole array or only this lane's range slice."""
+        _tt = TRACER.t0()
+        t0 = time.perf_counter() if FAULTS.enabled else 0.0
         buf = self.ensure_resident(arr)
         host = _host_tensor(arr)
         if full:
             buf.copy_(host, non_blocking=True)
+            nbytes = host.numel() * host.element_size()
         else:
             sl = slice(offset_elems, offset_elems + size_elems)
             buf[sl].copy_(host[sl], non_blocking=True)
+            nbytes = size_elems * host.element_size()
+        if t0:
+            self._slow_link("h2d", t0)
+        self._m_upload_bytes.inc(nbytes)
         self.claim_upload(arr, offset_elems, size_elems, full)
         self.transfers["h2d", arr.name] += 1
+        TRACER.record("upload", _tt, lane=self.index, tag=arr.name)
 
     def invalidate(self, arr: ClArray) -> None:
         """Drop the lane's buffer and coverage of ``arr``: the next call
@@ -511,12 +631,21 @@ class Worker:
         stream into the lane's buffer (from the host array when it is
         page-locked, else through a staging slot) and records an event; a
         host lane copies the slice aside, to be written in order."""
+        _tt = TRACER.t0()
+        t0 = time.perf_counter() if FAULTS.enabled else 0.0
         sl = slice(offset_elems, offset_elems + size_elems)
         host = _host_tensor(arr)[sl]
         self.chunk_transfers["h2d", arr.name] += 1
+        self._m_h2d_chunks.inc()
+        self._m_upload_bytes.inc(host.numel() * host.element_size())
         buf = self._buffers[id(arr)]
         if self.stream is None:
-            return (arr, offset_elems, size_elems, host.clone(), buf)
+            staged = (arr, offset_elems, size_elems, host.clone(), buf)
+            if t0:
+                self._slow_link("h2d", t0)
+            TRACER.record("upload-chunk", _tt, lane=self.index,
+                          tag=f"{arr.name}@{offset_elems}+{size_elems}")
+            return staged
         src = host
         slot = None
         if not _pinned(arr):
@@ -530,6 +659,10 @@ class Worker:
         buf.record_stream(self.h2d_stream)
         if slot is not None:
             slot.event = done
+        if t0:
+            self._slow_link("h2d", t0)
+        TRACER.record("upload-chunk", _tt, lane=self.index,
+                      tag=f"{arr.name}@{offset_elems}+{size_elems}")
         return (arr, offset_elems, size_elems, done, buf)
 
     def commit_upload(self, staged) -> None:
@@ -558,11 +691,16 @@ class Worker:
         order."""
         sl = slice(offset_elems, offset_elems + size_elems)
         self.chunk_transfers["d2h", arr.name] += 1
+        self._m_d2h_chunks.inc()
         if self.stream is None:
+            self._m_download_bytes.inc(size_elems * self._buffers[id(arr)].element_size())
+            fut = None
             if self._host_queue is not None and not self._host_queue.on_thread():
-                return self._host_queue.submit(lambda: self._copy_down(arr, sl))
-            self._copy_down(arr, sl)
-            return None
+                fut = self._host_queue.submit(lambda: self._copy_down(arr, sl))
+            else:
+                self._copy_down(arr, sl)
+            return _Download(None, lane=self.index, tag=arr.name, fut=fut)
+        t0 = time.perf_counter() if FAULTS.enabled else 0.0
         buf = self._buffers[id(arr)]
         host = _host_tensor(arr)[sl]
         ready = torch.cuda.Event()
@@ -578,15 +716,22 @@ class Worker:
             done = torch.cuda.Event()
             done.record(self.d2h_stream)
         buf.record_stream(self.d2h_stream)
+        self._m_download_bytes.inc(host.numel() * host.element_size())
+        if t0:
+            self._slow_link("d2h", t0)
         if slot is None:
-            return _Download(done)
-        handle = _Download(done, slot, dst, host)
+            return _Download(done, lane=self.index, tag=arr.name)
+        handle = _Download(done, slot, dst, host, lane=self.index, tag=arr.name)
         slot.event = done
         slot.pending = handle
         return handle
 
     def _copy_down(self, arr: ClArray, sl: slice) -> None:
+        """A host lane's D2H of one slice, where the lane's work runs."""
+        t0 = time.perf_counter() if FAULTS.enabled else 0.0
         _host_tensor(arr)[sl].copy_(self._buffers[id(arr)][sl])
+        if t0:
+            self._slow_link("d2h", t0)
 
     # -- launch --------------------------------------------------------------
     def _ladder_call(self, program: KernelProgram, kernel_names: tuple, launcher: Callable,
@@ -607,12 +752,14 @@ class Worker:
     def launch(self, program: KernelProgram, kernel_names: Sequence[str],
                params: Sequence[ClArray], value_args, offset: int, size: int,
                local_range: int, global_size: int, step: int, repeats: int = 1,
-               sync_kernel: str | None = None) -> None:
+               sync_kernel: str | None = None, compute_id: int | None = None) -> None:
         """Run the kernel sequence over work items ``[offset, offset+size)``,
         ``repeats`` times with ``sync_kernel`` between two repeats (reference:
         computeRepeated / computeRepeatedWithSyncKernel).  The repeats are one
         call of ``KernelProgram.fused_launcher`` (:meth:`_ladder_call`); with
-        unhashable values, every launch runs in turn."""
+        unhashable values, every launch runs in turn.  ``compute_id`` tags
+        the launch span."""
+        _tt = TRACER.t0()
         names = tuple(kernel_names)
         platform = self.device.type
         if repeats > 1:
@@ -621,6 +768,8 @@ class Worker:
             if fn is not None:
                 self._ladder_call(program, names + ((sync_kernel,) if sync_kernel else ()),
                                   fn, (offset, size // step, repeats), params)
+                TRACER.record("launch", _tt, cid=compute_id, lane=self.index,
+                              tag=f"{'+'.join(names)} x1")
                 return
         plan = list(names)
         for _ in range(repeats - 1):
@@ -640,18 +789,24 @@ class Worker:
                 off += chunk
         for p, b in zip(params, bufs):
             self._buffers[id(p)] = b
+        TRACER.record("launch", _tt, cid=compute_id, lane=self.index,
+                      tag=f"{'+'.join(names)} x{len(plan) * len(ladder)}")
 
     def launch_fused(self, program: KernelProgram, kernel_names: Sequence[str],
                      params: Sequence[ClArray], value_args, offset: int, size: int,
-                     local_range: int, global_size: int, step: int, iters: int) -> None:
+                     local_range: int, global_size: int, step: int, iters: int,
+                     compute_id: int | None = None) -> None:
         """``iters`` iterations of the kernel sequence over this lane's range
         as one call of ``KernelProgram.fused_launcher`` (the fused window's
         dispatch, ``core/cores.py``; :meth:`_ladder_call`).  A window opens
         only on hashable values, and its launcher was built when it opened."""
+        _tt = TRACER.t0()
         names = tuple(kernel_names)
         fn = program.fused_launcher(names, step, global_size, local_range, global_size,
                                     value_args, platform=self.device.type)
         self._ladder_call(program, names, fn, (offset, size // step, iters), params)
+        TRACER.record("launch", _tt, cid=compute_id, lane=self.index,
+                      tag=f"fused:{'+'.join(names)} x{iters}")
 
     # -- readback ------------------------------------------------------------
     def download(self, arr: ClArray, offset_elems: int, size_elems: int,
@@ -659,14 +814,22 @@ class Worker:
         """D2H of this lane's range (or the whole array) into the host
         array, issued on the current stream; :meth:`fence` waits for it
         (the plain path fences once after its downloads)."""
+        _tt = TRACER.t0()
+        t0 = time.perf_counter() if FAULTS.enabled else 0.0
         buf = self._buffers[id(arr)]
         host = _host_tensor(arr)
         if full:
             host.copy_(buf, non_blocking=True)
+            nbytes = host.numel() * host.element_size()
         else:
             sl = slice(offset_elems, offset_elems + size_elems)
             host[sl].copy_(buf[sl], non_blocking=True)
+            nbytes = size_elems * host.element_size()
+        if t0:
+            self._slow_link("d2h", t0)
+        self._m_download_bytes.inc(nbytes)
         self.transfers["d2h", arr.name] += 1
+        TRACER.record("download", _tt, lane=self.index, tag=arr.name)
 
     def download_async(self, arr: ClArray, offset_elems: int, size_elems: int,
                        full: bool):
@@ -699,13 +862,53 @@ class Worker:
     def fence(self) -> None:
         """Block until every operation issued on this lane has completed
         (a host lane: everything :meth:`issue` queued), raising a failure
-        of queued work."""
+        of queued work.  No span here: the barrier's ``fence`` span covers
+        the wait (the per-cid probes, :meth:`fence_cid`, record theirs)."""
+        if self.stream is None and self._host_queue is None:
+            return  # a host lane that ran everything inline
+        t0 = time.perf_counter()
         if self.stream is not None:
             self.stream.synchronize()
             self.h2d_stream.synchronize()
             self.d2h_stream.synchronize()
-        elif self._host_queue is not None:
+        else:
             self._host_queue.synchronize()
+        self._m_fence_waits.inc()
+        self._m_fence_seconds.observe(time.perf_counter() - t0)
+
+    def mark_cid(self, compute_id: int) -> None:
+        """Record the completion probe of this compute id's work issued so
+        far on the lane (only while :attr:`track_cid_outputs`): a CUDA event
+        on the lane's stream, a marker queued behind a host lane's work, or
+        True where that work ran on this thread.  The 64 most recent ids
+        are kept."""
+        if self.stream is not None:
+            probe: Any = torch.cuda.Event()
+            probe.record(self.stream)
+        elif self._host_queue is not None and not self._host_queue.on_thread():
+            probe = self._host_queue.submit(lambda: None)
+        else:
+            probe = True
+        self._cid_last_out.pop(compute_id, None)
+        self._cid_last_out[compute_id] = probe
+        if len(self._cid_last_out) > 64:
+            self._cid_last_out.pop(next(iter(self._cid_last_out)))
+
+    def fence_cid(self, compute_id: int) -> bool:
+        """Block until this lane's work for ONE compute id has retired
+        (its :meth:`mark_cid` probe; stream order: with everything issued
+        before it).  False when the id left no probe here (it never ran on
+        this lane, or the split was off)."""
+        probe = self._cid_last_out.get(compute_id)
+        if probe is None:
+            return False
+        _tt = TRACER.t0()
+        if isinstance(probe, Future):
+            probe.result()
+        elif probe is not True:
+            probe.synchronize()
+        TRACER.record("fence", _tt, cid=compute_id, lane=self.index, tag="cid-split")
+        return True
 
     def dispose(self) -> None:
         try:
@@ -734,3 +937,4 @@ class Worker:
             self._uploaded.clear()
             self.benchmarks.clear()
             self.transfer_benchmarks.clear()
+            self._cid_last_out.clear()

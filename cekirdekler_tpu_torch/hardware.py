@@ -29,6 +29,7 @@ from __future__ import annotations
 
 import dataclasses
 import enum
+import itertools
 from dataclasses import dataclass
 from typing import Iterable, Iterator, Sequence
 
@@ -133,13 +134,16 @@ class AcceleratorType(enum.IntFlag):
 class Device:
     """One lane: a CUDA device, or one virtual host-CPU lane.  A partition
     (``partition_cores`` > 0) is one of several lanes on the same device;
-    its ``partition_id`` is part of its identity."""
+    its ``partition_id`` is part of its identity.  A host lane's identity
+    is its ``serial``, drawn once per lane by :func:`cpus`; its
+    ``lane_id`` is the number it shows, which ``+`` may renumber."""
 
     torch_device: torch.device
     kind: str
     lane_id: int = 0  # distinguishes virtual CPU lanes
     partition_cores: int = 0  # > 0: a lane among partitions of one device
     partition_id: int = 0
+    serial: int = 0  # a host lane's process-wide identity (0: a CUDA device)
 
     @property
     def platform(self) -> str:
@@ -225,11 +229,23 @@ def _cuda_devices() -> list[Device]:
             for i in range(torch.cuda.device_count())]
 
 
+_host_serials = itertools.count(1)
+
+
 def cpus(n: int = 1) -> "Devices":
-    """``n`` virtual host-CPU lanes."""
+    """``n`` new virtual host-CPU lanes, numbered from 0, each with a
+    serial of its own."""
     if n <= 0:
         raise ValueError("cpu lane count must be positive")
-    return Devices(Device(torch.device("cpu"), "cpu", i) for i in range(n))
+    return Devices(Device(torch.device("cpu"), "cpu", i, serial=next(_host_serials))
+                   for i in range(n))
+
+
+def _lane_key(d: Device) -> tuple:
+    """What makes two entries one lane: the device, the host lane's serial
+    and the partition (a renumbered ``lane_id`` does not count)."""
+    return (d.torch_device, d.kind, d.serial if d.is_cpu else d.lane_id,
+            d.partition_cores, d.partition_id)
 
 
 class Devices(Sequence[Device]):
@@ -252,15 +268,20 @@ class Devices(Sequence[Device]):
 
     def __add__(self, other: "Devices") -> "Devices":
         out: list[Device] = []
+        seen: set[tuple] = set()
         for d in list(self._devices) + list(other._devices):
+            key = _lane_key(d)
+            if key in seen:
+                continue  # the same lane again
+            seen.add(key)
             if (d.is_cpu and not d.is_partition
                     and any(o.is_cpu and o.lane_id == d.lane_id for o in out)):
-                # a second CPU selection adds lanes, numbered after ours;
-                # partitions are distinct lanes already and keep their ids
-                d = Device(d.torch_device, d.kind,
-                           1 + max(o.lane_id for o in out if o.is_cpu))
-            if d not in out:
-                out.append(d)
+                # another selection's host lane is a new lane, numbered
+                # after ours; partitions are distinct lanes already and
+                # keep their ids
+                d = dataclasses.replace(
+                    d, lane_id=1 + max(o.lane_id for o in out if o.is_cpu))
+            out.append(d)
         return Devices(out)
 
     def __repr__(self) -> str:  # pragma: no cover - cosmetic

@@ -201,6 +201,11 @@ BALANCE_STEPS = (1024, 512, 256)
 ALPHA = 1.5                # saxpy's constant, folded into the elementwise kernel
 SAXPY_ID = 7005
 ENQUEUE_CALLS = 64
+# phase 4d's skew: the GPU lane's barrier fence sleeps this long (the fault
+# plane's lane-stall), a few times a window's own fence time
+STALL_LANE = 0
+STALL_MS = 20.0
+HOOK_CALLS = 20
 EMITTER_SOURCE = "cekirdekler_tpu_torch/kernel/cuda_backend.py"
 EMITTER_REPLACES = "cekirdekler_tpu/kernel/pallas_backend.py:404"
 
@@ -221,10 +226,21 @@ def chain(a, b):
 
 
 _T0 = time.perf_counter()
+#: (phase name, start time) in the order the phases ran
+_PHASES: list[tuple[str, float]] = []
 
 
 def phase(name: str) -> None:
-    print(f"== phase: {name} (at {time.perf_counter() - _T0:.1f} s)", flush=True)
+    now = time.perf_counter()
+    _PHASES.append((name, now))
+    print(f"== phase: {name} (at {now - _T0:.1f} s)", flush=True)
+
+
+def phase_seconds() -> dict[str, float]:
+    """Each phase's seconds, from its start to the next one's (the last
+    to now)."""
+    ends = [t for _n, t in _PHASES[1:]] + [time.perf_counter()]
+    return {name: round(end - t, 1) for (name, t), end in zip(_PHASES, ends)}
 
 
 def gpu_line() -> str:
@@ -1353,22 +1369,211 @@ def check_enqueue_mandelbrot(ck, wl, gpus, card: str, ref_img: np.ndarray) -> di
     return out
 
 
+def moves_away(ranges: list[list[int]], lane: int) -> int:
+    """How many calls took range from ``lane`` (its range fell from the
+    call before)."""
+    return sum(1 for a, b in zip(ranges, ranges[1:]) if b[lane] < a[lane])
+
+
 def check_enqueue_mixed(ck, wl, lanes) -> None:
-    """Phase (d): one GPU lane plus one host lane in enqueue mode."""
+    """Phase (d): one GPU lane plus one host lane in enqueue mode, with the
+    GPU lane's barrier fence stalled ``STALL_MS`` by the fault plane
+    (``lane-stall``): a real skew, so a barrier must move range away from
+    the stalled lane."""
+    from cekirdekler_tpu_torch.utils.faultinject import FAULTS
+
     ref_img = wl.mandelbrot_host(1024, 1024, -2.0, -1.25, 2.5 / 1024, 2.5 / 1024, 64)
-    r = wl.run_mandelbrot(lanes, 1024, 1024, 64, iters=24, warmup=0, local_range=256,
-                          keep_image=True, readback="final", sync_every=4)
+    FAULTS.arm(f"lane-stall@lane{STALL_LANE}:delay_ms={STALL_MS}")
+    try:
+        r = wl.run_mandelbrot(lanes, 1024, 1024, 64, iters=24, warmup=0, local_range=256,
+                              keep_image=True, readback="final", sync_every=4)
+        run = enqueue_saxpy(ck, wl, lanes, 1 << 20, 32, sync_every=4)
+        stalls = FAULTS.snapshot()["clauses"][0]["fired"]
+    finally:
+        FAULTS.disarm()
     gate_exact(r.image.ravel(), ref_img, "GPU + host enqueue mandelbrot")
     moves = gate_moves(r.ranges_per_iter, 4)
-    print(f"GPU + host enqueue mandelbrot 1024x1024x64, barrier every 4: host-lane range per "
-          f"call {[x[1] for x in r.ranges_per_iter]} ({moves} moves)")
-    run = enqueue_saxpy(ck, wl, lanes, 1 << 20, 32, sync_every=4)
+    away = moves_away(r.ranges_per_iter, STALL_LANE)
+    print(f"GPU + host enqueue mandelbrot 1024x1024x64, barrier every 4, lane {STALL_LANE} "
+          f"stalled {STALL_MS} ms a barrier: host-lane range per call "
+          f"{[x[1] for x in r.ranges_per_iter]} ({moves} moves, {away} away from lane "
+          f"{STALL_LANE})")
     gate_exact(run["y"], run["want"], "GPU + host enqueue saxpy y")
     saxpy_moves = gate_moves(run["ranges"], 4)
+    saxpy_away = moves_away(run["ranges"], STALL_LANE)
     print(f"GPU + host enqueue saxpy 2^20 x 32, barrier every 4: host-lane range per call "
-          f"{[x[1] for x in run['ranges']]} ({saxpy_moves} moves); transfers {run['after']}")
-    if moves + saxpy_moves == 0:
-        raise AssertionError("GPU + host enqueue mode: no barrier moved a range")
+          f"{[x[1] for x in run['ranges']]} ({saxpy_moves} moves, {saxpy_away} away); "
+          f"transfers {run['after']}; stalls fired {stalls}")
+    if away + saxpy_away == 0:
+        raise AssertionError(f"GPU + host enqueue mode: no barrier moved range away from the "
+                             f"stalled lane {STALL_LANE}")
+
+
+TWO_SRC = """
+__kernel void inc(__global float* a) {
+    int i = get_global_id(0);
+    a[i] = a[i] + 1.0f;
+}
+__kernel void inc2(__global float* a) {
+    int i = get_global_id(0);
+    a[i] = a[i] + 2.0f;
+}
+"""
+
+
+def expected_d2h(ranges: list[list[int]], enqueue: bool) -> list[int]:
+    """Bytes each lane reads back of a 4-byte output written by every call,
+    counted from the ranges per call: every call's range on the plain
+    path; in enqueue mode one record per lane for each run of calls with
+    one split (a re-split lands the records it replaces, the flush the
+    last ones)."""
+    lanes = len(ranges[0])
+    out = [0] * lanes
+    if not enqueue:
+        for r in ranges:
+            for i in range(lanes):
+                out[i] += 4 * r[i]
+        return out
+    last = None
+    for r in ranges + [None]:
+        if last is not None and r != last:
+            for i in range(lanes):
+                out[i] += 4 * last[i]
+        last = r
+    return out
+
+
+def lane_spans(spans, lane: int, t0: float, t1: float) -> list[str]:
+    return [s.kind for s in spans if s.lane == lane and t0 <= s.t0 and s.t1 <= t1]
+
+
+def check_hooks(ck, wl, lanes, W: int, H: int, iters: int, ref_img: np.ndarray) -> None:
+    """The hooks on the card: the headline call (mandelbrot WxHxiters,
+    local 256) on the GPU lane plus one host lane, ``HOOK_CALLS`` calls per
+    call then as many enqueued with a barrier every 4, with the port's
+    decision log, tracer and flight recorder on throughout.  The log
+    replays with no divergence and no row of an unported kind; every call
+    has its lane spans, every barrier its ``fence`` span and flight event;
+    the byte counters equal the bytes the calls moved; a ``driver-submit``
+    fault armed on the GPU lane raises from a streamed call, and the next
+    call is exact; a mixed window of two compute ids with ``fence_split``
+    probes each on both lanes."""
+    from cekirdekler_tpu_torch.errors import InjectedFaultError
+    from cekirdekler_tpu_torch.metrics.registry import REGISTRY
+    from cekirdekler_tpu_torch.obs.decisions import DECISIONS
+    from cekirdekler_tpu_torch.obs.flight import FLIGHT
+    from cekirdekler_tpu_torch.obs.replay import verify_records
+    from cekirdekler_tpu_torch.trace.spans import TRACER
+    from cekirdekler_tpu_torch.utils.faultinject import FAULTS
+
+    n = W * H
+    saved = (DECISIONS.enabled, FLIGHT.enabled, TRACER.enabled)
+    DECISIONS.clear()
+    FLIGHT.clear()
+    DECISIONS.enabled = FLIGHT.enabled = True
+    TRACER.enable(capacity=1 << 18)
+    cr = ck.NumberCruncher(lanes, wl.MANDELBROT_SRC)
+    try:
+        report = {}
+        for part, readback in (("per call", "every"), ("enqueued", "final")):
+            REGISTRY.reset()
+            t_part = time.perf_counter()
+            r = wl.run_mandelbrot(lanes, W, H, iters, iters=HOOK_CALLS, warmup=0,
+                                  local_range=256, keep_image=True, readback=readback,
+                                  sync_every=4, cruncher=cr)
+            gate_exact(r.image.ravel(), ref_img, f"hooks mandelbrot ({part})")
+            spans = [s for s in TRACER.snapshot() if s.t0 >= t_part]
+            calls = [s for s in spans if s.kind == "enqueue" and s.cid == 7001]
+            if len(calls) != HOOK_CALLS:
+                raise AssertionError(f"hooks ({part}): {len(calls)} enqueue spans, not "
+                                     f"{HOOK_CALLS}")
+            for lane in range(len(lanes)):
+                active = sum(1 for rg in r.ranges_per_iter if rg[lane] > 0)
+                if readback == "every":
+                    bare = [c for c in calls
+                            if not {"launch"} <= set(lane_spans(spans, lane, c.t0, c.t1))]
+                    missing = len(bare) - (HOOK_CALLS - active)
+                else:
+                    launched = 0
+                    for s in spans:
+                        if s.kind == "launch" and s.lane == lane and s.cid == 7001:
+                            launched += (int(s.tag.rsplit("x", 1)[1])
+                                         if s.tag.startswith("fused:") else 1)
+                    missing = active - launched
+                if missing:
+                    raise AssertionError(f"hooks ({part}): lane {lane} lacks the launch spans "
+                                         f"of {missing} call(s)")
+            fences = [s for s in spans if s.kind == "fence" and s.tag == "barrier"]
+            barriers = HOOK_CALLS // 4 if readback == "final" else 0
+            flight_barriers = [e for e in FLIGHT.snapshot()
+                               if e.kind == "barrier" and e.t >= time.time()
+                               - (time.perf_counter() - t_part)]
+            if len(fences) != barriers or len(flight_barriers) != barriers:
+                raise AssertionError(f"hooks ({part}): {len(fences)} fence spans and "
+                                     f"{len(flight_barriers)} flight barrier events for "
+                                     f"{barriers} barriers")
+            want = expected_d2h(r.ranges_per_iter, readback == "final")
+            got = [REGISTRY.counter("ck_download_bytes_total", lane=i).value
+                   for i in range(len(lanes))]
+            up = [REGISTRY.counter("ck_upload_bytes_total", lane=i).value
+                  for i in range(len(lanes))]
+            if got != want or any(up):
+                raise AssertionError(f"hooks ({part}): D2H bytes {got} against {want} from "
+                                     f"the ranges, H2D bytes {up} against none")
+            report[part] = dict(mpix=round(r.mpixels_per_sec, 1), d2h_bytes=got,
+                                host_range=[x[1] for x in r.ranges_per_iter][-1],
+                                fused=dict(cr.fused_stats))
+        rows = [rec.to_row() for rec in DECISIONS.snapshot()]
+        verdict = verify_records(rows)
+        if verdict["divergent"] or verdict["not_ported"] or not verdict["ok"]:
+            raise AssertionError(f"hooks: decision log verify {verdict['first_divergence']}, "
+                                 f"not ported {verdict['not_ported']}")
+        # a driver-submit fault on the GPU lane, raised from a streamed call
+        out = ck.ClArray(n, np.float32, name="mandel_out", read=False, write=True, fast=True)
+        vals = (-2.0, -1.25, 2.5 / W, 2.5 / H, W, iters)
+        cr.stream_chunks = 4
+        FAULTS.arm("driver-submit@lane0:times=1")
+        try:
+            out.compute(cr, 7001, "mandelbrot", n, 256, values=vals)
+        except InjectedFaultError as e:
+            fault = f"{type(e).__name__}: {e}"
+        else:
+            raise AssertionError("hooks: an armed driver-submit fault did not raise")
+        finally:
+            FAULTS.disarm()
+        cr.reset_errors()
+        cr.stream_chunks = 0
+        out.compute(cr, 7001, "mandelbrot", n, 256, values=vals)
+        gate_exact(out.host(), ref_img, "hooks mandelbrot after the fault")
+        # fence_split over a mixed window of two compute ids on both lanes
+        m = 1 << 20
+        with ck.NumberCruncher(lanes, TWO_SRC) as cr2:
+            cr2.fence_split = True
+            a = ck.ClArray(np.zeros(m, np.float32), name="a", fast=True)
+            b = ck.ClArray(np.zeros(m, np.float32), name="b", fast=True)
+            cr2.enqueue_mode = True
+            t_mix = time.perf_counter()
+            for _ in range(2):
+                a.compute(cr2, 1, "inc", m, 256)
+            for _ in range(2):
+                b.compute(cr2, 2, "inc2", m, 256)
+            cr2.barrier()
+            probes = sorted({(s.lane, s.cid) for s in TRACER.snapshot() if s.t0 >= t_mix
+                             and s.kind == "fence" and s.tag == "cid-split"})
+            cr2.enqueue_mode = False
+        gate_exact(a.host(), np.full(m, 2.0, np.float32), "fence-split a")
+        gate_exact(b.host(), np.full(m, 4.0, np.float32), "fence-split b")
+        if probes != [(0, 1), (0, 2), (1, 1), (1, 2)]:
+            raise AssertionError(f"hooks: fence_split probes {probes}")
+        print(f"hooks: {json.dumps(report)}; decision log {verdict['records']} records, "
+              f"{verdict['replayed']} replayed, per kind {verdict['per_kind']}; fault "
+              f"{fault}; fence_split probes (lane, cid) {probes}; spans recorded "
+              f"{TRACER.total_recorded}")
+    finally:
+        cr.dispose()
+        TRACER.disable()
+        TRACER.clear()
+        DECISIONS.enabled, FLIGHT.enabled = saved[0], saved[1]
 
 
 def launch_counts(reg, cuda_backend, mandel_op, ew_op) -> dict:
@@ -1913,6 +2118,11 @@ def main() -> int:
     print(subprocess.run([nvcc, "--version"], capture_output=True, text=True,
                          check=True).stdout.strip().splitlines()[-1])
     print(f"torch {torch.__version__} cuda {torch.version.cuda} device {kind}")
+    try:
+        ck.BFloat16Arr(1)
+        print("ml_dtypes is installed: BFloat16Arr has numpy's bf16 dtype")
+    except ImportError as e:
+        print(f"ml_dtypes is missing: BFloat16Arr refuses ({e})")
 
     phase("build")
     programs = {
@@ -2158,6 +2368,12 @@ def main() -> int:
     if not (seen[0] > 0 and seen[1] > 0 and "cuda" not in seen[2]):
         raise AssertionError(f"GPU + host enqueue mode left the kernels on the GPU lane: {seen}")
 
+    phase("hooks on the card (GPU + host lane)")
+    cuda_backend.LAUNCHES.reset()
+    check_hooks(ck, wl, gpus.subset(1) + ck.all_devices().cpus(1), W, H, iters, ref_img)
+    if cuda_backend.LAUNCHES.by_key.get("mandelbrot", 0) <= 0:
+        raise AssertionError("hooks phase: the emitted mandelbrot never launched")
+
     phase("balancer (GPU + host lane)")
     check_balancer(ck, wl, gpus.subset(1) + ck.all_devices().cpus(1),
                    [rate_prior(kind), rate_prior("cpu")])
@@ -2233,6 +2449,7 @@ def main() -> int:
           f"traces taken again for a garbled record or more lost: {len(trace_window.defects)}")
     for defect in trace_window.defects:
         print(f"  taken again: {defect}")
+    print(f"phase seconds: {json.dumps(phase_seconds())}")
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

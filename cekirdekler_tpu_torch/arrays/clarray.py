@@ -2,9 +2,9 @@
 
 Counterpart of ``cekirdekler_tpu/arrays/clarray.py``: the same
 ``ClArray``, ``TransferFlags``, ``ParameterGroup``, ``wrap``,
-``next_param`` and ``compute``.  ``fast=True`` arrays are backed by a
-:class:`FastArr` (page-locked with CUDA).  The pool task binding and the
-pipeline engines wait for later slices.
+``next_param``, ``compute`` (with the pipelined engines) and ``task``
+(a frozen call for ``pipeline.pool``).  ``fast=True`` arrays are backed by
+a :class:`FastArr` (page-locked with CUDA).
 
 The analogue of the reference's ``ClArray<T>`` / ``ClParameterGroup``
 (ClArray.cs): arrays carry per-array transfer flags, chain into parameter
@@ -127,6 +127,7 @@ class _ComputeMixin:
         global_offset: int = 0,
         pipeline: bool = False,
         pipeline_blobs: int = 4,
+        pipeline_type: int = 1,  # core.cores.PIPELINE_EVENT (core imports arrays)
         values: Sequence | dict = (),
     ):
         """Run kernel(s) over ``global_range`` work items across all selected
@@ -137,8 +138,10 @@ class _ComputeMixin:
         ("k1 k2 k3" runs them in sequence, reference: kernel name lists),
         or a sequence of names.  ``values`` supplies scalar (non-pointer)
         kernel arguments — a tuple applied to every kernel, or a dict
-        ``{kernel_name: tuple}``.  ``pipeline=True`` is refused until the
-        pipeline engines are ported.
+        ``{kernel_name: tuple}``.  ``pipeline=True`` cuts each lane's range
+        into ``pipeline_blobs`` blobs whose transfers overlap other blobs'
+        kernels, by the engine ``pipeline_type`` names (``PIPELINE_EVENT``,
+        the default, or ``PIPELINE_DRIVER``).
         """
         params = self.parameters()
         names = kernels.split() if isinstance(kernels, str) else list(kernels)
@@ -162,11 +165,34 @@ class _ComputeMixin:
                 global_offset=global_offset,
                 pipeline=pipeline,
                 pipeline_blobs=pipeline_blobs,
+                pipeline_type=pipeline_type,
                 value_args=values,
             )
         except Exception:
             cruncher.number_of_errors_happened = errs + 1
             raise
+
+    def task(
+        self,
+        compute_id: int,
+        kernels: str | Sequence[str],
+        global_range: int,
+        local_range: int = 256,
+        global_offset: int = 0,
+    ):
+        """Freeze this binding into a pool task (reference: ClArray.task(),
+        ClArray.cs:1552-1583)."""
+        from ..pipeline.pool import ClTask  # local: pool imports the cruncher
+
+        names = kernels.split() if isinstance(kernels, str) else list(kernels)
+        return ClTask(
+            params=self.parameters(),
+            kernel_names=names,
+            compute_id=compute_id,
+            global_range=global_range,
+            local_range=local_range,
+            global_offset=global_offset,
+        )
 
 
 def _validate_compute(params, names, global_range, local_range, pipeline, blobs) -> None:

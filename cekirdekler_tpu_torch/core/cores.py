@@ -1,10 +1,10 @@
 """Cores — the multi-lane scheduler: split / compute / join with iterative
 load balancing, per call or at enqueue-mode sync points.
 
-Counterpart of ``cekirdekler_tpu/core/cores.py`` without its pipelined
-tier: one :class:`Worker` per lane, per-compute-id range tables, an equal
-(or, on a mixed fleet, rate-prior-seeded) first split, and concurrent
-per-lane H2D -> ladder launch -> D2H from a thread pool.  ``write_all``
+Counterpart of ``cekirdekler_tpu/core/cores.py``: one :class:`Worker`
+per lane, per-compute-id range tables, an equal (or, on a mixed fleet,
+rate-prior-seeded) first split, and concurrent per-lane H2D -> ladder
+launch -> D2H from a thread pool.  ``write_all``
 ownership, ``repeat_count`` (with ``repeat_sync_kernel``), ``ranges_of``,
 ``benchmarks_of``, the performance report and its history
 (:meth:`performance_history`, printed per call with ``performance_feed``)
@@ -16,8 +16,15 @@ makes a call move its data and launch nothing.
 
 Two modes, as the reference's:
 
-- the plain path rebalances from measured per-lane walls on every call and
-  reads every written range back before ``compute()`` returns;
+- the plain path rebalances from measured per-lane benches on every call
+  and reads every written range back before ``compute()`` returns.  A
+  lane's bench is its wall, except a GPU lane's on the monolithic path:
+  there it is its stream's device span (``Worker.end_issue``), and in a
+  call that also runs host lanes the GPU lanes issue their work before
+  the host lanes start.  The reference times every lane by its wall;
+  here a host lane's lowered kernels hold the interpreter lock between
+  their torch calls, and a GPU lane issuing or returning from its fence
+  beside one waits for it;
 - enqueue mode (``enqueue_mode = True``) dispatches without waiting: a lane
   skips uploads its resident data covers, readbacks are deferred to
   :meth:`flush`, and ranges hold still between syncs.  :meth:`barrier`
@@ -45,6 +52,17 @@ a monolithic measuring run that fences between the phases.  The enqueue
 flush drains a large record in chunks too.  ``last_stream_chunks`` holds
 each lane's last choice.
 
+Pipelined compute (``compute(pipeline=True, pipeline_blobs=n,
+pipeline_type=PIPELINE_EVENT | PIPELINE_DRIVER)``; :meth:`_run_pipelined`):
+a lane's range is cut into ``n`` blobs whose copies overlap other blobs'
+kernels, by the reference's two engines: EVENT stages blob ``j`` while
+blob ``j - pipeline_lookahead`` computes and blob ``j -
+pipeline_lookahead - 1`` is read back, on the lane's copy streams ordered
+by CUDA events; DRIVER runs blob ``k``'s copies and kernels in order on
+the lane's stream ``k mod 16``.  The balancer's step is then
+``local_range * n``.  A pipelined call closes a fused window (the reason
+``pipeline``) and never opens one.
+
 Fused windows (``fused_dispatch``, on by default as in the reference): when
 enqueue mode repeats one call (:func:`job_signature`) with its operands
 resident and its ranges still, the second call opens a window and every
@@ -67,16 +85,18 @@ postmortem only under ``CK_POSTMORTEM_DIR``); the fused path's cached
 counters (a deferral adds one increment), ``fused-engage`` /
 ``fused-disengage`` flight events and decision records and its spans; the
 streamed phase's ``stream-choice`` event, chunk-count gauge and
-``pipeline-stage`` span; and the barrier's ``fence`` span, ``barrier``
-flight event, ``ck_barrier_seconds`` histogram, the ``lane-stall`` fault
-site and the decision log's spill.  With :attr:`fence_split` on, a barrier
+``pipeline-stage`` span (the pipelined engines' too, with
+``ck_pipeline_stages_total`` by engine and the lane's device type); and
+the barrier's ``fence`` span, ``barrier`` flight event,
+``ck_barrier_seconds`` histogram, the ``lane-stall`` fault site and the
+decision log's spill.  With :attr:`fence_split` on, a barrier
 fences each compute id of a mixed window in last-dispatch order
 (``Worker.fence_cid``) and feeds the balancer marginal per-id times
 (``trace/attribution.split_fence_benches``).
 
-Not ported yet (queued in ROADMAP.md): pipelines, the health and drain
-hooks, the debug port, the verify gate, the compile cache and ``warmup``
-(with its ``cache-warmup`` record), ``dispatch_gate`` and ``trace_lanes``.
+Not ported yet (queued in ROADMAP.md): the health and drain hooks, the
+debug port, the verify gate, the compile cache and ``warmup`` (with its
+``cache-warmup`` record), ``dispatch_gate`` and ``trace_lanes``.
 """
 
 from __future__ import annotations
@@ -111,9 +131,13 @@ from .balance import (
     prior_split,
 )
 from .stream import TransferTuner, chunk_plan
-from .worker import Worker, _ladder
+from .worker import PIPE_QUEUES, Worker, _ladder, _pinned
 
-__all__ = ["Cores", "ComputePerf", "job_signature", "STREAMED"]
+__all__ = ["Cores", "ComputePerf", "job_signature", "PIPELINE_DRIVER", "PIPELINE_EVENT",
+           "STREAMED"]
+
+PIPELINE_EVENT = 1   # the reference's event pipeline (Cores.cs:1236-1367)
+PIPELINE_DRIVER = 2  # its driver pipeline of 16 in-order queues (Cores.cs:1371-1858)
 
 #: streamed lane phases, keyed by their kernel sequence (``"a+b"``): the
 #: evidence that a run went through the stream engine
@@ -212,6 +236,9 @@ class Cores:
         self.streamed_transfers = True
         self.stream_chunks = 0
         self.stream_queue_depth = 2
+        # the EVENT engine's read lookahead: blobs staged ahead of the one
+        # computing (1 is the reference's three-queue wavefront)
+        self.pipeline_lookahead = 2
         self.transfer_tuner = TransferTuner()
         # each lane's chunk count in its last streaming candidate phase
         self.last_stream_chunks: dict[int, int] = {}
@@ -255,6 +282,9 @@ class Cores:
         # the last per-call signature: a window opens on a consecutive repeat
         self._fused_candidate: tuple | None = None
         self._fused_pending = 0
+        # re-split flushes in progress (under _lock): no window opens between
+        # a re-split's window close and its coverage reset
+        self._resplits = 0
         # serializes [take the pending count + submit to the drivers] against
         # a close, so no drain can slip between them
         self._fused_mu = threading.Lock()
@@ -271,6 +301,12 @@ class Cores:
         self._m_barriers = REGISTRY.counter("ck_barriers_total", "enqueue-window sync points")
         self._m_stream_stages = REGISTRY.counter(
             "ck_pipeline_stages_total", "stage bodies executed", engine="STREAM")
+        # the engines' phases by the lane's device type too: the evidence
+        # that a run went through an engine on the card
+        self._m_pipe_stages = {
+            (engine, kind): REGISTRY.counter("ck_pipeline_stages_total", "stage bodies executed",
+                                             engine=engine, device=kind)
+            for engine in ("EVENT", "DRIVER") for kind in ("cuda", "cpu")}
         self._m_stream_retunes = REGISTRY.counter(
             "ck_stream_retune_total", "transfer-autotuner re-tunes forced by re-partitions")
 
@@ -326,7 +362,12 @@ class Cores:
                     rebalance: bool) -> tuple[list[int], list[int]]:
         n = self.num_devices
         ranges = self.global_ranges.get(compute_id)
-        if ranges is None or sum(ranges) != total or len(ranges) != n:
+        # a held table the step does not divide (a pipelined call's step is
+        # local_range * blobs) is split afresh: a lane's ladder covers only
+        # whole steps, and the rest of its range would never run (ROADMAP
+        # Queue C 13)
+        if (ranges is None or sum(ranges) != total or len(ranges) != n
+                or any(r % step for r in ranges)):
             if self.fixed_compute_powers is not None:
                 # user-pinned shares (normalizedComputePowersOfDevices)
                 shares = self.fixed_compute_powers
@@ -374,15 +415,18 @@ class Cores:
     def compute(self, kernel_names: Sequence[str], params: Sequence[ClArray],
                 compute_id: int, global_range: int, local_range: int,
                 global_offset: int = 0, pipeline: bool = False,
-                pipeline_blobs: int = 4, value_args: Sequence | dict = ()) -> None:
+                pipeline_blobs: int = 4, pipeline_type: int = PIPELINE_EVENT,
+                value_args: Sequence | dict = ()) -> None:
         t_start = time.perf_counter()
         # the fused fast path: a call matching the open window is a counter
-        # increment (the engaging call validated the same signature)
-        if self.enqueue_mode and self._fused_sig is not None and not pipeline:
+        # increment (the engaging call validated the same signature).  The
+        # window is read once: another thread may replace it meanwhile, and
+        # a deferral counts only into the window whose signature matched
+        run = self._fused_run
+        if self.enqueue_mode and run is not None and not pipeline:
             sig = job_signature(kernel_names, params, compute_id, global_range,
                                 local_range, global_offset, value_args)
-            if self._sig_equal(sig, self._fused_sig):
-                run = self._fused_run
+            if self._sig_equal(sig, run.sig):
                 # the mode toggles are cruncher state, not call identity
                 if (not self.fused_dispatch or self.no_compute_mode or self.repeat_count > 1
                         or self.repeat_sync_kernel):
@@ -391,13 +435,15 @@ class Cores:
                     self._fused_break("mode-change")
                 elif compute_id in self._enqueue_rebalance:
                     self._fused_break("range-change")
-                elif run is not None and any(w.coverage_epoch != ep for w, ep in run.epochs):
+                elif any(w.coverage_epoch != ep for w, ep in run.epochs):
                     self._fused_break("non-resident")
-                elif self._fused_defer(t_start, kernel_names):
+                elif self._fused_defer(run, t_start, kernel_names):
                     return
             else:
                 self._fused_break("signature-change")
-        elif self._fused_sig is not None and not self.enqueue_mode:
+        elif run is not None and pipeline:
+            self._fused_break("pipeline")
+        elif run is not None and not self.enqueue_mode:
             self._fused_break("enqueue-off")
         for name in kernel_names:
             if name not in self.program:
@@ -410,11 +456,7 @@ class Cores:
                 raise ComputeValidationError(
                     f"kernel {name!r} takes {len(need)} scalar value argument(s) "
                     f"{need} but {given} given — pass values=(...) to compute()")
-        if pipeline:
-            raise ComputeValidationError(
-                "pipelined compute is not ported yet (cekirdekler_tpu_torch runs "
-                "the plain path; see ROADMAP.md)")
-        step = local_range
+        step = local_range * (pipeline_blobs if pipeline else 1)
         if global_range % step != 0:
             raise ComputeValidationError(
                 f"global_range ({global_range}) must be divisible by step ({step})")
@@ -455,12 +497,29 @@ class Cores:
         active = [i for i in range(self.num_devices) if ranges[i] > 0]
         write_all_owner = {idx: active[idx % len(active)]
                            for idx, p in enumerate(params) if p.flags.write_all and active}
-        futures = [
-            self.pool.submit(self._run_worker, w, kernel_names, params, compute_id,
-                             global_offset + refs[i], ranges[i], local_range,
-                             global_range, value_args, write_all_owner)
-            for i, w in enumerate(self.workers) if ranges[i] > 0
-        ]
+        blobs = pipeline_blobs if pipeline else 1
+        # GPU lanes issue their work before host lanes start: a host lane's
+        # lowered kernels hold the interpreter lock between their torch
+        # calls, and a GPU lane issuing beside one waits for it at every
+        # call that releases the lock (its kernels then start late and its
+        # bench holds the wait)
+        lanes = [i for i in range(self.num_devices) if ranges[i] > 0]
+        gpu = [i for i in lanes if self.workers[i].stream is not None]
+        host = [i for i in lanes if self.workers[i].stream is None]
+        issued = {i: threading.Event() for i in gpu} if gpu and host else {}
+
+        def submit(i: int):
+            w = self.workers[i]
+            return self.pool.submit(self._run_worker, w, kernel_names, params, compute_id,
+                                    global_offset + refs[i], ranges[i], local_range,
+                                    global_range, value_args, write_all_owner, blobs,
+                                    pipeline_type, issued.get(i))
+
+        futures = [submit(i) for i in gpu]
+        for f, ev in zip(futures, issued.values()):
+            f.add_done_callback(lambda _f, ev=ev: ev.set())  # a lane that never ran
+            ev.wait()
+        futures += [submit(i) for i in host]
         errs = []
         for f in futures:
             try:
@@ -474,7 +533,7 @@ class Cores:
             raise errs[0]
         TRACER.record("enqueue", t_start, cid=compute_id, tag="+".join(kernel_names))
         self._record_perf(compute_id, t_start, ranges)
-        if self.enqueue_mode and self.fused_dispatch:
+        if self.enqueue_mode and self.fused_dispatch and not pipeline:
             self._fused_try_engage(kernel_names, params, compute_id, global_range,
                                    local_range, global_offset, value_args, ranges, refs, step)
 
@@ -514,19 +573,29 @@ class Cores:
         self._flush_iters[compute_id] = self._flush_iters.get(compute_id, 0) + 1
 
     def _run_worker(self, w: Worker, kernel_names, params, compute_id, offset, size,
-                    local_range, global_range, value_args, write_all_owner) -> None:
+                    local_range, global_range, value_args, write_all_owner, blobs: int = 1,
+                    pipeline_type: int = PIPELINE_EVENT,
+                    issued: threading.Event | None = None) -> None:
         with w.lock:
+            w.issued = issued
             w.start_bench(compute_id)
             try:
-                single = self.num_devices == 1
-                streamed, key_bytes = self._run_streamed(
-                    w, kernel_names, params, compute_id, offset, size, local_range,
-                    global_range, value_args, single, write_all_owner)
-                if not streamed and self.enqueue_mode:
+                if blobs > 1:
+                    w.release_host_lanes()
+                    self._run_pipelined(w, kernel_names, params, compute_id, offset, size,
+                                        local_range, global_range, value_args,
+                                        write_all_owner, blobs, pipeline_type)
+                    handled, key_bytes = True, None
+                else:
+                    handled, key_bytes = self._run_streamed(
+                        w, kernel_names, params, compute_id, offset, size, local_range,
+                        global_range, value_args, self.num_devices == 1, write_all_owner)
+                if not handled and self.enqueue_mode:
+                    w.release_host_lanes()
                     self._enqueue_phase(w, kernel_names, params, compute_id, offset, size,
                                         local_range, global_range, value_args,
                                         write_all_owner, key_bytes)
-                elif not streamed:
+                elif not handled:
                     if w.stream is None:
                         w.fence()  # work a host lane queued in enqueue mode runs first
                     with w.on_stream():
@@ -536,6 +605,8 @@ class Cores:
                 if w.track_cid_outputs:
                     w.mark_cid(compute_id)
             finally:
+                w.release_host_lanes()
+                w.issued = None
                 w.end_bench(compute_id)
 
     def _build_launchers(self, w: Worker, kernel_names, chunks, local_range: int,
@@ -593,6 +664,10 @@ class Cores:
                 marks.append(time.perf_counter())
 
         mark()
+        # a copy from or to pageable memory blocks this thread until it
+        # lands: the call's host lanes need not wait that long to start
+        if w.issued is not None and any(not _pinned(p) for p in params):
+            w.release_host_lanes()
         # the tuner's U holds only the partial-read uploads (those a
         # streamed phase chunks); whole-array uploads are serial there too
         for part in (True, False):
@@ -626,6 +701,7 @@ class Cores:
                 w.download(p, offset * epw, size * epw, full)
                 downloads += 1
         mark()
+        w.end_issue(compute_id)
         # the bench covers the whole phase
         w.fence()
         end = time.perf_counter()
@@ -853,6 +929,7 @@ class Cores:
         w.m_chunk_count.set(chunks)
         if chunks <= 1:
             return False, nbytes
+        w.release_host_lanes()
         plan = chunk_plan(size, step, chunks)
         STREAMED.add("+".join(kernel_names))
         names = list(kernel_names)
@@ -949,6 +1026,178 @@ class Cores:
                       tag=f"STREAM x{len(plan)}")
         return True, nbytes
 
+    # -- pipelined compute (reference: the EVENT and DRIVER engines) --------
+    def _run_pipelined(self, w: Worker, kernel_names, params, compute_id, offset, size,
+                       local_range, global_range, value_args, write_all_owner, blobs: int,
+                       pipeline_type: int) -> None:
+        """One lane's range cut into ``blobs`` equal blobs whose copies
+        overlap other blobs' kernels.  Residency is judged once, before any
+        upload (enqueue mode: a partial array counts as resident only where
+        the lane's coverage holds its whole range, so a blob's upload never
+        hides the rest of the call's); non-partial read arrays upload whole
+        first.  Then the engine:
+
+        - EVENT (:meth:`_event_blobs`): at step ``j`` stage blob ``j``'s
+          uploads, commit and compute blob ``j - L`` and read back blob
+          ``j - L - 1`` (``L`` = :attr:`pipeline_lookahead`);
+        - DRIVER (:meth:`_driver_blobs`): blob ``k``'s uploads, kernels and
+          readbacks in one order, blob after blob.
+
+        On a GPU lane the EVENT engine copies on the lane's two copy
+        streams and orders them by CUDA events (H2D before the blob's
+        kernels, the blob's kernels before its D2H), and the DRIVER engine
+        puts blob ``k`` on the lane's stream ``k mod 16``; a pageable array
+        goes through the page-locked staging ring.  The host waits inside
+        the loop only for a staging slot still in use.  A host lane runs
+        the same order on its own thread.  In enqueue mode the writers'
+        readbacks become one deferred record, else each blob is read back
+        and the phase waits for them.  Runs under the lane's lock."""
+        _tt = TRACER.t0()
+        engine = "EVENT" if pipeline_type == PIPELINE_EVENT else "DRIVER"
+        blob = size // blobs
+        look = max(1, int(self.pipeline_lookahead))
+        resident = set()
+        if self.enqueue_mode:
+            for p in params:
+                epw = p.flags.elements_per_work_item
+                if (w.upload_covers(p, offset * epw, size * epw) if p.flags.partial_read
+                        else w.upload_covers(p, 0, p.size)):
+                    resident.add(id(p))
+        reads = [p for p in params if p.flags.read and not p.flags.write_only
+                 and id(p) not in resident]
+        whole = [p for p in reads if not p.flags.partial_read]
+        partials = [p for p in reads if p.flags.partial_read]
+        writers = [] if self.enqueue_mode else [
+            p for p in params if p.flags.write and not p.flags.read_only
+            and not p.flags.write_all]
+        # the mode toggles as they are now: a host lane may run the work later
+        repeats, sync = self.repeat_count, self.repeat_sync_kernel
+        compute = not self.no_compute_mode
+        # staging slots for every copy a blob in flight may hold
+        in_flight = look + 2 if engine == "EVENT" else min(blobs, PIPE_QUEUES)
+        w.stream_depth = max(int(self.stream_queue_depth),
+                             in_flight * max(len(partials), len(writers), 1))
+        handles: list = []
+
+        def launch(k: int, stream=None) -> None:
+            if compute:
+                w.launch(self.program, kernel_names, params, value_args, offset + k * blob,
+                         blob, local_range, global_range, local_range, repeats=repeats,
+                         sync_kernel=sync, compute_id=compute_id, stream=stream)
+
+        def body() -> None:
+            for p in whole:
+                w.upload(p, 0, 0, True)
+            run = self._event_blobs if engine == "EVENT" else self._driver_blobs
+            run(w, params, partials, writers, offset, blob, blobs, look, launch, handles)
+
+        with w.on_stream():
+            for p in params:
+                w.ensure_resident(p)
+            if w.stream is None and self.enqueue_mode:
+                # the coverage this call's uploads give, claimed before its
+                # work is queued: the next call sees it
+                for p in whole:
+                    w.claim_upload(p, 0, 0, True)
+                for p in partials:
+                    epw = p.flags.elements_per_work_item
+                    w.claim_upload(p, offset * epw, size * epw, False)
+                w.issue(body)
+            else:
+                if w.stream is None:
+                    w.fence()  # work a host lane queued in enqueue mode runs first
+                body()
+            if self.enqueue_mode:
+                self._defer_readbacks(w, params, compute_id, offset, size, write_all_owner)
+            else:
+                for idx, p in enumerate(params):
+                    fl = p.flags
+                    if (fl.write and not fl.read_only and fl.write_all
+                            and w.index == write_all_owner.get(idx)):
+                        handles.append(w.download_async(p, 0, p.size, True))
+        for h in handles:
+            Worker.finish_download(h)
+        if not self.enqueue_mode:
+            w.fence()  # the bench covers the whole phase
+        self._m_pipe_stages[engine, w.device.type].inc()
+        TRACER.record("pipeline-stage", _tt, cid=compute_id, lane=w.index,
+                      tag=f"EVENT x{blobs} look{look}" if engine == "EVENT"
+                      else f"DRIVER x{blobs}")
+
+    @staticmethod
+    def _event_blobs(w: Worker, params, partials, writers, offset: int, blob: int, blobs: int,
+                     look: int, launch, handles: list) -> None:
+        """The EVENT engine's wavefront (reference ``_run_pipelined_event``):
+        at step ``j`` stage blob ``j``, commit and compute blob ``j - look``,
+        read back blob ``j - look - 1``.  On a GPU lane the uploads go on the
+        H2D stream, the kernels on the lane's stream after each upload's
+        event, and the readbacks on the D2H stream after an event recorded
+        behind the blob's own kernels."""
+        gpu = w.stream is not None
+        staged: dict[int, list] = {}
+        done: dict[int, Any] = {}
+        if gpu:
+            w.begin_streamed()
+        try:
+            for j in range(blobs + look + 1):
+                if j < blobs:
+                    boff = offset + j * blob
+                    staged[j] = [w.stage_upload(p, boff * p.flags.elements_per_work_item,
+                                                blob * p.flags.elements_per_work_item)
+                                 for p in partials]
+                k = j - look
+                if 0 <= k < blobs:
+                    for st in staged.pop(k):
+                        w.commit_upload(st)
+                    launch(k)
+                    if gpu and writers:
+                        done[k] = torch.cuda.Event()
+                        done[k].record(w.stream)
+                m = j - look - 1
+                if 0 <= m < blobs:
+                    boff = offset + m * blob
+                    after = done.pop(m, None)
+                    for p in writers:
+                        epw = p.flags.elements_per_work_item
+                        handles.append(w.download_async(
+                            p, boff * epw, blob * epw, False,
+                            stream=w.d2h_stream if gpu else None, after=after))
+        finally:
+            if gpu:
+                w.end_streamed()
+
+    @staticmethod
+    def _driver_blobs(w: Worker, params, partials, writers, offset: int, blob: int,
+                      blobs: int, look: int, launch, handles: list) -> None:
+        """The DRIVER engine (reference ``_run_pipelined_driver``): blob
+        ``k``'s uploads, kernels and readbacks back to back with no wait
+        between blobs.  On a GPU lane blob ``k`` runs on the lane's stream
+        ``k mod 16`` in that stream's order; the streams start after the
+        lane's stream and the lane's stream waits for all of them at the
+        end, so work queued later on the lane runs after the blobs."""
+        queues = w.pipe_streams()[:min(blobs, PIPE_QUEUES)] if w.stream is not None else []
+        for q in queues:
+            q.wait_stream(w.stream)
+        try:
+            for k in range(blobs):
+                q = queues[k % len(queues)] if queues else None
+                boff = offset + k * blob
+                with torch.cuda.stream(q) if q is not None else nullcontext():
+                    for st in [w.stage_upload(p, boff * p.flags.elements_per_work_item,
+                                              blob * p.flags.elements_per_work_item, stream=q)
+                               for p in partials]:
+                        w.commit_upload(st)
+                    launch(k, stream=q)
+                    for p in writers:
+                        epw = p.flags.elements_per_work_item
+                        handles.append(w.download_async(p, boff * epw, blob * epw, False,
+                                                        stream=q))
+        finally:
+            for q in queues:
+                w.stream.wait_stream(q)
+                for p in params:  # buffers the blobs' kernels used on q
+                    w.buffer(p).record_stream(q)
+
     def _record_perf(self, compute_id: int, t_start: float, ranges: list[int]) -> None:
         perf = ComputePerf(
             compute_id=compute_id,
@@ -1028,8 +1277,20 @@ class Cores:
             self.program.fused_launcher(run.kernel_names, step, global_range, local_range,
                                         global_range, value_args, platform=platform)
         with self._lock:
-            self._fused_sig = sig
-            self._fused_run = run
+            # another thread's re-split flush has closed the windows and will
+            # reset the coverage this check read: a window opened now would
+            # lose its iterations at the reset.  A window another thread
+            # opened since this call's candidate check holds that thread's
+            # deferred iterations: replacing it would hand them to this
+            # signature (ROADMAP Queue C 12)
+            refused = ("re-split" if self._resplits > 0
+                       else "window-open" if self._fused_run is not None else None)
+            if refused is None:
+                self._fused_sig = sig
+                self._fused_run = run
+        if refused is not None:
+            self._note_disengage(refused, compute_id)
+            return
         FLIGHT.event("fused-engage", cid=compute_id, rows=len(rows))
         if DECISIONS.enabled:
             # provenance, not replayable: the engage check reads live
@@ -1042,12 +1303,14 @@ class Cores:
                 "lanes": [w.index for w, _off, _size in rows],
             }, {"engaged": True, "rows": len(rows)})
 
-    def _fused_defer(self, t_start: float, kernel_names) -> bool:
-        """Count this call into the open window; False when it closed
-        meanwhile (the caller takes the per-call path)."""
+    def _fused_defer(self, run: _FusedRun, t_start: float, kernel_names) -> bool:
+        """Count this call into the window ``run``, the one whose signature
+        it matched; False when that window closed meanwhile, whether or not
+        another opened (the caller takes the per-call path).  Counting into
+        whatever window is open would give this call's iteration to another
+        signature's arrays (ROADMAP Queue C 12)."""
         with self._lock:
-            run = self._fused_run
-            if run is None or self._fused_sig is None:
+            if self._fused_run is not run:
                 return False
             self._note_enqueue_call(run.compute_id, t_start)
             self._fused_pending += 1
@@ -1094,9 +1357,11 @@ class Cores:
                                  depth=self.fused_queue_depth, preflighted=True)
         except Exception:
             with self._lock:
+                # the poisoned window's deferrals go with it
                 self._fused_sig = None
                 self._fused_run = None
                 self._fused_candidate = None
+                self._fused_pending = 0
             raise
         with self._lock:
             self.fused_stats["windows"] += 1
@@ -1309,23 +1574,32 @@ class Cores:
 
     def _flush_and_reset_coverage(self) -> None:
         """The re-split flush: read back every deferred record and reset
-        every lane's upload coverage as one step under all worker locks.  Another host thread's enqueued call is then either before
+        every lane's upload coverage as one step under all worker locks.
+        Another host thread's enqueued call is then either before
         it (its record is collected here) or after it (it sees reset
         coverage and a host made current): a re-upload can never miss
         that thread's own updates.  Lock order: worker locks, then
         ``_lock``, as in :meth:`_enqueue_phase`.  An open fused window is
-        dispatched and drained first."""
-        self._fused_close()
-        with ExitStack() as stack:
-            for w in self.workers:
-                stack.enter_context(w.lock)
+        dispatched and drained first, and no window opens until the reset
+        is done: its iterations would be in no record read back here, and
+        the re-upload after the reset would overwrite them."""
+        with self._lock:
+            self._resplits += 1
+        try:
+            self._fused_close()
+            with ExitStack() as stack:
+                for w in self.workers:
+                    stack.enter_context(w.lock)
+                with self._lock:
+                    pending, self._enqueued = self._enqueued, []
+                    flush_iters, self._flush_iters = self._flush_iters, {}
+                self._finish_deferred(self._start_deferred_downloads(pending, lock_each=False),
+                                      flush_iters)
+                for w in self.workers:
+                    w.reset_coverage()
+        finally:
             with self._lock:
-                pending, self._enqueued = self._enqueued, []
-                flush_iters, self._flush_iters = self._flush_iters, {}
-            self._finish_deferred(self._start_deferred_downloads(pending, lock_each=False),
-                                  flush_iters)
-            for w in self.workers:
-                w.reset_coverage()
+                self._resplits -= 1
 
     def barrier(self) -> None:
         """Block until all dispatched work has retired, without reading

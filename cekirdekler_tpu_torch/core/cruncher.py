@@ -14,11 +14,11 @@ runtime toggles are ported with its defaults: ``repeat_count``,
 True, ``smooth_load_balancer`` True), ``no_compute_mode`` False,
 ``performance_feed`` False with ``performance_history`` and
 ``last_compute_performance_report``, and ``enqueue_mode_async_enable``
-(stored; a lane's enqueued work is always asynchronous), and
-``fence_split`` False.  Not ported: ``fine_grained_queue_control`` (queue
-markers, ROADMAP Queue A 4), which reads False and raises
-:class:`NotPortedError` when set True, ``dispatch_gate``,
-``pipeline_lookahead``, ``health_report`` and the debug endpoints.
+(stored; a lane's enqueued work is always asynchronous),
+``fence_split`` False and ``pipeline_lookahead`` 2.  Not ported:
+``fine_grained_queue_control`` (queue markers, ROADMAP Queue A 4), which
+reads False and raises :class:`NotPortedError` when set True,
+``dispatch_gate``, ``health_report`` and the debug endpoints.
 """
 
 from __future__ import annotations
@@ -182,6 +182,17 @@ class NumberCruncher:
     @stream_queue_depth.setter
     def stream_queue_depth(self, v: int) -> None:
         self.cores.stream_queue_depth = max(1, int(v))
+
+    @property
+    def pipeline_lookahead(self) -> int:
+        """The EVENT engine's read lookahead: blobs staged ahead of the
+        blob computing (default 2; 1 is the reference's three-queue
+        wavefront)."""
+        return self.cores.pipeline_lookahead
+
+    @pipeline_lookahead.setter
+    def pipeline_lookahead(self, v: int) -> None:
+        self.cores.pipeline_lookahead = max(1, int(v))
 
     @property
     def transfer_tuner(self):

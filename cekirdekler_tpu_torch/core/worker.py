@@ -6,8 +6,10 @@ full-size device buffer per array keyed ``id(arr)``, uploads its range
 slice (or the whole array) by ``non_blocking`` copies from host memory
 (page-locked for ``fast`` arrays), launches the kernel sequence over the
 binary chunk ladder, downloads its range slice, and keeps per-compute-id
-wall benches that feed the load balancer.  Every device operation of a
-CUDA lane runs on the lane's own ``torch.cuda.Stream``.
+benches that feed the load balancer: the phase's wall, or on a GPU lane's
+plain path the device span of its stream (:meth:`end_issue`).  Every
+device operation of a CUDA lane runs on the lane's own
+``torch.cuda.Stream``.
 
 Enqueue mode (``Cores.enqueue_mode``) adds residency and deferred
 transfers: an upload records the element range it covered
@@ -41,6 +43,15 @@ at :meth:`finish_download`.  A host lane runs the chunks in order on its
 queue.  Every device buffer a copy stream touches is recorded on that
 stream (``record_stream``).  ``transfers`` counts an array's range once
 per transfer, chunked or not; ``chunk_transfers`` counts the chunk copies.
+
+The pipelined engines (``Cores._run_pipelined``) use the same copies per
+blob: :meth:`stage_upload` / :meth:`commit_upload` (the reference's, with
+:meth:`buffer` and :meth:`set_buffer`) and :meth:`download_async` given a
+stream.  The EVENT engine copies on the two copy streams, ordered by CUDA
+events; the DRIVER engine runs each blob's H2D, kernels and D2H in order
+on one of the lane's :data:`PIPE_QUEUES` streams (:meth:`pipe_streams`),
+made once.  A staging slot is reused only after its copy has completed,
+as above.
 
 The ladder (``step * 2^k`` chunks) stays for parity with the reference's
 chunking: every launch geometry the balancer can produce is one of
@@ -79,7 +90,10 @@ from ..obs.flight import FLIGHT
 from ..trace.spans import TRACER
 from ..utils.faultinject import FAULTS
 
-__all__ = ["Worker"]
+__all__ = ["PIPE_QUEUES", "Worker"]
+
+#: the DRIVER engine's streams on a GPU lane: blob k runs on stream k mod 16
+PIPE_QUEUES = 16
 
 
 def _ladder(size: int, step: int) -> list[int]:
@@ -126,17 +140,19 @@ class _Slot:
 
 
 class _Download:
-    """A chunk's D2H in flight: on a GPU lane its completion event and,
-    when it went through a staging slot, the host copy
-    :meth:`Worker.finish_download` still owes; on a host lane the future of
-    the copy queued on the lane (None: it ran inline).  Its
-    ``download-chunk`` span covers the wait, as the reference's covers
-    the materialization."""
+    """A chunk's or a pipelined blob's D2H in flight: on a GPU lane its
+    completion event and, when it went through a staging slot, the host
+    copy :meth:`Worker.finish_download` still owes; on a host lane the
+    future of the copy queued on the lane (None: it ran inline).  Its span
+    (``kind``) covers the wait, as the reference's covers the
+    materialization."""
 
     def __init__(self, event, slot: _Slot | None = None, src: torch.Tensor | None = None,
                  dst: torch.Tensor | None = None, lane: int | None = None,
-                 tag: str | None = None, fut: Future | None = None):
+                 tag: str | None = None, fut: Future | None = None,
+                 kind: str = "download-chunk"):
         self.event = event
+        self.kind = kind
         self.slot = slot
         self.src = src
         self.dst = dst
@@ -158,7 +174,7 @@ class _Download:
             if self.slot.pending is self:
                 self.slot.pending = None
         self.done = True
-        TRACER.record("download-chunk", _tt, lane=self.lane, tag=self.tag)
+        TRACER.record(self.kind, _tt, lane=self.lane, tag=self.tag)
 
 
 class _Ring:
@@ -344,6 +360,7 @@ class Worker:
         self._up_ring = _Ring()
         self._down_ring = _Ring()
         self._slot_mu = threading.Lock()
+        self._pipe_streams: list | None = None
         self.graphs = LaneGraphs(device) if self.stream is not None else None
         self._buffers: dict[int, torch.Tensor] = {}
         self._buffer_owner: dict[int, ClArray] = {}  # strong refs, like the reference
@@ -354,6 +371,11 @@ class Worker:
         self.coverage_epoch = 0
         self.benchmarks: dict[int, float] = {}
         self._bench_t0: dict[int, float] = {}
+        # a GPU lane's device span of the open bench: start and end events
+        self._bench_span: dict[int, list] = {}
+        # set (by Cores, under the lane's lock) while host lanes of the
+        # call wait for this GPU lane to issue its work
+        self.issued: threading.Event | None = None
         # per-compute-id share of the enqueue flush's D2H drain, per
         # iteration (ms): the balancer's transfer floor
         self.transfer_benchmarks: dict[int, float] = {}
@@ -531,13 +553,51 @@ class Worker:
             slot.event.synchronize()
         return slot
 
+    def pipe_streams(self) -> list:
+        """The DRIVER engine's in-order streams of a GPU lane (the
+        reference's 16 command queues), made at the lane's first pipelined
+        call and kept."""
+        if self._pipe_streams is None:
+            self._pipe_streams = [torch.cuda.Stream(self.device) for _ in range(PIPE_QUEUES)]
+        return self._pipe_streams
+
     # -- benchmarks ----------------------------------------------------------
     def start_bench(self, compute_id: int) -> None:
         self._bench_t0[compute_id] = time.perf_counter()
+        if self.stream is not None:
+            start = torch.cuda.Event(enable_timing=True)
+            start.record(self.stream)
+            self._bench_span[compute_id] = [start, None]
+
+    def end_issue(self, compute_id: int) -> None:
+        """The plain path has issued all of this call's work on the lane's
+        stream: on a GPU lane, mark the end of its device span (the bench
+        :meth:`end_bench` takes), then let the call's host lanes start."""
+        span = self._bench_span.get(compute_id)
+        if span is not None:
+            span[1] = torch.cuda.Event(enable_timing=True)
+            span[1].record(self.stream)
+        self.release_host_lanes()
+
+    def release_host_lanes(self) -> None:
+        """Let the host lanes of the call start (:attr:`issued`)."""
+        if self.issued is not None:
+            self.issued.set()
 
     def end_bench(self, compute_id: int) -> None:
+        """The bench of the phase: its wall, or, where :meth:`end_issue`
+        marked one and it has completed, the device span from the phase's
+        start to its last operation.  A GPU lane's thread returns from its
+        fence only once it holds the interpreter lock again, which a host
+        lane's lowered kernels hold between their torch calls, so its wall
+        would hold that wait too."""
         t0 = self._bench_t0.pop(compute_id, None)
-        if t0 is not None:
+        span = self._bench_span.pop(compute_id, None)
+        if t0 is None:
+            return
+        if span is not None and span[1] is not None and span[1].query():
+            self.benchmarks[compute_id] = span[0].elapsed_time(span[1])
+        else:
             self.benchmarks[compute_id] = (time.perf_counter() - t0) * 1000.0
 
     # -- buffers -------------------------------------------------------------
@@ -552,6 +612,15 @@ class Worker:
             self._buffer_owner[key] = arr
             self._uploaded.pop(key, None)
         return buf
+
+    def buffer(self, arr: ClArray) -> torch.Tensor:
+        """The lane's device buffer of ``arr``."""
+        return self._buffers[id(arr)]
+
+    def set_buffer(self, arr: ClArray, buf: torch.Tensor) -> None:
+        """Make ``buf`` the lane's buffer of ``arr``."""
+        self._buffers[id(arr)] = buf
+        self._buffer_owner[id(arr)] = arr
 
     def upload_covers(self, arr: ClArray, offset_elems: int, size_elems: int) -> bool:
         """True iff this lane's resident data already covers the element
@@ -624,58 +693,74 @@ class Worker:
         self._buffer_owner.pop(id(arr), None)
         self._uploaded.pop(id(arr), None)
 
+    def stage_upload(self, arr: ClArray, offset_elems: int, size_elems: int, stream=None):
+        """Start the H2D of a range slice without making it visible to the
+        lane's kernels (reference ``stage_upload``: the read stage of the
+        pipelined engines); returns the handle :meth:`commit_upload` takes.
+        A GPU lane copies on ``stream`` (its H2D stream when None); a host
+        lane copies the slice aside.  Counts one transfer."""
+        self.transfers["h2d", arr.name] += 1
+        return self._stage(arr, offset_elems, size_elems, "upload", f"stage:{arr.name}",
+                           stream)
+
     def stage_upload_chunk(self, arr: ClArray, offset_elems: int, size_elems: int):
         """Start the H2D of one chunk of a streamed partition upload on the
-        caller's thread, before its kernels are dispatched; returns the
-        handle :meth:`commit_upload` takes.  A GPU lane copies on its H2D
-        stream into the lane's buffer (from the host array when it is
-        page-locked, else through a staging slot) and records an event; a
-        host lane copies the slice aside, to be written in order."""
+        caller's thread, before its kernels are dispatched (the chunk counts
+        as a chunk copy; ``Cores._run_streamed`` counts the range once)."""
+        self.chunk_transfers["h2d", arr.name] += 1
+        self._m_h2d_chunks.inc()
+        return self._stage(arr, offset_elems, size_elems, "upload-chunk",
+                           f"{arr.name}@{offset_elems}+{size_elems}", None)
+
+    def _stage(self, arr: ClArray, offset_elems: int, size_elems: int, kind: str, tag: str,
+               stream):
+        """A staged H2D: a GPU lane copies on ``stream`` into the lane's
+        buffer (from the host array when it is page-locked, else through a
+        staging slot) and records an event; a host lane copies the slice
+        aside, to be written in order."""
         _tt = TRACER.t0()
         t0 = time.perf_counter() if FAULTS.enabled else 0.0
         sl = slice(offset_elems, offset_elems + size_elems)
         host = _host_tensor(arr)[sl]
-        self.chunk_transfers["h2d", arr.name] += 1
-        self._m_h2d_chunks.inc()
         self._m_upload_bytes.inc(host.numel() * host.element_size())
         buf = self._buffers[id(arr)]
         if self.stream is None:
             staged = (arr, offset_elems, size_elems, host.clone(), buf)
             if t0:
                 self._slow_link("h2d", t0)
-            TRACER.record("upload-chunk", _tt, lane=self.index,
-                          tag=f"{arr.name}@{offset_elems}+{size_elems}")
+            TRACER.record(kind, _tt, lane=self.index, tag=tag)
             return staged
+        stream = stream or self.h2d_stream
         src = host
         slot = None
         if not _pinned(arr):
             slot = self._slot(self._up_ring)
             src = slot.view(host.numel() * host.element_size()).view(host.dtype)
             src.copy_(host)
-        with torch.cuda.stream(self.h2d_stream):
+        with torch.cuda.stream(stream):
             buf[sl].copy_(src, non_blocking=True)
             done = torch.cuda.Event()
-            done.record(self.h2d_stream)
-        buf.record_stream(self.h2d_stream)
+            done.record(stream)
+        buf.record_stream(stream)
         if slot is not None:
             slot.event = done
         if t0:
             self._slow_link("h2d", t0)
-        TRACER.record("upload-chunk", _tt, lane=self.index,
-                      tag=f"{arr.name}@{offset_elems}+{size_elems}")
+        TRACER.record(kind, _tt, lane=self.index, tag=tag)
         return (arr, offset_elems, size_elems, done, buf)
 
     def commit_upload(self, staged) -> None:
-        """Make a staged chunk visible to the lane's next kernels: a GPU
-        lane's compute stream waits for the chunk's H2D event; a host lane
-        writes the slice.  Runs in the lane's order (the stream driver)."""
+        """Make a staged slice visible to the lane's next kernels: on a GPU
+        lane the current stream (the lane's compute stream, or the DRIVER
+        engine's stream of the blob) waits for the slice's H2D event; a host
+        lane writes the slice.  Runs in the lane's order."""
         arr, off, n, data, target = staged
         sl = slice(off, off + n)
         buf = self._buffers[id(arr)]
         if self.stream is None:
             buf[sl].copy_(data)
         else:
-            self.stream.wait_event(data)
+            torch.cuda.current_stream(self.device).wait_event(data)
             if buf is not target:
                 # a kernel gave the array a new buffer since the chunk was staged
                 buf[sl].copy_(target[sl])
@@ -700,28 +785,36 @@ class Worker:
             else:
                 self._copy_down(arr, sl)
             return _Download(None, lane=self.index, tag=arr.name, fut=fut)
+        ready = torch.cuda.Event()
+        ready.record(self.stream)
+        return self._d2h(arr, sl, self.d2h_stream, ready, "download-chunk")
+
+    def _d2h(self, arr: ClArray, sl: slice, stream, after, kind: str) -> "_Download":
+        """A GPU lane's D2H of one slice on ``stream``, after the event
+        ``after`` (None: in ``stream``'s own order), into the host array when
+        it is page-locked, else into a staging slot whose host copy
+        :meth:`finish_download` makes."""
         t0 = time.perf_counter() if FAULTS.enabled else 0.0
         buf = self._buffers[id(arr)]
         host = _host_tensor(arr)[sl]
-        ready = torch.cuda.Event()
-        ready.record(self.stream)
         slot = None if _pinned(arr) else self._slot(self._down_ring)
-        self.d2h_stream.wait_event(ready)
-        with torch.cuda.stream(self.d2h_stream):
+        if after is not None:
+            stream.wait_event(after)
+        with torch.cuda.stream(stream):
             if slot is None:
                 dst = host
             else:
                 dst = slot.view(host.numel() * host.element_size()).view(host.dtype)
             dst.copy_(buf[sl], non_blocking=True)
             done = torch.cuda.Event()
-            done.record(self.d2h_stream)
-        buf.record_stream(self.d2h_stream)
+            done.record(stream)
+        buf.record_stream(stream)
         self._m_download_bytes.inc(host.numel() * host.element_size())
         if t0:
             self._slow_link("d2h", t0)
         if slot is None:
-            return _Download(done, lane=self.index, tag=arr.name)
-        handle = _Download(done, slot, dst, host, lane=self.index, tag=arr.name)
+            return _Download(done, lane=self.index, tag=arr.name, kind=kind)
+        handle = _Download(done, slot, dst, host, lane=self.index, tag=arr.name, kind=kind)
         slot.event = done
         slot.pending = handle
         return handle
@@ -735,16 +828,16 @@ class Worker:
 
     # -- launch --------------------------------------------------------------
     def _ladder_call(self, program: KernelProgram, kernel_names: tuple, launcher: Callable,
-                     args: tuple, params: Sequence[ClArray]) -> None:
+                     args: tuple, params: Sequence[ClArray], stream=None) -> None:
         """``launcher(*args, bufs)`` over the params' buffers: through the
-        lane's CUDA graphs on a GPU lane (``LaneGraphs.run``), as a host loop
-        on a host lane."""
+        lane's CUDA graphs on a GPU lane (``LaneGraphs.run``, on ``stream``,
+        the lane's stream when None), as a host loop on a host lane."""
         bufs = tuple(self._buffers[id(p)] for p in params)
         if self.graphs is None:
             bufs = launcher(*args, bufs)
         else:
             bufs = self.graphs.run((launcher, args, buffers_key(bufs)),
-                                   lambda: launcher(*args, bufs), bufs, self.stream,
+                                   lambda: launcher(*args, bufs), bufs, stream or self.stream,
                                    lambda out: program.capturable(kernel_names, bufs, out))
         for p, b in zip(params, bufs):
             self._buffers[id(p)] = b
@@ -752,13 +845,16 @@ class Worker:
     def launch(self, program: KernelProgram, kernel_names: Sequence[str],
                params: Sequence[ClArray], value_args, offset: int, size: int,
                local_range: int, global_size: int, step: int, repeats: int = 1,
-               sync_kernel: str | None = None, compute_id: int | None = None) -> None:
+               sync_kernel: str | None = None, compute_id: int | None = None,
+               stream=None) -> None:
         """Run the kernel sequence over work items ``[offset, offset+size)``,
         ``repeats`` times with ``sync_kernel`` between two repeats (reference:
         computeRepeated / computeRepeatedWithSyncKernel).  The repeats are one
         call of ``KernelProgram.fused_launcher`` (:meth:`_ladder_call`); with
         unhashable values, every launch runs in turn.  ``compute_id`` tags
-        the launch span."""
+        the launch span.  Launches go on the current stream; ``stream`` is
+        the one a GPU lane's graph replays on (the lane's stream when
+        None)."""
         _tt = TRACER.t0()
         names = tuple(kernel_names)
         platform = self.device.type
@@ -767,7 +863,7 @@ class Worker:
                                         value_args, platform, sync_kernel)
             if fn is not None:
                 self._ladder_call(program, names + ((sync_kernel,) if sync_kernel else ()),
-                                  fn, (offset, size // step, repeats), params)
+                                  fn, (offset, size // step, repeats), params, stream)
                 TRACER.record("launch", _tt, cid=compute_id, lane=self.index,
                               tag=f"{'+'.join(names)} x1")
                 return
@@ -832,10 +928,18 @@ class Worker:
         TRACER.record("download", _tt, lane=self.index, tag=arr.name)
 
     def download_async(self, arr: ClArray, offset_elems: int, size_elems: int,
-                       full: bool):
+                       full: bool, stream=None, after=None):
         """:meth:`download` ordered after the lane's work, with a handle for
         :meth:`finish_download`: a CUDA event on the lane's stream, a
-        future on a host lane's queue, or None where it ran inline."""
+        future on a host lane's queue, or None where it ran inline.  On a
+        GPU lane, ``stream`` moves the copy onto that stream, after the
+        event ``after`` (None: in the stream's own order), through a
+        staging slot for a pageable array (the pipelined engines' write
+        stage); a host lane has one order and ignores both."""
+        if self.stream is not None and stream is not None:
+            self.transfers["d2h", arr.name] += 1
+            sl = slice(0, arr.size) if full else slice(offset_elems, offset_elems + size_elems)
+            return self._d2h(arr, sl, stream, after, "download")
         if self.stream is not None:
             with self.on_stream():
                 self.download(arr, offset_elems, size_elems, full)
@@ -922,6 +1026,7 @@ class Worker:
                 if q is not None:
                     q.close()
             self._driver = self._stream_driver = None
+            self._pipe_streams = None
             for slot in self._down_ring.slots:
                 if slot.pending is not None:
                     slot.pending.finish()

@@ -30,12 +30,12 @@ def _threaded(w) -> None:
 
     q = _DriverQueue(f"ck-stream-thread-{w.index}")
 
-    def submit(fn, depth=2):
+    def submit(fn, depth=2, preflighted=False):
         def run():
             with w.on_stream():
                 fn()
 
-        q.submit(run, depth)
+        q.submit(run, depth, preflighted=preflighted)
 
     w.stream_dispatch_async = submit
     w.drain_stream_dispatch = q.drain

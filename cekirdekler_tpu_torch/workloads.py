@@ -33,6 +33,7 @@ from dataclasses import dataclass, field
 import numpy as np
 
 from .arrays.clarray import ClArray
+from .core.cores import PIPELINE_EVENT
 from .core.cruncher import NumberCruncher
 from .errors import NotPortedError
 from .hardware import Devices, all_devices
@@ -254,6 +255,7 @@ def _default_devices(devices: Devices | None) -> Devices:
 
 def run_mandelbrot(devices: Devices | None = None, width: int = 2048, height: int = 2048,
                    max_iter: int = 256, iters: int = 12, warmup: int = 2,
+                   pipeline: bool = False, pipeline_blobs: int = 8,
                    local_range: int = 256, keep_image: bool = False,
                    use_cuda_kernel: bool = False, readback: str = "every",
                    sync_every: int = 1,
@@ -266,7 +268,9 @@ def run_mandelbrot(devices: Devices | None = None, width: int = 2048, height: in
     ``"final"`` runs in enqueue mode: the image stays on the lanes,
     iterations sync to a barrier every ``sync_every`` calls (where the
     balancer may move ranges), and one flush at the end writes the host
-    image (the device-throughput view).  Warm-up dispatches are fenced
+    image (the device-throughput view).  ``pipeline`` runs each call through
+    the pipelined engine, ``pipeline_blobs`` blobs a lane (the balancer's
+    step is then ``local_range * pipeline_blobs``).  Warm-up dispatches are fenced
     outside the timed window.  A caller's ``cruncher`` (built from the
     mandelbrot source) is used as it is and never left in enqueue mode.
     Returns Mpixels/s over the timed iterations, per-iteration walls and
@@ -290,7 +294,8 @@ def run_mandelbrot(devices: Devices | None = None, width: int = 2048, height: in
             cr.enqueue_mode = True
         for k in range(warmup + iters):
             t0 = time.perf_counter()
-            out.compute(cr, 7001, "mandelbrot", n, local_range, values=vals)
+            out.compute(cr, 7001, "mandelbrot", n, local_range, pipeline=pipeline,
+                        pipeline_blobs=pipeline_blobs, values=vals)
             if final and ((k + 1) % sync_every == 0 or k == warmup + iters - 1):
                 cr.barrier()
             dt_ms = (time.perf_counter() - t0) * 1000.0
@@ -308,7 +313,8 @@ def run_mandelbrot(devices: Devices | None = None, width: int = 2048, height: in
             per_iter_ms=per_iter,
             ranges_per_iter=ranges,
             benches_per_iter=benches,
-            convergence_iters=_converged_at(ranges, local_range),
+            convergence_iters=_converged_at(
+                ranges, local_range * (pipeline_blobs if pipeline else 1)),
             image=out.host().reshape(height, width).copy() if keep_image else None,
         )
     finally:
@@ -467,9 +473,10 @@ def nbody_e2e(devices: Devices | None = None, n: int = 8192, iters: int = 150,
 
 
 def run_stream(devices: Devices | None = None, n: int = 1 << 20, reps: int = 10,
-               local_range: int = 256) -> dict:
-    """Streaming ``c = a + b`` (reference: 1M floats, 10 reps), on the plain
-    path: the reference's pipelined blobs wait for the pipeline slice."""
+               blobs: int = 8, local_range: int = 256) -> dict:
+    """Streaming ``c = a + b`` through the pipelined engine, ``blobs`` blobs
+    a lane (reference: Tester.cs:7806-7843, 1M floats, 8 blobs, 10 reps,
+    page-locked inputs)."""
     a = ClArray(n, np.float32, name="a", fast=True, partial_read=True, read_only=True)
     b = ClArray(n, np.float32, name="b", fast=True, partial_read=True, read_only=True)
     c = ClArray(n, np.float32, name="c", fast=True, write_only=True)
@@ -481,7 +488,8 @@ def run_stream(devices: Devices | None = None, n: int = 1 << 20, reps: int = 10,
     try:
         for _ in range(reps):
             t0 = time.perf_counter()
-            group.compute(cr, 7003, "streamAdd", n, local_range)
+            group.compute(cr, 7003, "streamAdd", n, local_range, pipeline=True,
+                          pipeline_blobs=blobs)
             times.append((time.perf_counter() - t0) * 1000.0)
         if not np.array_equal(c.host(), a.host() + b.host()):
             raise AssertionError("stream add mismatch")
@@ -831,31 +839,30 @@ class _LinkProbe:
 
 
 def measure_stream_overlap(devices: Devices | None = None, n: int = 1 << 22, blobs: int = 8,
-                           local_range: int = 256, pipeline_type: int | None = None,
+                           local_range: int = 256, pipeline_type: int = PIPELINE_EVENT,
                            reps: int = 3, heavy_iters: int | str = 0,
                            compute_factor: float = 1.0, duplex_probe: bool = False,
                            streamed: bool = False) -> dict:
-    """The read/compute/write overlap the streamed path realizes on the
-    first lane of ``devices`` (reference ``measure_stream_overlap``, its
-    ``streamed=True`` path): ``reps`` interleaved rounds each time a read
-    phase (the partition uploads of ``a`` and ``b``, ``blobs`` slices), a
-    compute phase (the kernel over the resident data), a write phase (the
-    D2H of ``c``) and a streamed ``compute()`` of all three; per phase the
-    median.  ``overlap_fraction`` = (r + c + w - p) / (r + c + w -
+    """The read/compute/write overlap a pipelined engine or the streamed
+    path realizes on the first lane of ``devices`` (reference
+    ``measure_stream_overlap``): ``reps`` interleaved rounds each time a
+    read phase (the partition uploads of ``a`` and ``b``, ``blobs``
+    slices), a compute phase (the kernel over the resident data), a write
+    phase (the D2H of ``c``) and a pipelined ``compute()`` of all three;
+    per phase the median.  ``overlap_fraction`` = (r + c + w - p) / (r + c + w -
     max(r, c, w)), raw: 1 is perfect overlap, 0 serial.  ``heavy_iters``
     swaps streamAdd for a kernel looping that many times per element
     (``"auto"`` calibrates it so compute is ``compute_factor`` times read +
     write).  ``duplex_probe`` adds pure H2D, D2H and simultaneous copies
-    to every round, seeds the tuner from a probe taken first, and reports
-    the per-round overlap ceiling (``trace/ceiling.py``).  The streamed
-    rounds follow two untimed settle runs (the tuner's measuring run and
-    its first chunked run).  The pipelined engines (``streamed=False``,
-    ``pipeline_type``) are ROADMAP Queue A 6 and raise
-    :class:`NotPortedError`."""
-    if not streamed or pipeline_type is not None:
-        raise NotPortedError("measure_stream_overlap measures the streamed path only; the "
-                             "pipelined engines (streamed=False, pipeline_type) are ROADMAP "
-                             "Queue A 6")
+    to every round and reports the per-round overlap ceiling
+    (``trace/ceiling.py``).  With ``streamed=False`` (the default) the
+    pipelined phase is ``compute(pipeline=True, pipeline_blobs=blobs)`` by
+    the engine ``pipeline_type`` names, and the ceiling's
+    fill and drain count ``blobs``.  With ``streamed=True`` it is a plain
+    ``compute()`` through the stream engine: the duplex probe seeds the
+    tuner first, two untimed settle runs (the tuner's measuring run and its
+    first chunked run) come before the rounds, and the result adds
+    ``transfer_path``, ``stream_chunks`` and ``autotuner_retunes``."""
     devs = _default_devices(devices).require_nonempty("a CUDA device").subset(1)
     kname = "streamHeavy" if heavy_iters else "streamAdd"
     auto_balance = heavy_iters == "auto"
@@ -901,6 +908,15 @@ def measure_stream_overlap(devices: Devices | None = None, n: int = 1 << 22, blo
             w.invalidate(arr)
         a.next_param(b, c).compute(cr, 7004, kname, n, local_range, values=kvals)
 
+    def phase_pipelined() -> None:
+        for arr in (a, b, c):
+            w.invalidate(arr)
+        a.next_param(b, c).compute(cr, 7004, kname, n, local_range, pipeline=True,
+                                   pipeline_blobs=blobs, pipeline_type=pipeline_type,
+                                   values=kvals)
+
+    phase_pipe = phase_streamed if streamed else phase_pipelined
+
     def timed(fn, needs_fence: bool, rtt: float) -> float:
         t0 = time.perf_counter()
         fn()
@@ -922,7 +938,7 @@ def measure_stream_overlap(devices: Devices | None = None, n: int = 1 << 22, blo
         compute_at(kvals)
         fence()
         phase_write()
-        phase_streamed()
+        phase_pipe()
         if auto_balance:
             rtt0 = rtt_now()
 
@@ -964,25 +980,27 @@ def measure_stream_overlap(devices: Devices | None = None, n: int = 1 << 22, blo
                     wall = t() * 1000.0
                     dst[key].append(max(wall - rtt, wall * 0.05))
 
-            # seed the tuner from one probe under the rounds' link weather
-            scratch: dict = {"h2d": [], "d2h": [], "dup": []}
-            probe_duplex(rtt_now(), into=scratch)
-            mib = (4.0 * n) / float(1 << 20)
-            cr.transfer_tuner.seed_link(w.index, scratch["h2d"][0] / mib,
-                                        scratch["d2h"][0] / mib)
-        # the warm run's measuring run saw the pre-calibration workload
-        cr.transfer_tuner.on_repartition()
-        retunes0 = cr.transfer_tuner.retunes
-        # untimed settle: the measuring run, then the first chunked run
-        phase_streamed()
-        phase_streamed()
+            if streamed:
+                # seed the tuner from one probe under the rounds' link weather
+                scratch: dict = {"h2d": [], "d2h": [], "dup": []}
+                probe_duplex(rtt_now(), into=scratch)
+                mib = (4.0 * n) / float(1 << 20)
+                cr.transfer_tuner.seed_link(w.index, scratch["h2d"][0] / mib,
+                                            scratch["d2h"][0] / mib)
+        if streamed:
+            # the warm run's measuring run saw the pre-calibration workload
+            cr.transfer_tuner.on_repartition()
+            retunes0 = cr.transfer_tuner.retunes
+            # untimed settle: the measuring run, then the first chunked run
+            phase_streamed()
+            phase_streamed()
         for _ in range(reps):
             rtt = rtt_now()
             samples["rtt"].append(rtt)
             samples["r"].append(timed(phase_read, True, rtt))
             samples["c"].append(timed(lambda: compute_at(kvals), True, rtt))
             samples["w"].append(timed(phase_write, False, rtt))
-            samples["p"].append(timed(phase_streamed, False, rtt))
+            samples["p"].append(timed(phase_pipe, False, rtt))
             if duplex_probe:
                 probe_duplex(rtt)
 
@@ -996,7 +1014,7 @@ def measure_stream_overlap(devices: Devices | None = None, n: int = 1 << 22, blo
         overlap = (serial - t_p) / ideal if ideal > 1e-9 else 0.0
         spread = max((max(samples[k]) - min(samples[k])) / max(med(k), 1e-9)
                      for k in ("r", "w", "p"))
-        chunks = cr.cores.last_stream_chunks.get(w.index, 1)
+        chunks = cr.cores.last_stream_chunks.get(w.index, 1) if streamed else blobs
         ceiling_keys: dict = {}
         if duplex_probe:
             from .trace.ceiling import RepSample, ceiling_report
@@ -1017,6 +1035,8 @@ def measure_stream_overlap(devices: Devices | None = None, n: int = 1 << 22, blo
             np.testing.assert_allclose(c.host(), want, rtol=1e-6)
         else:
             np.testing.assert_allclose(c.host(), a.host() + b.host())
+        stream_keys = {"transfer_path": "streamed-ladder", "stream_chunks": chunks,
+                       "autotuner_retunes": cr.transfer_tuner.retunes - retunes0} if streamed else {}
         return {
             "t_read_ms": t_r, "t_compute_ms": t_c, "t_write_ms": t_w, "t_pipelined_ms": t_p,
             "t_serial_ms": serial, "rtt_ms": med("rtt"),
@@ -1024,9 +1044,7 @@ def measure_stream_overlap(devices: Devices | None = None, n: int = 1 << 22, blo
             "sample_spread": spread,
             "n": n, "blobs": blobs, "reps": reps,
             "heavy_iters": int(heavy_iters) if heavy_iters else 0,
-            "transfer_path": "streamed-ladder",
-            "stream_chunks": chunks,
-            "autotuner_retunes": cr.transfer_tuner.retunes - retunes0,
+            **stream_keys,
             **ceiling_keys,
         }
     finally:

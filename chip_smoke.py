@@ -107,6 +107,32 @@ Phases, each of which raises on failure (the script then exits non-zero):
 5e. ``no_compute_mode`` on the GPU lane, per call and enqueued: the
    arrays move (transfers counted), no kernel launches, the host array
    keeps its values, and the fused refusal ``no-compute`` is counted;
+5f. pipelines, with the counts set to 0 before each run and read after
+   it: (a) ``compute(pipeline=True, pipeline_blobs=8)`` of streamAdd at
+   2^24 floats on the GPU lane, page-locked and pageable, by the EVENT
+   engine at lookahead 1, 2 and 4 and by the DRIVER engine, in turns with
+   the monolithic and the streamed (tuner's choice) path: every call's
+   ``c`` equals the monolithic run's bit for bit, every pipelined call's 8
+   blobs launch on the emitter's streaming form and none on the torch
+   route; the host walls printed, and
+   ``measure_stream_overlap(streamed=False)`` of both engines at
+   ``heavy_iters="auto"``, compute factors 1 and 3, with the duplex
+   probe; (b) mandelbrot 2048x2048x256 by the escape form and the
+   hand kernel on a GPU + host lane and on the GPU lane alone, pipelined
+   (8 blobs) A B B A against the plain path: images exact, each pipelined
+   blob launch of the GPU lane on its hand-written kernel (counted from
+   the calls' range tables), Mpixels/s printed; (c) three stages (addOne, timesTwo, addHidden) at
+   2^22 fed 16 generations of seeded integers by ``DevicePipeline.feed``
+   and ``feed_async`` on the card and ``ClPipeline.push`` over the card, a
+   host lane and the card: every generation (x + 1) * 2 + 3 bit for bit,
+   each stage's kernel once a generation on the card's CUDA route,
+   generations/s printed; (d) ``ClDevicePool`` over the GPU lane and two
+   host lanes, 64 mandelbrot tiles with a ``device_select`` span, a
+   ``global_synchronization`` and a ``broadcast``: the image exact, the
+   tasks done summing to the tasks run, tasks/s and shares printed.  Both
+   engines must have run on the GPU lane
+   (``ck_pipeline_stages_total{engine, device="cuda"}``).  The main
+   path's ``run_stream`` runs the EVENT engine too;
 6. transformer: the flagship transformer's forward at the default width
    (vocab 32000, d_model 512, 4 layers, 8 heads of 64, d_ff 2048, bf16,
    ``attention="flash"``, seeded random weights) on ``cuda:0``.  With every
@@ -162,6 +188,7 @@ or when the package is not beside this script.
 
 from __future__ import annotations
 
+import itertools
 import json
 import os
 import subprocess
@@ -1127,10 +1154,11 @@ def check_balancer(ck, wl, lanes, priors: list[float]) -> None:
     at each local range at least ``BALANCE_MIN_STILL`` runs must, in their
     last ``BALANCE_HOLD`` calls, move at most once and by one step: a
     drain still under way or a cycle moves more than that in every run.
-    The lane walls are host wall times, and on a host whose cores are
-    shared a lane thread descheduled for several milliseconds can move a
-    run further (one GPU-lane call of 11 ms against a usual 3-4 moved one
-    run by three steps); the odd run is printed with its walls."""
+    The host lane's bench is its wall; the GPU lane issues its call before
+    the host lane starts, and its bench is its stream's device span, which
+    holds no wait for the interpreter lock after its fence.  A lane thread
+    descheduled for several milliseconds on a shared host can still move a
+    run further; the odd run is printed with its benches."""
     from cekirdekler_tpu_torch.core.balance import prior_split
 
     mixed_ref = wl.mandelbrot_host(1024, 1024, -2.0, -1.25, 2.5 / 1024, 2.5 / 1024, 64)
@@ -1150,7 +1178,7 @@ def check_balancer(ck, wl, lanes, priors: list[float]) -> None:
             if rep == 0:
                 print(f"local range {step}, host-lane range per call: "
                       f"{[lane[1] for lane in r.ranges_per_iter]}")
-                print(f"local range {step}, lane walls per call (GPU ms / host ms): "
+                print(f"local range {step}, lane benches per call (GPU ms / host ms): "
                       f"{[(round(b[0], 4), round(b[1], 4)) for b in r.benches_per_iter]}")
             moves, span, still = tail_moves(r.ranges_per_iter, BALANCE_HOLD)
             its.append(r.convergence_iters)
@@ -1158,7 +1186,7 @@ def check_balancer(ck, wl, lanes, priors: list[float]) -> None:
             late.append((moves, span // step))
             if moves:
                 print(f"local range {step}, run {rep} moved late; last 25 calls' host-lane "
-                      f"ranges {[lane[1] for lane in r.ranges_per_iter[-25:]]}, walls "
+                      f"ranges {[lane[1] for lane in r.ranges_per_iter[-25:]]}, benches "
                       f"{[(round(b[0], 4), round(b[1], 4)) for b in r.benches_per_iter[-25:]]}")
         n_ok = sum(c is not None for c in its)
         n_still = sum(m <= 1 and s <= 1 for m, s in late)
@@ -2082,6 +2110,385 @@ def check_no_compute(ck, wl, gpus, mods) -> None:
                              f"fused_stats {stats}")
 
 
+# -- the pipelines phase: the pipelined engines, device pipelines, the pool ----
+
+PIPE_BLOBS = 8
+PIPE_CALLS = 4
+#: the device pipelines' three stages: addOne -> timesTwo -> addHidden (h = 3)
+STAGE_SRCS = (
+    ("addOne", """
+__kernel void addOne(__global float* a, __global float* b) {
+    int i = get_global_id(0);
+    b[i] = a[i] + 1.0f;
+}
+"""),
+    ("timesTwo", """
+__kernel void timesTwo(__global float* a, __global float* b) {
+    int i = get_global_id(0);
+    b[i] = a[i] * 2.0f;
+}
+"""),
+    ("addHidden", """
+__kernel void addHidden(__global float* a, __global float* h, __global float* b) {
+    int i = get_global_id(0);
+    b[i] = a[i] + h[i];
+}
+__kernel void initHidden(__global float* a, __global float* h, __global float* b) {
+    int i = get_global_id(0);
+    h[i] = 3.0f;
+}
+"""),
+)
+
+
+def blob_launches(ranges: list[list[int]], blobs: int, step: int) -> list[int]:
+    """The launches each lane makes in pipelined calls with these range
+    tables: every blob of a lane's range runs its ladder of ``step * 2^k``
+    chunks."""
+    from cekirdekler_tpu_torch.core.worker import _ladder
+
+    out = [0] * (len(ranges[0]) if ranges else 0)
+    for r in ranges:
+        for i, size in enumerate(r):
+            if size:
+                out[i] += blobs * len(_ladder(size // blobs, step))
+    return out
+
+
+def gate_blob_launches(label: str, counts: dict, gpu: int, host: int, kernel: str,
+                       hand: bool) -> None:
+    """The GPU lane's ``gpu`` blob launches all ran the hand-written kernel
+    (the emitter's CUDA route, or ``csrc/mandelbrot.cu``), the host lanes'
+    ``host`` launches their plain version, and no launch of the GPU lane
+    took the torch route."""
+    routes = counts["routes"]
+    if hand:
+        ok = (counts["mandelbrot.cu"] == gpu and routes.get("python", 0) == gpu + host
+              and not routes.get("torch", 0))
+    else:
+        ok = (counts["emitted"].get(kernel, 0) == gpu and routes.get("cuda", 0) == gpu
+              and routes.get("torch", 0) == host)
+    if not ok:
+        raise AssertionError(f"pipelined {label}: want the GPU lane's {gpu} blob launches on "
+                             f"the hand-written kernel and the host lanes' {host} on the plain "
+                             f"version; counts {counts}")
+
+
+def pipelined_stream_runs(ck, wl, gpus, mods, fast: bool, n: int, calls: int) -> dict:
+    """streamAdd over ``n`` floats (page-locked or pageable) on one GPU-lane
+    cruncher: monolithic, streamed (the tuner's choice) and pipelined by the
+    EVENT engine at lookahead 1, 2 and 4 and by the DRIVER engine,
+    ``calls`` calls each, in turns and again in reverse.  Every call's
+    ``c`` is held against the first monolithic call's, bit for bit, as it
+    lands.  Returns that first output, and each run's last output, host
+    walls, launch counts and count of differing elements a call."""
+    reg, graphs, cuda_backend, mandel_op, ew_op = mods
+    configs = (("monolithic", None, 2), ("streamed", None, 2),
+               ("EVENT L=1", ck.PIPELINE_EVENT, 1), ("EVENT L=2", ck.PIPELINE_EVENT, 2),
+               ("EVENT L=4", ck.PIPELINE_EVENT, 4), ("DRIVER", ck.PIPELINE_DRIVER, 2))
+    rng = np.random.default_rng(31)
+    # made by size: ``fast`` gives an array made from data no page-locked memory
+    a, b = (ck.ClArray(n, np.float32, name=k, partial_read=True, read_only=True, fast=fast)
+            for k in "ab")
+    for arr in (a, b):
+        arr.host()[:] = rng.standard_normal(n).astype(np.float32)
+    c = ck.ClArray(n, np.float32, name="c", write_only=True, fast=fast)
+    runs = {label: {"walls": [], "launches": [], "diffs": []} for label, _, _ in configs}
+    first = None
+    with ck.NumberCruncher(gpus.subset(1), wl.STREAM_SRC) as cr:
+        for order in (configs, configs[::-1]):
+            for label, ptype, look in order:
+                cr.streamed_transfers = label == "streamed"
+                cr.pipeline_lookahead = look
+                for _ in range(calls):
+                    c.host()[:] = 0.0
+                    reset_counts(reg, graphs, cuda_backend, mandel_op, ew_op)
+                    t0 = time.perf_counter()
+                    a.next_param(b, c).compute(cr, 7400, "streamAdd", n, 256,
+                                               pipeline=ptype is not None,
+                                               pipeline_blobs=PIPE_BLOBS,
+                                               pipeline_type=ptype or ck.PIPELINE_EVENT)
+                    runs[label]["walls"].append((time.perf_counter() - t0) * 1e3)
+                    runs[label]["launches"].append(launch_counts(reg, cuda_backend, mandel_op,
+                                                                 ew_op))
+                    if first is None:
+                        first = c.host().copy()
+                    runs[label]["diffs"].append(int(np.count_nonzero(
+                        c.host().view(np.uint32) != first.view(np.uint32))))
+                runs[label]["out"] = c.host().copy()
+    runs["want"] = a.host() + b.host()
+    runs["first"] = first
+    return runs
+
+
+def gate_pipelined_stream(runs: dict, label: str, n: int, on_card: bool) -> dict:
+    """The gates of :func:`pipelined_stream_runs`' runs: the monolithic
+    output is ``a + b``, every call's output the monolithic one bit for bit,
+    and on the card every pipelined call's blobs launched on the emitter's
+    CUDA route (streaming form).  Returns each run's best and median host
+    ms."""
+    runs = dict(runs)
+    want, first = runs.pop("want"), runs.pop("first")
+    gate_exact(first, want, f"{label}, monolithic")
+    gate_exact(runs["monolithic"]["out"], want, f"{label}, monolithic")
+    blob = blob_launches([[n]], PIPE_BLOBS, 256)[0]
+    row = {}
+    for name, run in runs.items():
+        for k, diff in enumerate(run["diffs"]):
+            if diff:
+                raise AssertionError(f"{label}, {name}, against the monolithic run: call "
+                                     f"{k + 1} of {len(run['diffs'])} differs at {diff} of "
+                                     f"{n} elements")
+        gate_exact(run["out"], runs["monolithic"]["out"],
+                   f"{label}, {name}, against the monolithic run")
+        walls = sorted(run["walls"])
+        row[name] = {"best_ms": round(walls[0], 3), "median_ms": round(walls[len(walls) // 2], 3)}
+        if on_card and name.startswith(("EVENT", "DRIVER")):
+            for counts in run["launches"]:
+                gate_blob_launches(f"{label}, {name}", counts, blob, 0, "streamAdd", hand=False)
+                gate_forms(counts["forms"], {"streamAdd": "stream"})
+    return row
+
+
+def check_pipelined_stream(ck, wl, gpus, mods, n: int = 1 << 24,
+                           calls: int = PIPE_CALLS) -> dict:
+    """Phase (a): streamAdd 2^24 through ``compute(pipeline=True)`` on the GPU
+    lane, page-locked and pageable: every call's ``c`` equals the monolithic
+    run's bit for bit, every pipelined call launches 8 blobs on the
+    emitter's CUDA route (streaming form), none on the torch route; walls
+    printed.  Then ``measure_stream_overlap(streamed=False)`` of both
+    engines at ``heavy_iters="auto"``, compute factors 1 and 3, with the
+    duplex probe (printed).  Returns the walls and the pipelined calls'
+    launches of the kernel."""
+    out = {"launches": 0}
+    for fast in (True, False):
+        memory = "page-locked" if fast else "pageable"
+        runs = pipelined_stream_runs(ck, wl, gpus, mods, fast, n, calls)
+        row = gate_pipelined_stream(runs, f"streamAdd 2^24 ({memory})", n, on_card=True)
+        out["launches"] += sum(counts["emitted"].get("streamAdd", 0)
+                               for name, run in runs.items() if name.startswith(("EVENT", "D"))
+                               for counts in run["launches"])
+        print(f"pipelined streamAdd 2^24 ({memory}), {2 * calls} calls a run, host ms a "
+              f"call: {json.dumps(row)}")
+        out[memory] = row
+    for ptype, name in ((ck.PIPELINE_EVENT, "EVENT"), (ck.PIPELINE_DRIVER, "DRIVER")):
+        for factor in (1.0, 3.0):
+            ov = wl.measure_stream_overlap(gpus, pipeline_type=ptype, heavy_iters="auto",
+                                           compute_factor=factor, duplex_probe=True)
+            print(f"measure_stream_overlap(streamed=False, {name}, heavy_iters='auto', "
+                  f"compute_factor={factor:g}, duplex_probe=True): {json.dumps(ov)}")
+            out[f"overlap {name} x{factor:g}"] = {
+                k: ov.get(k) for k in ("overlap_fraction", "heavy_iters", "t_pipelined_ms",
+                                       "t_serial_ms", "achieved_vs_ceiling")}
+    return out
+
+
+def check_pipelined_mandelbrot(ck, wl, fleets: dict, mods, ref_img: np.ndarray,
+                               iters: int = 6) -> dict:
+    """Phase (b): mandelbrot over the square image ``ref_img`` at max_iter
+    256 (2048x2048 on the card) by the emitted escape form and by the hand
+    kernel through ``compute(pipeline=True, pipeline_blobs=8)`` on each
+    fleet (a GPU lane and a host lane; the GPU lane alone), A B B A against
+    ``pipeline=False``: every image exact and, where lane 0 is a GPU lane,
+    its every pipelined blob launch on its hand-written kernel (counted
+    from the calls' range tables).  Returns Mpixels/s and the GPU lane's
+    pipelined launches by route."""
+    reg, graphs, cuda_backend, mandel_op, ew_op = mods
+    W = int(round(ref_img.size ** 0.5))
+    out = {"launches": {"emitted": 0, "hand kernel": 0}}
+    for (label, hand), (fleet, lanes) in itertools.product(
+            (("emitted", False), ("hand kernel", True)), fleets.items()):
+        row = []
+        for pipeline in (True, False, False, True):
+            reset_counts(reg, graphs, cuda_backend, mandel_op, ew_op)
+            r = wl.run_mandelbrot(lanes, W, W, 256, iters=iters, warmup=1,
+                                  pipeline=pipeline, pipeline_blobs=PIPE_BLOBS, local_range=256,
+                                  keep_image=True, use_cuda_kernel=hand)
+            gate_exact(r.image.ravel(), ref_img, f"pipelined={pipeline} mandelbrot ({label})")
+            if pipeline and lanes[0].is_gpu:
+                per_lane = blob_launches(r.ranges_per_iter, PIPE_BLOBS, 256)
+                counts = launch_counts(reg, cuda_backend, mandel_op, ew_op)
+                gate_blob_launches(f"mandelbrot ({label}, {fleet})", counts, per_lane[0],
+                                   sum(per_lane[1:]), "mandelbrot", hand)
+                out["launches"][label] += per_lane[0]
+                if not hand:
+                    gate_forms(counts["forms"], {"mandelbrot": "escape"})
+            row.append(round(r.mpixels_per_sec, 1))
+        print(f"mandelbrot {W}x{W}x256 ({label}) on {fleet}, Mpixels/s, pipelined "
+              f"(8 blobs) / plain / plain / pipelined: {row}; last ranges "
+              f"{r.ranges_per_iter[-1]}")
+        out[f"{label}, {fleet}"] = row
+    return out
+
+
+def pipeline_stages(n: int):
+    """The three stages at ``n`` elements, local range 256."""
+    from cekirdekler_tpu_torch import ClArray
+    from cekirdekler_tpu_torch.pipeline import PipelineStage
+
+    stages = []
+    for kname, src in STAGE_SRCS:
+        st = PipelineStage(src, kname, global_range=n, local_range=256,
+                           init_kernels="initHidden" if kname == "addHidden" else ())
+        st.add_input(ClArray(n, np.float32))
+        if kname == "addHidden":
+            st.add_hidden(ClArray(n, np.float32))
+        st.add_output(ClArray(n, np.float32))
+        stages.append(st)
+    return stages
+
+
+def generation_data(n: int, gens: int) -> list[np.ndarray]:
+    """Seeded integer-valued data, one array a generation: (x + 1) * 2 + 3 is
+    exact in f32."""
+    rng = np.random.default_rng(41)
+    return [rng.integers(-1000, 1000, n).astype(np.float32) for _ in range(gens)]
+
+
+def run_generations(pipe, feed: str, datas: list[np.ndarray]) -> tuple[list, float]:
+    """Feed every generation by ``pipe.<feed>``, dispose the pipeline;
+    returns the valid results and the seconds of generations 1 on (the
+    first launches' generation 0 outside the clock)."""
+    try:
+        result = np.zeros(datas[0].size, np.float32)
+        outs = []
+        t0 = time.perf_counter()
+        for g, data in enumerate(datas):
+            if g == 1:
+                t0 = time.perf_counter()
+            if getattr(pipe, feed)(data, result):
+                outs.append(result.copy())
+        return outs, time.perf_counter() - t0
+    finally:
+        pipe.dispose()
+
+
+def gate_generations(label: str, outs: list, datas: list[np.ndarray]) -> None:
+    """Every valid generation of the three stages equals (x + 1) * 2 + 3
+    computed on the host, bit for bit."""
+    if len(outs) != len(datas) - len(STAGE_SRCS) + 1:
+        raise AssertionError(f"{label}: {len(outs)} valid generations of {len(datas)}")
+    for j, got in enumerate(outs):
+        gate_exact(got, (datas[j] + np.float32(1.0)) * np.float32(2.0) + np.float32(3.0),
+                   f"{label}: generation {j}")
+
+
+def check_device_pipelines(ck, gpus, host, mods, n: int = 1 << 22, gens: int = 16) -> dict:
+    """Phase (c): the three stages fed ``gens`` generations of seeded
+    integer data, by ``DevicePipeline.feed`` and ``feed_async`` on the card
+    and by ``ClPipeline.push`` over the card, a host lane and the card:
+    each valid generation equals (x + 1) * 2 + 3 computed on the host, bit
+    for bit (a handoff that lets a producer overwrite what its consumer
+    reads breaks it), and each stage's kernel launched once a generation,
+    on the emitter's CUDA route on the card.  Generation 0 (the kernels'
+    first launches) is outside the clock.  Returns generations/s."""
+    from cekirdekler_tpu_torch.pipeline import ClPipeline, DevicePipeline
+
+    reg, graphs, cuda_backend, mandel_op, ew_op = mods
+    datas = generation_data(n, gens)
+    out = {}
+    for label, make, feed in (
+            ("DevicePipeline.feed", lambda: DevicePipeline.make(pipeline_stages(n), gpus[0]),
+             "feed"),
+            ("DevicePipeline.feed_async",
+             lambda: DevicePipeline.make(pipeline_stages(n), gpus[0]), "feed_async"),
+            ("ClPipeline.push (card, host lane, card)",
+             lambda: ClPipeline.make(pipeline_stages(n), [gpus[0], host, gpus[0]]), "push")):
+        reset_counts(reg, graphs, cuda_backend, mandel_op, ew_op)
+        outs, secs = run_generations(make(), feed, datas)
+        gate_generations(label, outs, datas)
+        counts = launch_counts(reg, cuda_backend, mandel_op, ew_op)
+        host_stage = "host lane" in label
+        want = {"addOne": gens, "timesTwo": 0 if host_stage else gens, "addHidden": gens,
+                "initHidden": 1}
+        got = {k: counts["emitted"].get(k, 0) for k in want}
+        if got != want or counts["routes"].get("torch", 0) != (gens if host_stage else 0):
+            raise AssertionError(f"{label}: stage launches {counts}, want on the card {want}")
+        out[label] = round((gens - 1) / secs, 2)
+        print(f"{label}: 3 stages at 2^22, {gens} generations exact, {out[label]} "
+              f"generations/s (generations 1-{gens - 1}); launches {counts['emitted']}, "
+              f"routes {counts['routes']}")
+    return out
+
+
+def check_device_pool(ck, wl, lanes, mods, ref_img: np.ndarray, tiles: int = 64) -> dict:
+    """Phase (d): ``ClDevicePool`` over the GPU lane and two host lanes,
+    ``tiles`` mandelbrot tiles of the square image ``ref_img`` at max_iter
+    256 (2048x2048 on the card): tiles 0-7 pinned to lane 0
+    (``device_select``), a ``global_synchronization``, the rest greedy, the
+    last tile a ``broadcast``.  The image must equal ``mandelbrot_host``,
+    the tasks done must sum to the tasks run (the broadcast once a lane),
+    the pinned tiles on lane 0, and a GPU lane 0's launches on the escape
+    form of the emitter's CUDA route.  Returns tasks/s and each lane's
+    share."""
+    from cekirdekler_tpu_torch.pipeline import ClDevicePool, ClTask, ClTaskPool
+
+    reg, graphs, cuda_backend, mandel_op, ew_op = mods
+    W = H = int(round(ref_img.size ** 0.5))
+    tile = W * H // tiles
+    vals = (-2.0, -1.25, 2.5 / W, 2.5 / H, W, 256)
+    img = ck.ClArray(W * H, np.float32, name="img", read=False, write=True)
+
+    def task(k: int) -> ClTask:
+        return ClTask(params=[img], kernel_names=["mandelbrot"], compute_id=7500 + k,
+                      global_range=tile, local_range=256, global_offset=k * tile, values=vals)
+
+    pool = ClTaskPool([ClTask.device_select_begin(0)])
+    for k in range(8):
+        pool.add(task(k))
+    pool.add(ClTask.device_select_end()).add(ClTask.global_synchronization())
+    for k in range(8, tiles - 1):
+        pool.add(task(k))
+    pool.add(task(tiles - 1).as_broadcast())
+    reset_counts(reg, graphs, cuda_backend, mandel_op, ew_op)
+    with ClDevicePool(lanes, wl.MANDELBROT_SRC) as dp:
+        t0 = time.perf_counter()
+        dp.enqueue_task_pool(pool)
+        dp.finish()
+        secs = time.perf_counter() - t0
+        done = dp.tasks_done_per_device()
+    gate_exact(img.host(), ref_img, "device pool image")
+    counts = launch_counts(reg, cuda_backend, mandel_op, ew_op)
+    gpu_launches = counts["emitted"].get("mandelbrot", 0)
+    if sum(done) != tiles - 1 + len(lanes) or done[0] < 8:
+        raise AssertionError(f"device pool: tasks done {done}")
+    if lanes[0].is_gpu and (gpu_launches < done[0] or counts["routes"].get("cuda", 0) != gpu_launches
+                            or counts["routes"].get("torch", 0) < sum(done[1:])):
+        raise AssertionError(f"device pool: tasks done {done}, launches {counts}")
+    if lanes[0].is_gpu:
+        gate_forms(counts["forms"], {"mandelbrot": "escape"})
+    share = [round(d / sum(done), 3) for d in done]
+    print(f"device pool, {tiles} mandelbrot tiles of {W}x{H // tiles}x256 over "
+          f"{[d.name for d in lanes]}: {sum(done) / secs:.1f} tasks/s ({secs * 1e3:.1f} ms), "
+          f"tasks done {done}, shares {share}; launches {counts['emitted']}, routes "
+          f"{counts['routes']}")
+    return {"tasks_per_s": round(sum(done) / secs, 1), "done": done}
+
+
+def check_pipelines(ck, wl, gpus, mods, ref_img: np.ndarray, card: str) -> dict:
+    """The pipelines phase, (a)-(d), with its own counts: both engines must
+    have run on the GPU lane."""
+    from cekirdekler_tpu_torch.metrics.registry import REGISTRY
+
+    print(f"pipelines phase on {card}")
+    phases = {engine: REGISTRY.counter("ck_pipeline_stages_total", "stage bodies executed",
+                                       engine=engine, device="cuda")
+              for engine in ("EVENT", "DRIVER")}
+    before = {engine: c.value for engine, c in phases.items()}
+    host = ck.all_devices().cpus(2)
+    res = {"stream": check_pipelined_stream(ck, wl, gpus, mods),
+           "mandelbrot": check_pipelined_mandelbrot(
+               ck, wl, {"a GPU + host lane": gpus.subset(1) + host.subset(1),
+                        "the GPU lane": gpus.subset(1)}, mods, ref_img),
+           "device pipelines": check_device_pipelines(ck, gpus, host[0], mods),
+           "pool": check_device_pool(ck, wl, gpus.subset(1) + host, mods, ref_img)}
+    engines = {engine: c.value - before[engine] for engine, c in phases.items()}
+    print(f"pipelined lane phases on the GPU lane by engine: {engines}")
+    if engines["EVENT"] <= 0 or engines["DRIVER"] <= 0:
+        raise AssertionError(f"both engines must run on the GPU lane: {engines}")
+    return res
+
+
 def main() -> int:
     import torch
 
@@ -2139,6 +2546,10 @@ def main() -> int:
                                           "flash_attention_bwd_tc"),
             "flash_attention_parts_tc.cu": (fa_op.SOURCE_PARTS_TC.read_text(),
                                             "flash_attention_parts_tc")}
+    # the pipelines phase's kernels: its stages' and the overlap's heavy kernel
+    for src in [wl.STREAM_HEAVY_SRC] + [src for _, src in STAGE_SRCS]:
+        for kdef in lang.parse_kernels(src):
+            programs.setdefault(kdef.name, kdef)
     for name, kdef in programs.items():
         reason = cuda_backend.unsupported_reason(kdef)
         if reason is not None:
@@ -2390,6 +2801,12 @@ def main() -> int:
     phase("no_compute_mode (GPU lane)")
     check_no_compute(ck, wl, gpus, mods)
 
+    phase("pipelines (GPU lane, host lanes)")
+    pipe_res = check_pipelines(ck, wl, gpus, mods, ref_img, card)
+    rows["emitter:streamAdd"]["pipeline_launches"] = pipe_res["stream"]["launches"]
+    rows["emitter:mandelbrot"]["pipeline_launches"] = pipe_res["mandelbrot"]["launches"]["emitted"]
+    rows["mandelbrot"]["pipeline_launches"] = pipe_res["mandelbrot"]["launches"]["hand kernel"]
+
     phase("transformer forward")
     rows["flash_attention"]["launches"] = check_transformer(wl, fa_op, card)
 
@@ -2440,11 +2857,12 @@ def main() -> int:
             "launches": rr["launches"], "max_abs_err": rr["max_abs_err"],
             "ms": rr["ms"], "plain_ms": rr["plain_ms"], "bound_ms": rr["bound_ms"],
             "bound_by": rr["bound_by"], "library_ms": rr["library_ms"],
-            **{key: rr[key] for key in ("kernel_route", "fp32_ms", "fp32_bound_ms", "torch_ops_ms")
-               if key in rr},
+            **{key: rr[key] for key in ("kernel_route", "fp32_ms", "fp32_bound_ms", "torch_ops_ms",
+                                        "pipeline_launches") if key in rr},
         })
     print(f"mpixels_per_sec: {json.dumps(res)}; streamed against monolithic: "
-          f"{json.dumps(stream_res)}; total {time.perf_counter() - t_all:.1f} s")
+          f"{json.dumps(stream_res)}; pipelines: {json.dumps(pipe_res)}; total "
+          f"{time.perf_counter() - t_all:.1f} s")
     print(f"profiler records found lost and read at their kernel's mean: {trace_window.lost}; "
           f"traces taken again for a garbled record or more lost: {len(trace_window.defects)}")
     for defect in trace_window.defects:

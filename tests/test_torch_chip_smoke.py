@@ -445,3 +445,160 @@ def test_the_no_compute_gate_passes_the_port_and_fails_a_launch(monkeypatch):
                         raising=False)
     with pytest.raises(AssertionError, match="no_compute_mode"):
         chip_smoke.check_no_compute(ck, wl, _lanes(1), _mods())
+
+
+# -- the pipelines phase's gates, on host lanes -------------------------------
+
+def test_the_pipelined_stream_gate_passes_the_port_on_a_host_lane():
+    import cekirdekler_tpu_torch as ck
+    from cekirdekler_tpu_torch import workloads as wl
+
+    for fast in (True, False):
+        runs = chip_smoke.pipelined_stream_runs(ck, wl, _lanes(1), _mods(), fast, 1 << 13, 1)
+        row = chip_smoke.gate_pipelined_stream(runs, "streamAdd", 1 << 13, on_card=False)
+        assert set(row) == {"monolithic", "streamed", "EVENT L=1", "EVENT L=2", "EVENT L=4",
+                            "DRIVER"}
+
+
+def test_the_pipelined_stream_gate_fails_on_a_lost_blob(monkeypatch):
+    """A write stage that skips each call's last blob (a modelled race that
+    lets a blob's readback miss its data): ``c`` keeps the zeros the run
+    started from there, and the gate against the monolithic run fails."""
+    import cekirdekler_tpu_torch as ck
+    from cekirdekler_tpu_torch import workloads as wl
+    from cekirdekler_tpu_torch.core.worker import Worker
+
+    copy = Worker.download_async
+
+    def lossy(self, arr, off, n, full, **kw):
+        if not full and off + n == arr.size:
+            return None
+        return copy(self, arr, off, n, full, **kw)
+
+    monkeypatch.setattr(Worker, "download_async", lossy)
+    runs = chip_smoke.pipelined_stream_runs(ck, wl, _lanes(1), _mods(), False, 1 << 13, 1)
+    with pytest.raises(AssertionError, match="EVENT L=1, against the monolithic run"):
+        chip_smoke.gate_pipelined_stream(runs, "streamAdd", 1 << 13, on_card=False)
+
+
+def test_the_pipelined_stream_gate_fails_on_a_blob_lost_in_one_call_only(monkeypatch):
+    """The race the gate looks for is intermittent: a write stage that
+    skips the last blob's readback in the first pipelined call alone, so
+    the run's last call is right again.  The gate holds every call to the
+    monolithic run and fails on the first."""
+    import cekirdekler_tpu_torch as ck
+    from cekirdekler_tpu_torch import workloads as wl
+    from cekirdekler_tpu_torch.core.worker import Worker
+
+    copy = Worker.download_async
+    lost = []
+
+    def lossy_once(self, arr, off, n, full, **kw):
+        if not full and off + n == arr.size and not lost:
+            lost.append(off)
+            return None
+        return copy(self, arr, off, n, full, **kw)
+
+    monkeypatch.setattr(Worker, "download_async", lossy_once)
+    runs = chip_smoke.pipelined_stream_runs(ck, wl, _lanes(1), _mods(), False, 1 << 13, 2)
+    assert lost
+    np.testing.assert_array_equal(runs["EVENT L=1"]["out"], runs["want"])
+    with pytest.raises(AssertionError, match="EVENT L=1, against the monolithic run: call 1 of 4"):
+        chip_smoke.gate_pipelined_stream(runs, "streamAdd", 1 << 13, on_card=False)
+
+
+@pytest.mark.parametrize("ranges, want", [
+    ([[1 << 20]], [8]),                          # 8 blobs of one 2^17 chunk
+    ([[3 << 11, 1 << 11]] * 2, [32, 16]),       # 768 = 512 + 256 a blob; 256
+    ([[0, 1 << 12], [1 << 12, 0]], [8, 8]),      # a lane idle in a call
+])
+def test_blob_launches_count_each_blob_s_ladder(ranges, want):
+    assert chip_smoke.blob_launches(ranges, 8, 256) == want
+
+
+def _counts(emitted=0, hand=0, cuda=0, torch=0, python=0) -> dict:
+    return {"emitted": {"mandelbrot": emitted} if emitted else {}, "mandelbrot.cu": hand,
+            "routes": {"cuda": cuda, "torch": torch, "python": python}, "forms": {}}
+
+
+@pytest.mark.parametrize("hand", [False, True], ids=["emitted", "hand kernel"])
+def test_the_blob_launch_gate_fails_when_a_blob_counts_on_the_torch_route(hand):
+    """24 blob launches on the GPU lane and 8 on a host lane pass; one GPU
+    blob counted on the torch route fails, as does one that launched
+    nothing."""
+    gate = chip_smoke.gate_blob_launches
+    if hand:
+        good = _counts(hand=24, python=32)
+        bad = [_counts(hand=23, python=32, torch=1), _counts(hand=23, python=31)]
+    else:
+        good = _counts(emitted=24, cuda=24, torch=8)
+        bad = [_counts(emitted=23, cuda=23, torch=9), _counts(emitted=23, cuda=23, torch=8)]
+    gate("mandelbrot", good, 24, 8, "mandelbrot", hand)
+    for counts in bad:
+        with pytest.raises(AssertionError, match="hand-written kernel"):
+            gate("mandelbrot", counts, 24, 8, "mandelbrot", hand)
+
+
+@pytest.mark.parametrize("handoff", ["snapshot", "bare-alias"])
+def test_the_generations_gate_fails_on_a_clobbered_handoff(handoff, monkeypatch):
+    """The three stages by ``feed_async`` on a host lane: the port's
+    handoff passes; a bare alias of the producer's tensor (the reference's
+    value move on the port's in-place launcher) hands a stage the next
+    generation, and the gate fails."""
+    from cekirdekler_tpu_torch.pipeline import DevicePipeline
+    from cekirdekler_tpu_torch.pipeline import device_pipeline
+
+    if handoff == "bare-alias":
+        monkeypatch.setattr(device_pipeline, "_handoff",
+                            lambda src, v, dst, slot: setattr(slot, "value", v))
+    n = 1 << 10
+    datas = chip_smoke.generation_data(n, 6)
+    outs, _ = chip_smoke.run_generations(
+        DevicePipeline.make(chip_smoke.pipeline_stages(n), _lanes(1)[0]), "feed_async", datas)
+    if handoff == "snapshot":
+        chip_smoke.gate_generations("feed_async", outs, datas)
+    else:
+        with pytest.raises(AssertionError, match="generation 0"):
+            chip_smoke.gate_generations("feed_async", outs, datas)
+
+
+def test_the_device_pool_phase_passes_on_host_lanes():
+    """The pool phase at 128x128 in 16 tiles over three host lanes: the image
+    exact, the pinned tiles on lane 0, the broadcast once a lane."""
+    import cekirdekler_tpu_torch as ck
+    from cekirdekler_tpu_torch import workloads as wl
+
+    w = 128
+    ref = wl.mandelbrot_host(w, w, -2.0, -1.25, 2.5 / w, 2.5 / w, 256)
+    res = chip_smoke.check_device_pool(ck, wl, _lanes(3), _mods(), ref, tiles=16)
+    assert sum(res["done"]) == 15 + 3 and res["done"][0] >= 8
+
+
+def test_the_pipelined_mandelbrot_phase_runs_on_host_fleets():
+    """Phase (b) at 64x64 on a two-lane and a one-lane host fleet: every
+    image exact, both routes, both fleets."""
+    import cekirdekler_tpu_torch as ck
+    from cekirdekler_tpu_torch import workloads as wl
+
+    w = 64
+    ref = wl.mandelbrot_host(w, w, -2.0, -1.25, 2.5 / w, 2.5 / w, 256)
+    res = chip_smoke.check_pipelined_mandelbrot(
+        ck, wl, {"two host lanes": _lanes(2), "one host lane": _lanes(1)}, _mods(), ref,
+        iters=1)
+    assert len([k for k in res if k != "launches"]) == 4
+
+
+@pytest.mark.parametrize("label", ["lane benches per call", "lane walls per call"])
+def test_balancer_gate_reads_each_local_range_s_first_run(label):
+    """``tools/balancer_gate.py`` reads, per local range, the median lane
+    benches past the first five calls and the host lane's last range from
+    the lines ``check_balancer`` prints of its first run (the label of a
+    checkout from before the GPU lane's bench was its device span too)."""
+    from cekirdekler_tpu_torch.tools.balancer_gate import first_runs
+
+    benches = [(9.0, 9.0)] * 5 + [(0.5, 2.0), (0.7, 2.5), (0.6, 3.0)]
+    lines = [f"local range 512, host-lane range per call: {[2048, 1024, 512]}",
+             f"local range 512, {label} (GPU ms / host ms): {benches}",
+             "local range 512: settled within 80 calls in 10 of 10 runs, at [3]",
+             "local range 256, run 0 moved late; last 25 calls' host-lane ranges [256]"]
+    assert first_runs(lines) == {"512": {"last_host_range": 512, "median_ms": [0.6, 2.5]}}

@@ -181,9 +181,13 @@ def test_validation_errors_and_error_gate():
         with pytest.raises(ck.ComputeValidationError, match="previous error"):
             y.next_param(y, y).compute(cr, 1, "streamAdd", 128, 64)
         cr.reset_errors()
-        z = ck.ClArray(np.zeros(512, np.float32))
-        with pytest.raises(ck.ComputeValidationError, match="not ported"):
-            z.next_param(z, z).compute(cr, 1, "streamAdd", 512, 64, pipeline=True)
+        z = ck.ClArray(np.arange(512, dtype=np.float32))
+        with pytest.raises(ck.ComputeValidationError, match="divisible by pipeline_blobs"):
+            z.next_param(z, z).compute(cr, 1, "streamAdd", 512, 64, pipeline=True,
+                                       pipeline_blobs=3)
+        cr.reset_errors()
+        z.next_param(z, z).compute(cr, 1, "streamAdd", 512, 64, pipeline=True)
+        np.testing.assert_array_equal(z.host(), 2 * np.arange(512, dtype=np.float32))
 
 
 def test_selection_without_a_card_raises():
@@ -269,3 +273,81 @@ def test_transfer_flags_and_arrays_match_reference():
     assert fa.size == 10 and fa[3] == 2.5
     with pytest.raises(ck.ComputeValidationError):
         ck.ClArray(16, np.float64, alignment_bytes=4)
+
+
+class _TimedEvent:
+    """A stand-in for a timing CUDA event: ``at`` ms on the device clock."""
+
+    def __init__(self, at: float, done: bool = True):
+        self.at, self.done = at, done
+
+    def query(self) -> bool:
+        return self.done
+
+    def elapsed_time(self, end: "_TimedEvent") -> float:
+        return end.at - self.at
+
+
+@pytest.mark.parametrize("end", ["complete", "incomplete", "unmarked"])
+def test_a_lane_bench_is_its_device_span_once_the_issue_end_is_marked(end):
+    """``Worker.end_bench`` takes the device span from the phase's start
+    event to the event ``end_issue`` records once that event has completed,
+    and the phase's wall otherwise (a host lane marks no span)."""
+    import time
+
+    import torch
+
+    from cekirdekler_tpu_torch.core.worker import Worker
+
+    w = Worker(torch.device("cpu"), 0)
+    t0 = time.perf_counter()
+    w.start_bench(7)
+    assert 7 not in w._bench_span
+    w.end_issue(7)  # a host lane: no span, no waiting host lanes
+    w._bench_span[7] = [_TimedEvent(1000.0),
+                        None if end == "unmarked" else _TimedEvent(1002.5, end == "complete")]
+    w.end_bench(7)
+    wall_ms = (time.perf_counter() - t0) * 1000.0
+    assert w.benchmarks[7] == (2.5 if end == "complete" else pytest.approx(wall_ms, abs=wall_ms))
+    assert 7 not in w._bench_span
+
+
+def test_end_issue_lets_the_waiting_host_lanes_start():
+    """``Worker.end_issue`` sets the call's ``issued`` event (the host lanes
+    of a mixed call wait for it); with no event it does nothing."""
+    import threading
+
+    import torch
+
+    from cekirdekler_tpu_torch.core.worker import Worker
+
+    w = Worker(torch.device("cpu"), 0)
+    w.end_issue(1)
+    w.issued = threading.Event()
+    w.start_bench(1)
+    w.end_issue(1)
+    assert w.issued.is_set()
+    w.end_bench(1)
+
+
+def test_lane_issue_tool_records_gpu_lane_phases_only(monkeypatch):
+    """``tools/lane_issue.py``'s wrappers keep a host lane's phases as they
+    were (same results, same benches taken) and record GPU-lane phases
+    only, so on host lanes the record list stays empty."""
+    import torch
+
+    from cekirdekler_tpu_torch.core import worker as wk
+    from cekirdekler_tpu_torch.tools import lane_issue
+
+    for name in ("start_bench", "fence", "end_bench"):
+        monkeypatch.setattr(wk.Worker, name, getattr(wk.Worker, name))
+    records = lane_issue.instrument(wk, torch)
+    n = 4096
+    a = np.arange(n, dtype=np.float32)
+    b = np.ones(n, np.float32)
+    ca, cb, cc = (ck.ClArray(x.copy(), name=nm) for x, nm in ((a, "a"), (b, "b"), (b * 0, "c")))
+    with ck.NumberCruncher(ck.all_devices().cpus(2), VADD_SRC) as cr:
+        ca.next_param(cb, cc).compute(cr, 1, "vadd", n, 256)
+        assert all(x > 0.0 for x in cr.benchmarks_of(1))
+    np.testing.assert_array_equal(cc.host(), a + b)
+    assert records == []

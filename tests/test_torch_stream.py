@@ -33,7 +33,6 @@ from cekirdekler_tpu.workloads import measure_stream_overlap as ref_overlap
 from cekirdekler_tpu_torch import workloads as wl
 from cekirdekler_tpu_torch.core import stream
 from cekirdekler_tpu_torch.core.cores import STREAMED
-from cekirdekler_tpu_torch.errors import NotPortedError
 from tests.test_torch_enqueue import Pair
 
 LANES = pytest.mark.parametrize("lanes", [1, 2])
@@ -491,9 +490,14 @@ def test_measure_stream_overlap_returns_the_reference_s_keys():
     assert got["stream_chunks"] >= 1 and got["t_pipelined_ms"] > 0
     plain = wl.measure_stream_overlap(devs, n=1 << 12, reps=1, streamed=True, heavy_iters=3)
     assert plain["heavy_iters"] == 3 and "duplex_ms" not in plain
-    for kw in ({"streamed": False}, {"streamed": True, "pipeline_type": 1}):
-        with pytest.raises(NotPortedError, match="A 6"):
-            wl.measure_stream_overlap(devs, n=1 << 12, **kw)
+    # the pipelined engines: the reference's keys without the stream
+    # engine's; with streamed=True a pipeline_type changes nothing
+    piped = wl.measure_stream_overlap(devs, n=1 << 12, reps=1, streamed=False)
+    want = ref_overlap(cekirdekler_tpu.hardware.platforms().cpus().subset(1), n=1 << 12,
+                       reps=1, streamed=False)
+    assert set(piped) == set(want) and "transfer_path" not in piped
+    typed = wl.measure_stream_overlap(devs, n=1 << 12, reps=1, streamed=True, pipeline_type=1)
+    assert typed["transfer_path"] == "streamed-ladder"
 
 
 def test_overlap_sweep_and_duplex_ceiling_run_on_a_host_lane():

@@ -94,9 +94,21 @@ fences each compute id of a mixed window in last-dispatch order
 (``Worker.fence_cid``) and feeds the balancer marginal per-id times
 (``trace/attribution.split_fence_benches``).
 
-Not ported yet (queued in ROADMAP.md): the health and drain hooks, the
-debug port, the verify gate, the compile cache and ``warmup`` (with its
-``cache-warmup`` record), ``dispatch_gate`` and ``trace_lanes``.
+Lane health and the drain, as the reference's: a :class:`HealthMonitor`
+(:attr:`health`, :meth:`health_report`) takes each lane's fence wall per
+iteration at every multi-lane enqueue barrier (a quarantined lane's
+left out), each plain-path phase's transfer wall, the enqueue flush's
+per-iteration drain wall and the streamed phase's stall per submit; at
+every barrier's end a :class:`DrainController` (:attr:`drain`, on by
+default) moves its lanes' quarantine state, ``_ranges_for`` masks every
+range table with it (``apply_quarantine``) and a move arms a re-split of
+every compute id.  ``trace_lanes`` records each lane's dispatch and join
+times of a per-call phase in ``lane_trace`` and keeps the call off the
+fused (the reason ``trace-lanes``) and streamed paths.
+
+Not ported yet (queued in ROADMAP.md): the debug port, the verify gate,
+the compile cache and ``warmup`` (with its ``cache-warmup`` record) and
+``dispatch_gate``.
 """
 
 from __future__ import annotations
@@ -118,7 +130,9 @@ from ..kernel.build import LaunchCounter
 from ..kernel.registry import KernelProgram
 from ..metrics.registry import REGISTRY
 from ..obs.decisions import DECISIONS
+from ..obs.drain import DrainController, apply_quarantine
 from ..obs.flight import FLIGHT, record_crash
+from ..obs.health import HealthMonitor
 from ..trace.attribution import split_fence_benches
 from ..trace.spans import TRACER
 from ..utils.faultinject import FAULTS
@@ -309,6 +323,22 @@ class Cores:
             for engine in ("EVENT", "DRIVER") for kind in ("cuda", "cpu")}
         self._m_stream_retunes = REGISTRY.counter(
             "ck_stream_retune_total", "transfer-autotuner re-tunes forced by re-partitions")
+        # lane tracing: with it on, each lane of a per-call phase records
+        # (lane, dispatch-done time, join-done time) under its compute id,
+        # for the call's lanes only; a traced call takes neither the fused
+        # nor the streamed path
+        self.trace_lanes = False
+        self.lane_trace: dict[int, list[tuple[int, float, float]]] = {}
+        # lane health (obs/health.py): rolling per-lane baselines over the
+        # barrier's fence walls, the transfer walls and the stream
+        # dispatch's stalls, fed at sync points and phase tails, never on
+        # the deferral path
+        self.health = HealthMonitor()
+        # the drain actuator (obs/drain.py): at every barrier a degraded
+        # lane is quarantined (its share masked to 0 in _ranges_for, the
+        # rest moved to the other lanes), probed after a hold and readmitted
+        # when its verdict clears
+        self.drain = DrainController(self.health, lanes=len(self.workers))
 
     @property
     def adaptive_load_balancer(self) -> bool:
@@ -404,6 +434,15 @@ class Cores:
                     carry = self._cont_ranges.setdefault(compute_id, [])
                     ranges = load_balance(bench, ranges, total, step, hist, carry=carry,
                                           cid=compute_id, rate_prior=self._skewed_priors())
+        # the drain mask (obs/drain.py): quarantined lanes hold 0, probation
+        # lanes one probe step, the rest moves to the active lanes; applied
+        # to held tables too (it is idempotent), so a barrier's drain takes
+        # effect on the next call
+        if self.drain.enabled:
+            drained = self.drain.drained_lanes()
+            probing = self.drain.probe_lanes()
+            if drained or probing:
+                ranges = apply_quarantine(ranges, step, drained, probing)
         self.global_ranges[compute_id] = ranges
         refs, acc = [], 0
         for r in ranges:
@@ -429,7 +468,7 @@ class Cores:
             if self._sig_equal(sig, run.sig):
                 # the mode toggles are cruncher state, not call identity
                 if (not self.fused_dispatch or self.no_compute_mode or self.repeat_count > 1
-                        or self.repeat_sync_kernel):
+                        or self.repeat_sync_kernel or self.trace_lanes):
                     with self._lock:
                         self._fused_candidate = None
                     self._fused_break("mode-change")
@@ -498,6 +537,10 @@ class Cores:
         write_all_owner = {idx: active[idx % len(active)]
                            for idx, p in enumerate(params) if p.flags.write_all and active}
         blobs = pipeline_blobs if pipeline else 1
+        if self.trace_lanes:
+            # the trace describes one call: no entry of an earlier one
+            with self._lock:
+                self.lane_trace.pop(compute_id, None)
         # GPU lanes issue their work before host lanes start: a host lane's
         # lowered kernels hold the interpreter lock between their torch
         # calls, and a GPU lane issuing beside one waits for it at every
@@ -684,6 +727,7 @@ class Cores:
             w.launch(self.program, kernel_names, params, value_args, offset, size,
                      local_range, global_range, local_range, repeats=self.repeat_count,
                      sync_kernel=self.repeat_sync_kernel, compute_id=compute_id)
+        t_dispatched = time.perf_counter() if self.trace_lanes else 0.0
         mark()
         downloads = 0
         for idx, p in enumerate(params):
@@ -705,6 +749,8 @@ class Cores:
         # the bench covers the whole phase
         w.fence()
         end = time.perf_counter()
+        if self.trace_lanes:
+            self._trace_lane(compute_id, w, t_dispatched, end)
         if on_card:
             at = [0.0] + [marks[0].elapsed_time(m) / 1000.0 for m in marks[1:]]
         else:
@@ -786,7 +832,18 @@ class Cores:
             w.issue(lambda: (upload(uploads), launch()))
             t_up = time.perf_counter() - t0 if uploads else 0.0
             self._note_transfer(w, tuner_key, compute_id, key_bytes or 0, t_up, 0.0, t_up)
+        t_dispatched = time.perf_counter() if self.trace_lanes else 0.0
         self._defer_readbacks(w, params, compute_id, offset, size, write_all_owner)
+        if self.trace_lanes:
+            # enqueued: the readbacks are deferred, so the lane joins here
+            self._trace_lane(compute_id, w, t_dispatched, time.perf_counter())
+
+    def _trace_lane(self, compute_id: int, w: Worker, t_dispatched: float,
+                    t_joined: float) -> None:
+        """One lane's ``(index, dispatch-done, join-done)`` of a traced
+        call (:attr:`trace_lanes`)."""
+        with self._lock:
+            self.lane_trace.setdefault(compute_id, []).append((w.index, t_dispatched, t_joined))
 
     def _observe_measure(self, w: Worker, key, u_tune_s: float, u_s: float, c_s: float) -> None:
         """Feed an enqueued measuring run's phase times (seconds; no D2H:
@@ -868,6 +925,11 @@ class Cores:
         per-chunk overhead).  ``u_tune_s`` holds the tuner's U to the
         partial-read uploads."""
         u_ms, d_ms = u_s * 1000.0, d_s * 1000.0
+        if u_s + d_s > 0.0 and not self.enqueue_mode:
+            # lane health: phases that moved bytes, on the plain path only,
+            # where a call is one iteration; in enqueue mode the flush's
+            # drain owns the signal (an in-window phase serves a window)
+            self.health.observe(w.index, "transfer", u_s + d_s)
         if not self.enqueue_mode:
             w.transfer_benchmarks[compute_id] = u_ms + d_ms
         tune_u_ms = u_ms if u_tune_s is None else u_tune_s * 1000.0
@@ -893,7 +955,7 @@ class Cores:
         launches and downloads with the last one's; kernels between run
         over the whole range.  Runs under the lane's lock."""
         if (not self.streamed_transfers or self.no_compute_mode or self.repeat_count > 1
-                or self.repeat_sync_kernel):
+                or self.repeat_sync_kernel or self.trace_lanes):
             return False, None
         self._settle_measures(w)
         step = local_range
@@ -950,6 +1012,9 @@ class Cores:
         w.stream_depth = depth = max(1, int(self.stream_queue_depth))
         handles: list = []
         stage_s = 0.0
+        # the time the caller spent in the stream dispatch's submits, and
+        # how many: the stream_stall health signal, per submit
+        stall_s, submits = 0.0, 0
         with w.on_stream():
             for p in params:
                 w.ensure_resident(p)
@@ -992,8 +1057,11 @@ class Cores:
                                     handles.append(
                                         w.download_chunk_async(p, boff * epw, csz * epw))
 
+                        t0q = time.perf_counter()
                         w.stream_dispatch_async(run_chunk, depth,
                                                 preflighted=self._batch_preflighted)
+                        stall_s += time.perf_counter() - t0q
+                        submits += 1
                     w.drain_stream_dispatch()
             except BaseException:
                 # no closure may outlive the lane lock the caller holds; the
@@ -1021,6 +1089,9 @@ class Cores:
         t_down = time.perf_counter() - t0d if handles else 0.0
         self._note_transfer(w, tuner_key, compute_id, nbytes, stage_s, t_down,
                             time.perf_counter() - t_phase0, chunks=len(plan))
+        # per submit: a retune to more chunks scales the phase's sum with
+        # the same health per submit
+        self.health.observe(w.index, "stream_stall", stall_s / max(1, submits))
         self._m_stream_stages.inc()
         TRACER.record("pipeline-stage", _tt, cid=compute_id, lane=w.index,
                       tag=f"STREAM x{len(plan)}")
@@ -1239,6 +1310,8 @@ class Cores:
         elif self.repeat_count > 1 or self.repeat_sync_kernel:
             # each call runs its repeats as one dispatch already
             reason = "repeat-mode"
+        elif self.trace_lanes:
+            reason = "trace-lanes"
         else:
             try:
                 hash(sig)
@@ -1435,7 +1508,8 @@ class Cores:
             run = self._fused_run
             if (run is None or not self._sig_equal(self._fused_sig, sig)
                     or not self.fused_dispatch or self.no_compute_mode or self.repeat_count > 1
-                    or self.repeat_sync_kernel or run.compute_id in self._enqueue_rebalance
+                    or self.repeat_sync_kernel or self.trace_lanes
+                    or run.compute_id in self._enqueue_rebalance
                     or any(w.coverage_epoch != ep for w, ep in run.epochs)):
                 return False
             cid = run.compute_id
@@ -1559,8 +1633,13 @@ class Cores:
             Worker.finish_download(h)
             acc[(w, cid)] = acc.get((w, cid), 0.0) + (time.perf_counter() - t0)
         for (w, cid), s in acc.items():
+            per_iter_s = s / max(1, iters.get(cid, 1))
             with w.lock:
-                w.transfer_benchmarks[cid] = s / max(1, iters.get(cid, 1)) * 1000.0
+                w.transfer_benchmarks[cid] = per_iter_s * 1000.0
+            # lane health on the balancer floor's per-iteration scale: a
+            # window four times larger is not a link four times slower
+            if per_iter_s > 0.0:
+                self.health.observe(w.index, "transfer", per_iter_s)
 
     def flush(self) -> None:
         """Read back everything deferred by enqueue mode and wait for it; an
@@ -1670,9 +1749,19 @@ class Cores:
             for w in self.workers:
                 self._settle_measures(w)
             if measure:
+                iters = max(1, sum(window_iters.values()))
+                # lane health: each lane's fence wall of the window, per
+                # iteration (a window four times longer is not a lane four
+                # times slower).  A quarantined lane ran nothing: its fence
+                # wall is no evidence, and in the baseline it would make
+                # every later probe read degraded
+                quarantined = self.drain.drained_lanes() if self.drain.enabled else set()
+                for w in self.workers:
+                    if w.index not in quarantined:
+                        self.health.observe(w.index, "fence", (done_at[w.index] - t0) / iters)
                 FLIGHT.event("barrier", lanes={
                     w.index: round((done_at[w.index] - t0) * 1000.0, 3) for w in self.workers
-                }, iters=max(1, sum(window_iters.values())))
+                }, iters=iters)
                 for w in self.workers:
                     bench = (done_at[w.index] - t0) * 1000.0
                     splits = split_fence_benches(comp_at.get(w.index, ()), t0)
@@ -1690,7 +1779,24 @@ class Cores:
             # decision log's throttled spill (armed by CK_DECISION_LOG)
             FLIGHT.maybe_sample_metrics()
             DECISIONS.maybe_spill()
+            # drain actuation: the barrier is the one place the quarantine
+            # state moves; a move arms a re-split for every compute id, and
+            # in enqueue mode the moved ranges take the flush-and-reset path
+            self._drain_evaluate()
             self._enqueue_window_closed()
+
+    def _drain_evaluate(self) -> None:
+        """One :class:`DrainController` transition (the barrier's tail).  It
+        runs in the barrier's ``finally``, so it must not raise over the
+        fence error the barrier exists to surface."""
+        try:
+            res = self.drain.evaluate()
+        except Exception as e:  # noqa: BLE001 - must not mask a fence error
+            FLIGHT.event("drain-apply", error=f"{type(e).__name__}: {e}"[:200])
+            return
+        if res and (res["drained"] or res["readmitted"] or res["probed"]):
+            with self._lock:
+                self._enqueue_rebalance |= set(self.global_ranges)
 
     def _enqueue_window_closed(self) -> None:
         with self._lock:
@@ -1715,6 +1821,12 @@ class Cores:
 
     def ranges_of(self, compute_id: int) -> list[int]:
         return list(self.global_ranges.get(compute_id, []))
+
+    def health_report(self) -> dict:
+        """Per-lane health verdicts (``obs/health.py``): ``{lane:
+        {"verdict": ok|suspect|degraded, "score", "evidence"}}``.  The
+        drain acts on them at barriers (:attr:`drain`)."""
+        return self.health.report()
 
     def _lane_config(self) -> dict:
         """The lanes' configuration as the reference reports it: devices,

@@ -15,10 +15,11 @@ True, ``smooth_load_balancer`` True), ``no_compute_mode`` False,
 ``performance_feed`` False with ``performance_history`` and
 ``last_compute_performance_report``, and ``enqueue_mode_async_enable``
 (stored; a lane's enqueued work is always asynchronous),
-``fence_split`` False and ``pipeline_lookahead`` 2.  Not ported:
-``fine_grained_queue_control`` (queue markers, ROADMAP Queue A 4), which
-reads False and raises :class:`NotPortedError` when set True,
-``dispatch_gate``, ``health_report`` and the debug endpoints.
+``fence_split`` False and ``pipeline_lookahead`` 2, and
+:meth:`health_report`.  Not ported: ``fine_grained_queue_control``
+(queue markers, ROADMAP Queue A 4), which reads False and raises
+:class:`NotPortedError` when set True, ``dispatch_gate`` and the debug
+endpoints.
 """
 
 from __future__ import annotations
@@ -298,6 +299,11 @@ class NumberCruncher:
 
     def ranges_of(self, compute_id: int) -> list[int]:
         return self.cores.ranges_of(compute_id)
+
+    def health_report(self) -> dict:
+        """Per-lane health verdicts (``obs/health.py``), as
+        :meth:`Cores.health_report`."""
+        return self.cores.health_report()
 
     def dispose(self) -> None:
         if not self._disposed:

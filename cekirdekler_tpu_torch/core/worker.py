@@ -87,6 +87,7 @@ from ..kernel.graphs import LaneGraphs, buffers_key
 from ..kernel.registry import KernelProgram
 from ..metrics.registry import REGISTRY
 from ..obs.flight import FLIGHT
+from ..trace.device import MARKS
 from ..trace.spans import TRACER
 from ..utils.faultinject import FAULTS
 
@@ -854,37 +855,43 @@ class Worker:
         unhashable values, every launch runs in turn.  ``compute_id`` tags
         the launch span.  Launches go on the current stream; ``stream`` is
         the one a GPU lane's graph replays on (the lane's stream when
-        None)."""
+        None).  With ``trace.device.MARKS`` on, a device-timeline mark
+        (``ck|k=...|c=...|l=...|s=...``) covers the dispatch."""
         _tt = TRACER.t0()
         names = tuple(kernel_names)
         platform = self.device.type
-        if repeats > 1:
-            fn = program.fused_launcher(names, step, global_size, local_range, global_size,
-                                        value_args, platform, sync_kernel)
-            if fn is not None:
-                self._ladder_call(program, names + ((sync_kernel,) if sync_kernel else ()),
-                                  fn, (offset, size // step, repeats), params, stream)
-                TRACER.record("launch", _tt, cid=compute_id, lane=self.index,
-                              tag=f"{'+'.join(names)} x1")
-                return
-        plan = list(names)
-        for _ in range(repeats - 1):
-            plan += ([sync_kernel] if sync_kernel else []) + list(names)
-        ladder = _ladder(size, step)
-        bufs = tuple(self._buffers[id(p)] for p in params)
-        for name in plan:
-            va = tuple(value_args.get(name, ()) if isinstance(value_args, dict)
-                       else value_args)
-            n_arr = program.array_param_count(name)
-            off = offset
-            for chunk in ladder:
-                fn, _ = program.launcher(name, chunk, local_range, global_size,
-                                         platform=platform)
-                out = fn(off, bufs[:n_arr], va)
-                bufs = tuple(out) + bufs[n_arr:]
-                off += chunk
-        for p, b in zip(params, bufs):
-            self._buffers[id(p)] = b
+        _dm = MARKS.begin(names, compute_id, self.index) if MARKS.enabled else None
+        try:
+            if repeats > 1:
+                fn = program.fused_launcher(names, step, global_size, local_range,
+                                            global_size, value_args, platform, sync_kernel)
+                if fn is not None:
+                    self._ladder_call(program, names + ((sync_kernel,) if sync_kernel else ()),
+                                      fn, (offset, size // step, repeats), params, stream)
+                    TRACER.record("launch", _tt, cid=compute_id, lane=self.index,
+                                  tag=f"{'+'.join(names)} x1")
+                    return
+            plan = list(names)
+            for _ in range(repeats - 1):
+                plan += ([sync_kernel] if sync_kernel else []) + list(names)
+            ladder = _ladder(size, step)
+            bufs = tuple(self._buffers[id(p)] for p in params)
+            for name in plan:
+                va = tuple(value_args.get(name, ()) if isinstance(value_args, dict)
+                           else value_args)
+                n_arr = program.array_param_count(name)
+                off = offset
+                for chunk in ladder:
+                    fn, _ = program.launcher(name, chunk, local_range, global_size,
+                                             platform=platform)
+                    out = fn(off, bufs[:n_arr], va)
+                    bufs = tuple(out) + bufs[n_arr:]
+                    off += chunk
+            for p, b in zip(params, bufs):
+                self._buffers[id(p)] = b
+        finally:
+            if _dm is not None:  # closed even on a failed dispatch
+                MARKS.end(_dm)
         TRACER.record("launch", _tt, cid=compute_id, lane=self.index,
                       tag=f"{'+'.join(names)} x{len(plan) * len(ladder)}")
 
@@ -900,7 +907,13 @@ class Worker:
         names = tuple(kernel_names)
         fn = program.fused_launcher(names, step, global_size, local_range, global_size,
                                     value_args, platform=self.device.type)
-        self._ladder_call(program, names, fn, (offset, size // step, iters), params)
+        # the fused ladder is one dispatch: one mark covers its iterations
+        _dm = MARKS.begin(names, compute_id, self.index) if MARKS.enabled else None
+        try:
+            self._ladder_call(program, names, fn, (offset, size // step, iters), params)
+        finally:
+            if _dm is not None:
+                MARKS.end(_dm)
         TRACER.record("launch", _tt, cid=compute_id, lane=self.index,
                       tag=f"fused:{'+'.join(names)} x{iters}")
 

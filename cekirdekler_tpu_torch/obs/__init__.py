@@ -8,10 +8,15 @@ is ported.
   behind ``cekirdekler_tpu_torch/tools/ckreplay.py``.
 - :mod:`.flight` — the always-on flight recorder (``FLIGHT``) and the
   postmortem black box (``CK_POSTMORTEM_DIR``).
+- :mod:`.health` — rolling per-lane baselines over fence, transfer and
+  stream-stall walls with an N×-threshold + hysteresis degradation
+  detector (``HealthMonitor``, ``Cores.health``).
+- :mod:`.drain` — the barrier-time actuator over those verdicts
+  (``DrainController``, ``apply_quarantine``, ``Cores.drain``).
 
-Copies of the reference's modules; its health, drain, debug server and
-request tracing are ROADMAP Queue A 5's second half.  Nothing here
-imports torch at module level.
+Copies of the reference's modules; its debug server (``DEBUG_PORT_ENV``,
+``serve_debug``) and request tracing (``obs/reqtrace.py``) are ROADMAP
+Queue A 5's third part.  Nothing here imports torch at module level.
 """
 
 from .decisions import (
@@ -33,6 +38,13 @@ from .flight import (
     postmortem_spans,
     record_crash,
 )
+from .health import (
+    VERDICTS,
+    HealthMonitor,
+    cluster_health_table,
+    evaluate_window,
+    registry_health_summary,
+)
 
 __all__ = [
     "DECISIONS",
@@ -43,11 +55,16 @@ __all__ = [
     "FLIGHT",
     "FlightEvent",
     "FlightRecorder",
+    "HealthMonitor",
     "POSTMORTEM_DIR_ENV",
     "REPLAYABLE_KINDS",
+    "VERDICTS",
+    "cluster_health_table",
     "dump_postmortem",
+    "evaluate_window",
     "load_decision_log",
     "load_postmortem",
     "postmortem_spans",
     "record_crash",
+    "registry_health_summary",
 ]

@@ -306,16 +306,58 @@ def _replay_transfer_observe(inp: dict, out: dict) -> dict:
     return mism
 
 
+def _replay_health_verdict(inp: dict, out: dict) -> dict:
+    from .health import evaluate_window
+
+    got = evaluate_window(
+        float(inp["median_s"]),
+        None if inp.get("baseline_s") is None else float(inp["baseline_s"]),
+        streak=int(inp["streak"]), degraded=bool(inp["degraded"]),
+        threshold=float(inp["threshold"]), confirm=int(inp["confirm"]),
+        release=float(inp["release"]),
+    )
+    got["state"] = ("degraded" if got["degraded"]
+                    else "suspect" if got["streak"] > 0 else "ok")
+    mism: dict = {}
+    for k in ("flagged", "ratio", "streak", "degraded", "state"):
+        if got[k] != out.get(k):
+            mism[k] = {"expected": out.get(k), "got": got[k]}
+    return mism
+
+
+def _replay_drain(inp: dict, out: dict) -> dict:
+    from .drain import drain_transition
+
+    got = drain_transition(
+        inp.get("verdicts") or {}, inp.get("states") or {},
+        inp.get("hold") or {}, inp.get("clear_streak") or {},
+        int(inp.get("hold_barriers", 2)), int(inp.get("confirm_clear", 2)),
+        probe_grace=int(inp.get("probe_grace", 2)),
+    )
+    mism: dict = {}
+    for k in ("drained", "readmitted", "probed", "states", "hold",
+              "clear_streak"):
+        ev = out.get(k)
+        ev = list(ev) if isinstance(ev, list) else ev
+        gv = got[k]
+        if gv != ev:
+            mism[k] = {"expected": ev, "got": gv}
+    return mism
+
+
 _REPLAYERS = {
     "load-balance": _replay_load_balance,
     "transfer-choose": _replay_transfer_choose,
     "transfer-observe": _replay_transfer_observe,
+    "health-verdict": _replay_health_verdict,
+    "drain-apply": _replay_drain,
+    "readmit": _replay_drain,
     "prior-split": _replay_prior_split,
 }
 
-#: Replayable kinds whose deciding module is not ported yet (health,
-#: drain, serving, cluster and block-tuner decisions): such a row is
-#: counted apart by kind, never verified and never a context row.
+#: Replayable kinds whose deciding module is not ported yet (serving,
+#: cluster and block-tuner decisions): such a row is counted apart by
+#: kind, never verified and never a context row.
 NOT_PORTED_KINDS = tuple(k for k in REPLAYABLE_KINDS if k not in _REPLAYERS)
 assert set(_REPLAYERS) | set(NOT_PORTED_KINDS) == set(REPLAYABLE_KINDS)
 

@@ -35,7 +35,6 @@ import numpy as np
 from .arrays.clarray import ClArray
 from .core.cores import PIPELINE_EVENT
 from .core.cruncher import NumberCruncher
-from .errors import NotPortedError
 from .hardware import Devices, all_devices
 from .kernel.registry import kernel
 
@@ -398,17 +397,28 @@ def nbody_e2e(devices: Devices | None = None, n: int = 8192, iters: int = 150,
     the fused ladder first.  Returns Gpairs/s over the timed loop, its
     wall, the host check's error, the first and last ranges, the
     convergence iteration and the loop's fused-window counts.
-    ``attribution`` and ``device_timeline_dir`` need the span tracer and
-    the device timeline (ROADMAP Queue A 5) and raise
-    :class:`NotPortedError`."""
-    if attribution or device_timeline_dir:
-        raise NotPortedError("nbody_e2e attribution and device_timeline_dir need the span "
-                             "tracer and device timelines (ROADMAP Queue A 5)")
+
+    ``attribution=True`` records the timed loop through the span tracer
+    and names each factor of the wall with a measurement in the result's
+    ``attribution`` key (:func:`_nbody_attribution`): window RTT (the
+    barriers' fence spans), ladder launch, upload and download, the
+    scheduler's residue inside the enqueue spans, fused dispatch, the
+    unattributed host gap, and lane interference (a short single-lane
+    probe after the loop: multi-lane per-iteration time x lanes over the
+    single lane's; about ``lanes`` on the partition lanes of one card).
+    ``device_timeline_dir`` also runs a short separate enqueue window after
+    the loop under ``trace.device.DeviceCapture`` and merges its report
+    (per-kernel device time, coverage, busy share of the window's wall, a
+    roofline row; ``{"absent": reason}`` without a card) as
+    ``kernel_profile`` (:func:`_nbody_device_profile`).  The timed loop
+    itself never runs under the profiler."""
     devs = _default_devices(devices)
     if len(devs.gpus()):
         devs = devs.gpus()
     lanes = len(devs)
-    if lanes == 1:
+    probe_devs = devs.subset(1)  # not partitioned: the single-lane probe
+    single_card_partitions = lanes == 1
+    if single_card_partitions:
         devs = devs[0].as_partitions(2)
         lanes = 2
     pos, (x, y, z), vel = _nbody_rig(n, "e")
@@ -433,18 +443,29 @@ def nbody_e2e(devices: Devices | None = None, n: int = 8192, iters: int = 150,
             cr.barrier()
         stats0 = {k: cr.fused_stats[k] for k in ("windows", "fused_iters", "deferred_iters")}
         stats0["disengaged"] = dict(cr.fused_stats["disengaged"])
+        from .trace.spans import TRACER
+
+        was_tracing = TRACER.enabled
+        if attribution and not was_tracing:
+            TRACER.enable(clear=True)
         traj: list[list[int]] = []
         cr.enqueue_mode = True
         t0 = time.perf_counter()
-        for k in range(iters):
-            group.compute(cr, cid, "nBody", n, local_range, values=(n, dt))
-            traj.append(cr.ranges_of(cid))
-            if (k + 1) % window == 0:
-                cr.barrier()
-        cr.enqueue_mode = False  # the flush
-        wall = time.perf_counter() - t0
+        try:
+            for k in range(iters):
+                group.compute(cr, cid, "nBody", n, local_range, values=(n, dt))
+                traj.append(cr.ranges_of(cid))
+                if (k + 1) % window == 0:
+                    cr.barrier()
+            cr.enqueue_mode = False  # the flush
+            wall = time.perf_counter() - t0
+            t_end = time.perf_counter()
+        finally:
+            # a failed loop must not leave the global tracer on
+            if attribution and not was_tracing:
+                TRACER.disable()
         fstats = cr.fused_stats
-        return {
+        out = {
             "n": n, "iters": iters, "lanes": lanes, "window": window,
             "gpairs_per_sec": round(n * n * iters / wall / 1e9, 3),
             "wall_ms": round(wall * 1e3, 1),
@@ -463,6 +484,18 @@ def nbody_e2e(devices: Devices | None = None, n: int = 8192, iters: int = 150,
                                if v - stats0["disengaged"].get(k, 0) > 0},
             },
         }
+        if attribution:
+            out["attribution"] = _nbody_attribution(
+                TRACER.spans_between(t0, t_end), t0, t_end, wall, iters, lanes, probe_devs,
+                n, dt, local_range, window, probe_iters,
+                ring_wrapped=TRACER.total_recorded > TRACER.capacity,
+                dropped_spans=TRACER.dropped_spans,
+                single_chip_partitions=single_card_partitions, fused=fused,
+                lane_kinds=list(cr.cores.lane_kinds))
+            if device_timeline_dir:
+                out["attribution"].update(_nbody_device_profile(
+                    cr, group, cid, n, dt, local_range, window, iters, device_timeline_dir))
+        return out
     finally:
         if cr.enqueue_mode:
             try:
@@ -470,6 +503,186 @@ def nbody_e2e(devices: Devices | None = None, n: int = 8192, iters: int = 150,
             except Exception:  # noqa: BLE001 - the loop's own error is the one raised
                 pass
         cr.dispose()
+
+
+def _nbody_device_profile(cr, group, cid: int, n: int, dt: float, local_range: int,
+                          window: int, iters: int, trace_dir: str) -> dict:
+    """The profiled device/host split of :func:`nbody_e2e`, from a short
+    separate enqueue window after the timed loop (the loop's wall never
+    runs under the profiler).  Returns the keys merged into the
+    attribution block; ``kernel_profile`` is ``{"absent": reason}`` where
+    the trace holds no kernel record."""
+    from .core.stream import plan_signature
+    from .trace.device import STORE, DeviceCapture, roofline_row
+
+    probe_iters = max(2, min(iters, window))
+    cap = DeviceCapture(trace_dir)
+    with cap:
+        cr.enqueue_mode = True
+        for _ in range(probe_iters):
+            group.compute(cr, cid, "nBody", n, local_range, values=(n, dt))
+        cr.barrier()
+        cr.enqueue_mode = False
+    rep = cap.report
+    out: dict = {
+        "device_events": rep.n_ops,
+        "device_busy_ms": round(rep.device_busy_ms, 3),
+        "device_busy_frac_of_wall": (
+            round(rep.device_busy_ms / rep.wall_ms, 4)
+            if rep.wall_ms > 0 and rep.absent is None else None),
+        "kernel_profile": (
+            {"absent": rep.absent} if rep.absent is not None
+            else {**rep.to_dict(), "profiled_iters": probe_iters,
+                  "note": ("profiled in a separate short window after the timed loop "
+                           "— the headline wall ran unprofiled")}),
+    }
+    if rep.absent is None:
+        # the emitted kernels' records are named ck_kernel: the n-body
+        # profile is the one attributed to the nBody launches
+        nb_prof = rep.kernel("nBody")
+        if nb_prof is not None and nb_prof.device_ms > 0:
+            # ~20 operations a pair interaction; 9 array passes of 4 bytes
+            # an element an iteration (x, y, z read, vx, vy, vz read and
+            # written)
+            rl = roofline_row(20.0 * float(n) * float(n) * probe_iters,
+                              9.0 * float(n) * 4 * probe_iters, nb_prof.device_ms)
+            out["kernel_profile"]["roofline"] = rl
+            ranges = [r for r in cr.ranges_of(cid) if r > 0]
+            STORE.put("nBody", (n,), (plan_signature(ranges), local_range),
+                      {"device_ms": round(nb_prof.device_ms, 3),
+                       "op_count": nb_prof.op_count, "launches": nb_prof.launches,
+                       "mfu": rl["mfu"], "bound": rl["bound"],
+                       "probe_wall_ms": round(rep.wall_ms, 3),
+                       "probe_iters": probe_iters, "window": window})
+    return out
+
+
+def _nbody_attribution(spans, t0, t_end, wall, iters, lanes, probe_devs, n, dt,
+                       local_range, window, probe_iters, ring_wrapped=False,
+                       dropped_spans=0, single_chip_partitions=False, fused=True,
+                       lane_kinds=None) -> dict:
+    """Name each factor of the nbody_e2e wall with a measurement.  Fractions
+    are of the wall and need not sum to 1 (launches and transfers overlap
+    device work by design; lane interference is a ratio, not a share)."""
+    from .trace.attribution import union_ms, window_report
+
+    rep = window_report(spans, t0, t_end, ring_wrapped=ring_wrapped,
+                        dropped_spans=dropped_spans, lane_kinds=lane_kinds)
+
+    def _kind(kind):
+        v = rep.per_kind.get(kind, {"ms": 0.0, "count": 0})
+        return v["ms"], v["count"]
+
+    def _tagged_fence(tag_prefix):
+        sub = window_report(
+            [s for s in spans if s.kind == "fence" and (s.tag or "").startswith(tag_prefix)],
+            t0, t_end).per_kind.get("fence", {"ms": 0.0, "count": 0})
+        return sub["ms"], sub["count"]
+
+    wall_ms = wall * 1000.0
+    fence_ms, n_barriers = _tagged_fence("barrier")
+    launch_ms, n_launches = _kind("launch")
+    upload_ms, n_uploads = _kind("upload")
+    download_ms, n_downloads = _kind("download")
+    up_chunk_ms, n_up_chunks = _kind("upload-chunk")
+    down_chunk_ms, n_down_chunks = _kind("download-chunk")
+    fused_ms, n_fused = _kind("fused")
+    # the scheduler's residue: each enqueue span's wall less the union of
+    # the phases inside it (raw sums double-count concurrent lanes)
+    phases = [s for s in spans
+              if s.kind in ("launch", "upload", "download", "upload-chunk", "download-chunk")]
+    sched_ms = 0.0
+    for e in spans:
+        if e.kind != "enqueue":
+            continue
+        inner = [(max(s.t0, e.t0), min(s.t1, e.t1)) for s in phases
+                 if s.t1 > e.t0 and s.t0 < e.t1]
+        sched_ms += max(e.dur_ms - union_ms(inner), 0.0)
+
+    def factor(ms, count=None):
+        d = {"ms": round(ms, 3), "frac": round(ms / wall_ms, 4) if wall_ms else None}
+        if count is not None:
+            d["count"] = count
+        return d
+
+    out = {
+        "wall_ms": round(wall_ms, 3),
+        "factors": {
+            "window_rtt": factor(fence_ms, n_barriers),
+            "ladder_launch": factor(launch_ms, n_launches),
+            "upload": factor(upload_ms, n_uploads),
+            "download_flush": factor(download_ms, n_downloads),
+            "upload_chunks": factor(up_chunk_ms, n_up_chunks),
+            "download_chunks": factor(down_chunk_ms, n_down_chunks),
+            "scheduler_dispatch": factor(sched_ms),
+            "fused_dispatch": factor(fused_ms, n_fused),
+            "host_gap": factor(rep.gap_ms),
+        },
+        "per_kind_ms": {k: round(v["ms"], 3) for k, v in rep.per_kind.items()},
+        "per_lane_kind_ms": {k: {"ms": round(v["ms"], 3), "count": v["count"],
+                                 "lanes": sorted(v["lanes"])}
+                             for k, v in rep.per_lane_kind.items()},
+        "ring_wrapped": ring_wrapped,
+        "dropped_spans": dropped_spans,
+        "note": (
+            "fracs are of e2e wall and overlap device time by design; "
+            "window_rtt = barrier fences (sync cost per enqueue window), "
+            "ladder_launch = host-side kernel dispatch, fused_dispatch = "
+            "fused-window ladder flushes, host_gap = wall no span "
+            "explains; lane_interference is a ratio (1.0 = lanes split "
+            "the work perfectly, lanes_count = fully serialized)"
+            + ("; FUSED path: iteration work dispatches in batches, so "
+               "barrier fences absorb device-drain wait the "
+               "per-iteration path hid inside its dispatch stream — "
+               "judge window_rtt+ladder_launch+scheduler_dispatch "
+               "against wall, not the fence alone" if fused else "")),
+    }
+    # lane interference: a short single-lane probe on the device before
+    # partitioning; perfect scaling gives multi-lane per-iteration time =
+    # single-lane per-iteration time / lanes
+    p_iters = probe_iters if probe_iters is not None else max(
+        window, min(iters // 3, 2 * window))
+    try:
+        _, (x1, y1, z1), vel1 = _nbody_rig(n, "pe")
+        cr1 = NumberCruncher(probe_devs, NBODY_SRC)
+        cr1.fused_dispatch = fused
+        g1 = x1.next_param(y1, z1, *vel1)
+        try:
+            g1.compute(cr1, 7011, "nBody", n, local_range, values=(n, dt))
+            cr1.enqueue_mode = True
+            if fused:
+                for _ in range(3):
+                    g1.compute(cr1, 7011, "nBody", n, local_range, values=(n, dt))
+                cr1.barrier()
+            t1 = time.perf_counter()
+            for k in range(p_iters):
+                g1.compute(cr1, 7011, "nBody", n, local_range, values=(n, dt))
+                if (k + 1) % window == 0:
+                    cr1.barrier()
+            cr1.enqueue_mode = False
+            single_wall = time.perf_counter() - t1
+        finally:
+            if cr1.enqueue_mode:
+                cr1.enqueue_mode = False
+            cr1.dispose()
+        per_iter_multi = wall_ms / iters
+        per_iter_single = single_wall * 1000.0 / p_iters
+        out["lane_interference"] = {
+            "factor": round(per_iter_multi * lanes / max(per_iter_single, 1e-9), 3),
+            "per_iter_ms_multi": round(per_iter_multi, 3),
+            "per_iter_ms_single_lane": round(per_iter_single, 3),
+            "lanes": lanes,
+            "probe_iters": p_iters,
+            "single_chip_partitions": single_chip_partitions,
+        }
+        if single_chip_partitions:
+            out["lane_interference"]["note"] = (
+                f"single-card partition lanes: both runs share one card, "
+                f"factor ≈ {lanes} is the expected floor; read the excess "
+                f"over {lanes}, not the absolute value")
+    except Exception as e:  # noqa: BLE001 - a probe failure must not kill the run
+        out["lane_interference"] = {"error": f"{type(e).__name__}: {e}"[:200]}
+    return out
 
 
 def run_stream(devices: Devices | None = None, n: int = 1 << 20, reps: int = 10,

@@ -133,6 +133,27 @@ Phases, each of which raises on failure (the script then exits non-zero):
    engines must have run on the GPU lane
    (``ck_pipeline_stages_total{engine, device="cuda"}``).  The main
    path's ``run_stream`` runs the EVENT engine too;
+5g. health, drain and device trace: (a) mandelbrot 2048x2048x256 on two
+   partition lanes of the card in enqueue mode, a call, a barrier and a
+   flush a window, with lane 1's barrier fence stalled ``HEALTH_MS`` by
+   ``lane-stall`` for ``HEALTH_STALLS`` barriers after ``HEALTH_BASE``
+   clean ones, under the default ``HealthMonitor`` and ``DrainController``:
+   lane 1 read degraded within the monitor's bound, its range 0 from the
+   call after the drain, one step at the probe, then readmitted, one drain
+   and one readmit counted, the image exact after every window, and the
+   run's decision log verified by the port's ``ckreplay verify`` with every
+   ``health-verdict``, ``drain-apply`` and ``readmit`` row replayed;
+   (b) ``trace.device.capture_device`` around 12 calls of the main path's
+   mandelbrot on the GPU lane with ``trace_lanes`` on: every launch mark
+   after the records the trace dropped matched to a kernel record of its
+   kernel (``gate_trace_marks``: a drop may take the window's first marks
+   only once it took every lead kernel, and at most half the window), and
+   the unified host + device trace split back losslessly; the kernel's device ms by the trace goes
+   on the kernels line beside its CUDA-event ms; (c) ``nbody_e2e`` with
+   ``attribution`` and ``device_timeline_dir``: its factors and the kernel
+   profile's busy share.  Every phase's drains and readmits (what
+   ``ck_drain_total`` and ``ck_drain_readmit_total`` count) are printed
+   with their decision rows;
 6. transformer: the flagship transformer's forward at the default width
    (vocab 32000, d_model 512, 4 layers, 8 heads of 64, d_ff 2048, bf16,
    ``attention="flash"``, seeded random weights) on ``cuda:0``.  With every
@@ -2489,6 +2510,242 @@ def check_pipelines(ck, wl, gpus, mods, ref_img: np.ndarray, card: str) -> dict:
     return res
 
 
+#: barriers of the health phase's stall-free baseline (five monitor windows
+#: of the default 8 samples) and of its stall: the default monitor confirms
+#: a degradation in 3 windows (24 barriers), and the drain holds a
+#: quarantined lane 2 barriers before it probes it
+HEALTH_BASE = 40
+HEALTH_STALLS = 26
+HEALTH_MS = 20.0
+HEALTH_CALLS = 100
+HEALTH_ID = 7300
+#: the drains and readmits each phase's controllers made (what
+#: ``ck_drain_total`` and ``ck_drain_readmit_total`` count), by phase
+DRAINS: dict[str, list[int]] = {}
+#: the decision rows of every drain and readmit, with their phase
+DRAIN_ROWS: list[dict] = []
+
+
+def watch_drains() -> None:
+    """Tally every drain and readmit by the phase it happened in, with its
+    decision row (a registry reset in a phase cannot hide one)."""
+    from cekirdekler_tpu_torch.obs import drain
+    from cekirdekler_tpu_torch.obs.decisions import DECISIONS
+
+    orig = drain.DrainController.evaluate
+
+    def evaluate(self):
+        res = orig(self)
+        if res and (res["drained"] or res["readmitted"]):
+            name = _PHASES[-1][0] if _PHASES else "?"
+            tally = DRAINS.setdefault(name, [0, 0])
+            tally[0] += len(res["drained"])
+            tally[1] += len(res["readmitted"])
+            kinds = ("drain-apply", "readmit")
+            rows = [r.to_row() for r in DECISIONS.snapshot()[-4:] if r.kind in kinds]
+            DRAIN_ROWS.append({"phase": name, "rows": rows})
+        return res
+
+    drain.DrainController.evaluate = evaluate
+
+
+def check_health_drain(ck, wl, lanes, ref_img: np.ndarray, W: int = 2048,
+                       max_iter: int = 256) -> dict:
+    """Phase 5g (a): two partition lanes of the card, mandelbrot 2048x2048x256
+    in enqueue mode, a call, a barrier and a flush a window, with lane 1's
+    barrier fence stalled ``HEALTH_MS`` for ``HEALTH_STALLS`` barriers after
+    ``HEALTH_BASE`` clean ones.  Gates: lane 1 read degraded within the
+    default monitor's bound (``confirm + 1`` windows of the stall's onset),
+    its range 0 from the call after the drain until the probe, one step
+    (256) at the probe, then readmitted; the image exact after every
+    window; one drain and one readmit (``ck_drain_total``,
+    ``ck_drain_readmit_total``); the run's decision log verified by the
+    port's ``ckreplay verify`` with no divergence and no row of the three
+    kinds unreplayed."""
+    import tempfile
+
+    from cekirdekler_tpu_torch.metrics.registry import REGISTRY
+    from cekirdekler_tpu_torch.obs.decisions import DECISIONS
+    from cekirdekler_tpu_torch.obs.replay import verify_records
+    from cekirdekler_tpu_torch.tools import ckreplay
+    from cekirdekler_tpu_torch.utils.faultinject import FAULTS
+
+    n = W * W
+    counters = [REGISTRY.counter(name) for name in ("ck_drain_total", "ck_drain_readmit_total")]
+    before = [c.value for c in counters]
+    DECISIONS.clear()
+    FAULTS.arm(f"lane-stall@lane1:delay_ms={HEALTH_MS},after={HEALTH_BASE},"
+               f"times={HEALTH_STALLS}")
+    cr = ck.NumberCruncher(lanes, wl.MANDELBROT_SRC)
+    mon = cr.cores.health
+    out = ck.ClArray(n, np.float32, name="health_out", read=False, write=True, fast=True)
+    vals = (-2.0, -1.25, 2.5 / W, 2.5 / W, W, max_iter)
+    ranges, states, verdicts = [], [], []
+    try:
+        cr.enqueue_mode = True
+        for k in range(HEALTH_CALLS):
+            out.compute(cr, HEALTH_ID, "mandelbrot", n, 256, values=vals)
+            ranges.append(cr.ranges_of(HEALTH_ID))
+            cr.barrier()
+            states.append(cr.cores.drain.lane_state(1))
+            verdicts.append(mon.verdict(1))
+            cr.flush()
+            if not np.array_equal(out.host(), ref_img):
+                bad = int((out.host() != ref_img).sum())
+                raise AssertionError(f"health phase: the image differs at {bad} pixels after "
+                                     f"window {k}")
+        cr.enqueue_mode = False
+        report = cr.health_report()
+    finally:
+        FAULTS.disarm()
+        cr.dispose()
+    drains = [c.value - b for c, b in zip(counters, before)]
+    log_rows = [r.to_row() for r in DECISIONS.snapshot()]
+    first_bad = next((k for k, v in enumerate(verdicts) if v == "degraded"), None)
+    drained = next((k for k, s in enumerate(states) if s == "quarantined"), None)
+    probe = next((k for k, s in enumerate(states) if s == "probation"), None)
+    readmit = next((k for k in range(probe or 0, len(states)) if states[k] == "active"
+                    and probe is not None), None)
+    bound = (mon.confirm + 1) * mon.window
+    print(f"health/drain on two partition lanes: lane 1 stalled {HEALTH_MS} ms at barriers "
+          f"{HEALTH_BASE + 1}-{HEALTH_BASE + HEALTH_STALLS}; degraded at window {first_bad} "
+          f"(bound {HEALTH_BASE + bound}), quarantined {drained}, probation {probe}, readmitted "
+          f"{readmit}; lane-1 range per call {[r[1] for r in ranges]}; drains / readmits "
+          f"{drains}; verdicts {report.get(1, {}).get('verdict')} / "
+          f"{report.get(0, {}).get('verdict')}; evidence {json.dumps(report.get(1))}")
+    if first_bad is None or first_bad >= HEALTH_BASE + bound or first_bad < HEALTH_BASE:
+        raise AssertionError(f"health phase: lane 1 degraded at window {first_bad}, not within "
+                             f"{bound} barriers of the stall at {HEALTH_BASE}")
+    if drained is None or probe is None or readmit is None:
+        raise AssertionError(f"health phase: states {states}")
+    if any(r[1] != 0 for r in ranges[drained + 1: probe + 1]) or ranges[probe + 1][1] != 256:
+        raise AssertionError(f"health phase: lane-1 ranges {[r[1] for r in ranges]} (drained "
+                             f"{drained}, probe {probe})")
+    if drains != [1, 1]:
+        raise AssertionError(f"health phase: ck_drain_total / ck_drain_readmit_total moved by "
+                             f"{drains}, not [1, 1]")
+    verdict = verify_records(log_rows)
+    kinds = {k: verdict["per_kind"].get(k, 0) for k in ("health-verdict", "drain-apply",
+                                                        "readmit")}
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "health.jsonl")
+        with open(path, "w") as f:
+            f.writelines(json.dumps(r) + "\n" for r in log_rows)
+        rc = ckreplay.main(["verify", path])
+    print(f"health phase decision log: {len(log_rows)} rows, replayed by kind {kinds}, "
+          f"not ported {verdict['not_ported']}, divergent {verdict['divergent']}; ckreplay "
+          f"verify exit {rc}")
+    if (not verdict["ok"] or rc != 0 or kinds["drain-apply"] != 1 or kinds["readmit"] != 1
+            or any(k in verdict["not_ported"] for k in kinds)):
+        raise AssertionError(f"health phase: the log does not verify: {verdict}")
+    return {"degraded_at": first_bad, "drained_at": drained, "probe_at": probe,
+            "readmitted_at": readmit}
+
+
+def gate_trace_marks(marks, lost: list[int], leads: dict, calls: int) -> int:
+    """The device-trace gate on a window's launch marks: every mark matched
+    to a kernel record of its kernel, except where the trace dropped the
+    window's first records past all of its lead kernels (a trace on the card
+    drops the first records of a window, ``tools/trace_window.py``): then the
+    marks lost must be the window's first ones in launch order, at most half
+    of ``calls``.  Returns how many marks the drop took; raises otherwise."""
+    order = [m.seq for m in sorted(marks, key=lambda m: m.seq)]
+    if not lost:
+        return 0
+    if (leads.get("launched", 0) > 0 and leads.get("records") == 0
+            and lost == order[:len(lost)] and len(lost) <= calls // 2):
+        return len(lost)
+    raise AssertionError(f"device trace: marks {lost} matched no kernel record of their "
+                         f"kernel (leads {leads}; the window's marks {order})")
+
+
+def check_device_trace(ck, wl, lanes, ref_img: np.ndarray, W: int = 2048,
+                       max_iter: int = 256) -> dict:
+    """Phase 5g (b): ``trace.device.capture_device`` around 12 calls of the
+    main path's mandelbrot 2048x2048x256 on the GPU lane with
+    ``trace_lanes`` on (each call per call, one kernel a call).  Gates: the
+    launch marks by :func:`gate_trace_marks` (every mark after the records
+    the trace dropped matched, in the explicit tier, to a kernel record of
+    the emitted kernel, ``ck_kernel``), the image exact, and the unified
+    host + device trace split back into the same spans and ops.  Returns
+    the kernel's device ms a launch by the trace, the link counts and the
+    marks the drop took."""
+    import tempfile
+
+    from cekirdekler_tpu_torch.trace import device as dv
+    from cekirdekler_tpu_torch.trace.spans import TRACER
+
+    n = W * W
+    calls = 12
+    cr = ck.NumberCruncher(lanes, wl.MANDELBROT_SRC)
+    out = ck.ClArray(n, np.float32, name="trace_out", read=False, write=True, fast=True)
+    vals = (-2.0, -1.25, 2.5 / W, 2.5 / W, W, max_iter)
+    try:
+        cr.cores.trace_lanes = True
+        for _ in range(2):
+            out.compute(cr, 7301, "mandelbrot", n, 256, values=vals)
+        with tempfile.TemporaryDirectory() as tmp:
+            TRACER.enable(clear=True)
+            try:
+                with dv.capture_device(tmp) as cap:
+                    for _ in range(calls):
+                        out.compute(cr, 7301, "mandelbrot", n, 256, values=vals)
+                spans = TRACER.spans_between(cap._t0, cap._t0 + cap.report.wall_ms / 1e3)
+            finally:
+                TRACER.disable()
+        gate_exact(out.host(), ref_img, "traced mandelbrot")
+        trace = cr.cores.lane_trace.get(7301, [])
+    finally:
+        cr.dispose()
+    rep = cap.report
+    marks = [m for m in dv.MARKS.snapshot() if m.t1 >= cap._t0 and m.kernel == "mandelbrot"]
+    matched = {o.seq for o in rep.ops if o.matched_by == "explicit" and "ck_kernel" in o.name}
+    lost = [m.seq for m in sorted(marks, key=lambda m: m.seq) if m.seq not in matched]
+    print(f"device trace of {calls} mandelbrot calls: {rep.table()}")
+    print(f"device trace: marks {len(marks)}, kernel records {rep.n_ops}, links {rep.links}, "
+          f"matched by {rep.matched_by}, anchor {rep.anchor}, leads {rep.leads}, marks whose "
+          f"record the trace dropped {lost}, lane trace {trace}")
+    if rep.absent is not None or len(marks) != calls:
+        raise AssertionError(f"device trace: {rep.absent}, {len(marks)} marks")
+    dropped = gate_trace_marks(marks, lost, rep.leads, calls)
+    doc = dv.unified_chrome_trace(spans, rep, ops=rep.ops, marks=marks)
+    json.dumps(doc, allow_nan=False)
+    back_spans, back_ops = dv.split_unified_trace(doc)
+    key = lambda o: (o.name, o.dur, o.kernel, o.seq, o.cid, o.lane, o.matched_by)
+    skey = lambda s: (s.kind, s.cid, s.lane, s.tag, round(s.t1 - s.t0, 9))
+    if (sorted(map(skey, back_spans)) != sorted(map(skey, spans))
+            or sorted(map(key, back_ops)) != sorted(map(key, rep.ops))):
+        raise AssertionError(f"device trace: the unified trace lost data ({len(spans)} spans, "
+                             f"{len(rep.ops)} ops -> {len(back_spans)}, {len(back_ops)})")
+    prof = rep.kernel("mandelbrot")
+    return {"trace_ms": prof.device_ms / max(1, prof.launches), "links": rep.links,
+            "matched_by": rep.matched_by, "leads": rep.leads, "marks_dropped": dropped}
+
+
+def check_nbody_attribution(wl, gpus) -> dict:
+    """Phase 5g (c): ``nbody_e2e`` with ``attribution`` and
+    ``device_timeline_dir`` on two partition lanes (n = 8192, 60
+    iterations in windows of 30): the host check, the attribution's
+    factors, and a kernel profile of the n-body launches from the device
+    trace with its busy share of the probe window's wall."""
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as tmp:
+        r = wl.nbody_e2e(gpus.subset(1), n=8192, iters=60, window=30, attribution=True,
+                         device_timeline_dir=tmp)
+    att = r["attribution"]
+    prof = att["kernel_profile"]
+    print(f"nbody_e2e attribution: busy share of the profiled window (the two lanes' "
+          f"streams summed) {att['device_busy_frac_of_wall']}, device busy {att['device_busy_ms']} ms, "
+          f"{att['device_events']} kernel records; factors {json.dumps(att['factors'])}; "
+          f"lane interference {json.dumps(att['lane_interference'])}; kernel profile "
+          f"{json.dumps({k: prof.get(k) for k in ('coverage_frac', 'matched_by', 'links', 'leads', 'roofline', 'absent')})}")
+    if (r["host_check_max_err"] > 0.01 or prof.get("absent") is not None
+            or "roofline" not in prof or prof["kernels"][0]["kernel"] != "nBody"):
+        raise AssertionError(f"nbody_e2e attribution: {json.dumps(att)[:2000]}")
+    return {"busy_frac": att["device_busy_frac_of_wall"]}
+
+
 def main() -> int:
     import torch
 
@@ -2512,6 +2769,7 @@ def main() -> int:
     from cekirdekler_tpu_torch.ops import nbody as nbody_op
     from cekirdekler_tpu_torch.tools import trace_window
 
+    watch_drains()
     dev = torch.device("cuda", 0)
     kind = torch.cuda.get_device_name(0)
     t_all = time.perf_counter()
@@ -2807,6 +3065,15 @@ def main() -> int:
     rows["emitter:mandelbrot"]["pipeline_launches"] = pipe_res["mandelbrot"]["launches"]["emitted"]
     rows["mandelbrot"]["pipeline_launches"] = pipe_res["mandelbrot"]["launches"]["hand kernel"]
 
+    phase("health, drain and device trace")
+    health_res = check_health_drain(ck, wl, gpus[0].as_partitions(2), ref_img)
+    trace_res = check_device_trace(ck, wl, gpus.subset(1), ref_img)
+    rows["emitter:mandelbrot"]["trace_ms"] = trace_res["trace_ms"]
+    health_res.update(trace_res, **check_nbody_attribution(wl, gpus))
+    print(f"emitted mandelbrot 2048x2048x256: device ms a launch by the capture's trace "
+          f"{trace_res['trace_ms']:.4f}, by CUDA events {rows['emitter:mandelbrot']['event_ms']:.4f}, "
+          f"by the profiler (kernels phase) {rows['emitter:mandelbrot']['ms']:.4f}")
+
     phase("transformer forward")
     rows["flash_attention"]["launches"] = check_transformer(wl, fa_op, card)
 
@@ -2858,7 +3125,8 @@ def main() -> int:
             "ms": rr["ms"], "plain_ms": rr["plain_ms"], "bound_ms": rr["bound_ms"],
             "bound_by": rr["bound_by"], "library_ms": rr["library_ms"],
             **{key: rr[key] for key in ("kernel_route", "fp32_ms", "fp32_bound_ms", "torch_ops_ms",
-                                        "pipeline_launches") if key in rr},
+                                        "pipeline_launches", "event_ms", "trace_ms")
+               if key in rr},
         })
     print(f"mpixels_per_sec: {json.dumps(res)}; streamed against monolithic: "
           f"{json.dumps(stream_res)}; pipelines: {json.dumps(pipe_res)}; total "
@@ -2867,6 +3135,14 @@ def main() -> int:
           f"traces taken again for a garbled record or more lost: {len(trace_window.defects)}")
     for defect in trace_window.defects:
         print(f"  taken again: {defect}")
+    from cekirdekler_tpu_torch.metrics.registry import REGISTRY
+
+    print(f"health, drain and device trace: {json.dumps(health_res)}")
+    print(f"drains and readmits by phase (what ck_drain_total and ck_drain_readmit_total "
+          f"count): {json.dumps(DRAINS)}; ck_drain_total now "
+          f"{REGISTRY.counter('ck_drain_total').value}")
+    for row in DRAIN_ROWS:
+        print(f"  drain decision rows: {json.dumps(row)}")
     print(f"phase seconds: {json.dumps(phase_seconds())}")
     print(card)
     print(json.dumps({"kernels": kernels}))

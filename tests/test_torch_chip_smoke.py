@@ -602,3 +602,95 @@ def test_balancer_gate_reads_each_local_range_s_first_run(label):
              "local range 512: settled within 80 calls in 10 of 10 runs, at [3]",
              "local range 256, run 0 moved late; last 25 calls' host-lane ranges [256]"]
     assert first_runs(lines) == {"512": {"last_host_range": 512, "median_ms": [0.6, 2.5]}}
+
+
+def _health_fleet(monkeypatch, clock_lags=(0.002, 0.002)):
+    """``chip_smoke``'s ``ck`` for the health phase on two host lanes under
+    a modelled clock (``tests/test_torch_drain.StallClock``): each lane's
+    fence reads its lag, plus the stall the fault plane asked for."""
+    import types
+
+    import cekirdekler_tpu_torch as ck
+    from cekirdekler_tpu_torch.core import cores as port_cores
+    from tests.test_torch_drain import StallClock
+
+    clock = StallClock()
+    clock.lags = dict(enumerate(clock_lags))
+    monkeypatch.setattr(port_cores, "time", clock)
+
+    def cruncher(*args, **kw):
+        cr = ck.NumberCruncher(*args, **kw)
+        clock.attach(cr)
+        return cr
+
+    return types.SimpleNamespace(NumberCruncher=cruncher, ClArray=ck.ClArray), ck
+
+
+def _health_run(monkeypatch):
+    from cekirdekler_tpu_torch import workloads as wl
+    from tests.test_torch_metrics import restore_planes, save_planes
+
+    fake, ck = _health_fleet(monkeypatch)
+    ref = wl.mandelbrot_host(32, 32, -2.0, -1.25, 2.5 / 32, 2.5 / 32, 8)
+    saved = save_planes()
+    try:
+        return chip_smoke.check_health_drain(fake, wl, ck.all_devices().cpus(2), ref, W=32,
+                                             max_iter=8)
+    finally:
+        restore_planes(saved)
+
+
+def test_the_health_phase_passes_on_host_lanes(monkeypatch):
+    """Phase 5g (a) on two host lanes: the stalled lane is degraded at the
+    64th barrier, drained there, probed two barriers later and readmitted
+    once a window of its probe samples reads its baseline again."""
+    res = _health_run(monkeypatch)
+    assert res == {"degraded_at": 63, "drained_at": 63, "probe_at": 65, "readmitted_at": 74}
+
+
+def test_the_health_phase_fails_when_the_drain_does_not_act(monkeypatch):
+    from cekirdekler_tpu_torch.obs import drain
+
+    monkeypatch.setattr(drain.DrainController, "evaluate", lambda self: None)
+    with pytest.raises(AssertionError, match="health phase"):
+        _health_run(monkeypatch)
+
+
+def test_the_device_trace_phase_refuses_a_trace_without_kernel_records():
+    """Phase 5g (b) on a host lane: the capture records every mark, but a
+    trace without kernel records is a named absence, and the gate fails."""
+    import cekirdekler_tpu_torch as ck
+    from cekirdekler_tpu_torch import workloads as wl
+
+    ref = wl.mandelbrot_host(32, 32, -2.0, -1.25, 2.5 / 32, 2.5 / 32, 8)
+    with pytest.raises(AssertionError, match="no device op"):
+        chip_smoke.check_device_trace(ck, wl, ck.all_devices().cpus(1), ref, W=32, max_iter=8)
+
+
+def _marks(n=12):
+    from cekirdekler_tpu_torch.trace import device as dv
+
+    return [dv.Mark(100 + i, "mandelbrot", 7301, 0, float(i), float(i) + 0.5) for i in range(n)]
+
+
+@pytest.mark.parametrize("lost, leads, dropped", [
+    ([], {"launched": 4, "records": 4}, 0),
+    ([], {"launched": 4, "records": 0}, 0),
+    ([100, 101], {"launched": 4, "records": 0}, 2),   # the drop ran past every lead
+    ([100], {"launched": 4, "records": 0}, 1),
+])
+def test_the_device_trace_gate_passes_a_drop_that_ran_past_the_leads(lost, leads, dropped):
+    assert chip_smoke.gate_trace_marks(_marks(), lost, leads, 12) == dropped
+
+
+@pytest.mark.parametrize("lost, leads", [
+    ([100], {"launched": 4, "records": 4}),       # the leads kept: no mark may go
+    ([100], {"launched": 4, "records": 1}),       # the drop ended inside the leads
+    ([101], {"launched": 4, "records": 0}),       # not the window's first mark
+    ([100, 102], {"launched": 4, "records": 0}),  # not a prefix
+    (list(range(100, 107)), {"launched": 4, "records": 0}),  # more than half the window
+    ([100], {}),                                  # no lead kernels (a host lane)
+])
+def test_the_device_trace_gate_fails_a_mark_lost_otherwise(lost, leads):
+    with pytest.raises(AssertionError, match="matched no kernel record"):
+        chip_smoke.gate_trace_marks(_marks(), lost, leads, 12)

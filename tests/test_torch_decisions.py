@@ -122,7 +122,8 @@ def test_the_record_format_is_the_reference_s():
     assert decisions.DECISION_LOG_ENV == ref_decisions.DECISION_LOG_ENV
     assert decisions.DecisionRecord._fields == ref_decisions.DecisionRecord._fields
     assert set(replay.NOT_PORTED_KINDS) == set(ref_decisions.REPLAYABLE_KINDS) - {
-        "load-balance", "prior-split", "transfer-choose", "transfer-observe"}
+        "load-balance", "prior-split", "transfer-choose", "transfer-observe",
+        "health-verdict", "drain-apply", "readmit"}
 
 
 @pytest.mark.parametrize("lanes", [2, 3])
@@ -261,3 +262,75 @@ def test_records_snapshot_the_carried_state_before_the_call():
     for prev, nxt in zip(lb, lb[1:]):
         if prev["inputs"]["cid"] == nxt["inputs"]["cid"]:
             assert nxt["inputs"]["state"] == prev["outputs"]["state_after"]
+
+
+def _drained_log(monkeypatch, package: str) -> list[dict]:
+    """A decision log of one package's cruncher on two host lanes whose
+    lane 1 a ``lane-stall`` degrades under a modelled clock until the
+    drain quarantines it, probes it and readmits it."""
+    from cekirdekler_tpu.core import cores as ref_cores
+    from cekirdekler_tpu.utils.faultinject import FAULTS as REF_FAULTS
+    from cekirdekler_tpu_torch.core import cores as port_cores
+    from cekirdekler_tpu_torch.utils.faultinject import FAULTS
+    from tests.test_torch_drain import StallClock
+
+    port = package == "port"
+    cr = (ck.NumberCruncher(ck.all_devices().cpus(2), INC) if port
+          else RefCruncher(ref_platforms().cpus().subset(2), INC))
+    CA = ck.ClArray if port else cekirdekler_tpu.ClArray
+    log, faults = (DECISIONS, FAULTS) if port else (REF_DECISIONS, REF_FAULTS)
+    clock = StallClock()
+    clock.lags = {0: 0.010, 1: 0.010}
+    monkeypatch.setattr(port_cores if port else ref_cores, "time", clock)
+    clock.attach(cr)
+    cores = cr.cores
+    cores.health = type(cores.health)(window=2, min_history=2, confirm=2)
+    cores.drain = type(cores.drain)(cores.health, lanes=2, hold_barriers=1, confirm_clear=1)
+    faults.arm("lane-stall@lane1:delay_ms=50,after=4,times=4")
+    log.clear()
+    try:
+        x = CA(np.zeros(1024, np.float32), name="x")
+        x.partial_read = True
+        cr.enqueue_mode = True
+        for _ in range(16):
+            x.compute(cr, 1, "inc", 1024, 64)
+            cr.barrier()
+        cr.enqueue_mode = False
+        np.testing.assert_array_equal(np.asarray(x), 16.0)
+    finally:
+        faults.disarm()
+        cr.dispose()
+    return [r.to_row() for r in log.snapshot()]
+
+
+@pytest.mark.parametrize("package", ["port", "reference"])
+def test_a_drained_log_verifies_under_both_replays(monkeypatch, package):
+    """The health and drain kinds replay both ways: a log with
+    ``health-verdict``, ``drain-apply`` and ``readmit`` rows verifies under
+    the reference's replay and under the port's, none of them not ported."""
+    rows = _drained_log(monkeypatch, package)
+    kinds = Counter(r["kind"] for r in rows)
+    assert kinds["health-verdict"] > 0 and kinds["drain-apply"] == 1 and kinds["readmit"] == 1
+    mine, ref = replay.verify_records(rows), ref_replay.verify_records(rows)
+    assert mine["ok"] and ref["ok"], (mine["first_divergence"], ref["first_divergence"])
+    assert mine["not_ported"] == {}
+    for key in ("records", "replayed", "skipped", "divergent", "per_kind"):
+        assert mine[key] == ref[key], key
+    for kind in ("health-verdict", "drain-apply", "readmit"):
+        assert mine["per_kind"][kind] == kinds[kind]
+    # a tampered drain row diverges under both, naming the field
+    row = next(r for r in rows if r["kind"] == "drain-apply")
+    bad = dict(row, outputs=dict(row["outputs"], states={"0": "quarantined", "1": "active"}))
+    for verify in (replay.verify_records, ref_replay.verify_records):
+        v = verify([bad])
+        assert not v["ok"] and v["divergent"] == 1
+
+
+def test_ckreplay_verifies_a_drained_log(monkeypatch, tmp_path, capsys):
+    rows = _drained_log(monkeypatch, "port")
+    path = tmp_path / "drained.jsonl"
+    path.write_text("".join(json.dumps(r) + "\n" for r in rows))
+    assert ckreplay.main(["verify", str(path)]) == 0
+    assert ref_ckreplay.main(["verify", str(path)]) == 0
+    out = capsys.readouterr().out
+    assert "NOT VERIFIED" not in out

@@ -76,6 +76,21 @@ def test_parallel_modules_are_scanned(name):
     assert "torch" in names and not any(_forbidden(m) for m in names)
 
 
+@pytest.mark.parametrize("name", ["obs/health.py", "obs/drain.py", "trace/attribution.py",
+                                  "trace/export.py", "trace/device.py", "utils/timeline.py"])
+def test_observability_modules_are_scanned_and_import_no_torch_at_load(name):
+    """The health, drain and device-timeline modules are among the scanned
+    files, import no JAX, and import torch only inside the functions that
+    use it (a module-level import would tie the planes to torch's load)."""
+    path = PORT / name
+    assert path in FILES
+    assert not any(_forbidden(m) for m in _imported_names(path))
+    tree = ast.parse(path.read_text(), filename=str(path))
+    top = [a.name for n in tree.body if isinstance(n, ast.Import) for a in n.names]
+    top += [n.module or "" for n in tree.body if isinstance(n, ast.ImportFrom) and n.level == 0]
+    assert not any(m.split(".")[0] == "torch" for m in top), top
+
+
 @pytest.mark.parametrize("path", FILES, ids=lambda p: str(p.relative_to(ROOT)))
 def test_source_imports_no_jax(path):
     bad = [m for m in _imported_names(path) if _forbidden(m)]

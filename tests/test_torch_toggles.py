@@ -19,7 +19,7 @@ from cekirdekler_tpu import benchrig as ref_benchrig
 from cekirdekler_tpu.errors import CekirdeklerError as RefError
 from cekirdekler_tpu_torch import benchrig
 from cekirdekler_tpu_torch import workloads as wl
-from cekirdekler_tpu_torch.errors import CekirdeklerError, NotPortedError
+from cekirdekler_tpu_torch.errors import CekirdeklerError
 from tests.test_torch_enqueue import Pair
 
 VADD = """
@@ -300,7 +300,35 @@ def test_nbody_e2e_on_host_lanes_is_within_the_host_check():
         assert r["fused"]["enabled"] and r["fused"]["deferred_iters"] > 0
 
 
-@pytest.mark.parametrize("kw", [{"attribution": True}, {"device_timeline_dir": "x"}])
-def test_nbody_e2e_tracing_options_wait_for_the_tracer(kw):
-    with pytest.raises(NotPortedError, match="A 5"):
-        wl.nbody_e2e(ck.all_devices().cpus(1), n=256, iters=2, **kw)
+@pytest.mark.parametrize("kw", [{"attribution": True}, {"device_timeline_dir": "x"},
+                                {"attribution": True, "device_timeline_dir": "x"}])
+def test_nbody_e2e_tracing_options_wait_for_the_tracer(kw, tmp_path):
+    """The options that waited for the span tracer and the device
+    timeline: ``attribution`` names the reference's factors, and
+    ``device_timeline_dir`` (read only with ``attribution``, as in the
+    reference) adds a kernel profile, a named absence on host lanes."""
+    from cekirdekler_tpu.hardware import platforms as ref_platforms
+    from cekirdekler_tpu.workloads import nbody_e2e as ref_nbody_e2e
+
+    kw = {k: (str(tmp_path) if k == "device_timeline_dir" else v) for k, v in kw.items()}
+    r = wl.nbody_e2e(ck.all_devices().cpus(1), n=256, iters=4, window=2, local_range=64,
+                     probe_iters=2, **kw)
+    ref = ref_nbody_e2e(ref_platforms().cpus().subset(1), n=256, iters=4, window=2,
+                        local_range=64, probe_iters=2, **kw)
+    assert r["checked"] and r["host_check_max_err"] <= 0.01
+    assert set(r) == set(ref)
+    if not kw.get("attribution"):
+        assert "attribution" not in r
+        return
+    att, ref_att = r["attribution"], ref["attribution"]
+    assert set(att) == set(ref_att)
+    assert set(att["factors"]) == set(ref_att["factors"])
+    assert att["factors"]["window_rtt"]["count"] == ref_att["factors"]["window_rtt"]["count"] == 2
+    assert att["factors"]["ladder_launch"]["count"] > 0
+    assert att["per_lane_kind_ms"].keys() == {"cpu"}
+    assert set(att["lane_interference"]) == set(ref_att["lane_interference"])
+    assert att["lane_interference"]["lanes"] == 2 and att["lane_interference"]["factor"] > 0
+    if "device_timeline_dir" in kw:
+        assert att["kernel_profile"] == {"absent": att["kernel_profile"]["absent"]}
+        assert "no device op" in att["kernel_profile"]["absent"]
+        assert att["device_events"] == 0 and att["device_busy_frac_of_wall"] is None

@@ -80,7 +80,7 @@ FREEZE_MARGIN = 0.6
 REPAIR_TIE_BAND = 0.02
 
 #: Temporal invariants of the balancer freeze/jump machine, as the
-#: reference states them (its ``analysis/model.py`` checks them).
+#: reference states them; ``analysis/model.BalanceMachine`` checks them.
 MODEL_INVARIANTS = (
     ("range-conservation", "safety",
      "every iteration's ranges sum exactly to the total — the "

@@ -106,13 +106,27 @@ every compute id.  ``trace_lanes`` records each lane's dispatch and join
 times of a per-call phase in ``lane_trace`` and keeps the call off the
 fused (the reason ``trace-lanes``) and streamed paths.
 
-Not ported yet (queued in ROADMAP.md): the debug port, the verify gate,
-the compile cache and ``warmup`` (with its ``cache-warmup`` record) and
-``dispatch_gate``.
+The kernel verify gate, as the reference's: after the fused-window checks
+and before any window bookkeeping, transfer or launch, a call's launch
+shape (kernel sequence, each parameter's ``flag_row``, and whether it runs
+in a window: enqueue mode or ``repeat_count > 1``) is verified once by
+``KernelProgram.verify`` and looked up after that.  Under
+``CK_KERNEL_VERIFY`` advisory (the default) an unsafe shape records one
+``kernel-verify`` flight event per (kernel sequence, finding); ``strict``
+raises :class:`KernelVerifyError` naming the finding; ``off`` skips the
+gate.  A deferred fused call does not reach it: the window's engaging call
+verified the same shape.  The debug server (``obs/debugserver.py``) starts
+at :meth:`serve_debug`, or at the first ``Cores`` of a process when
+``CK_DEBUG_PORT`` names a fixed port > 0 (a bad or busy port records a
+``debug-port-skipped`` flight event), and closes at :meth:`dispose`.
+
+Not ported yet (queued in ROADMAP.md): the compile cache and ``warmup``
+(with its ``cache-warmup`` record) and ``dispatch_gate``.
 """
 
 from __future__ import annotations
 
+import os
 import threading
 import time
 from collections import deque
@@ -123,12 +137,19 @@ from typing import Any, Sequence
 
 import torch
 
+from ..analysis import flag_row
 from ..arrays.clarray import ClArray
-from ..errors import ComputeValidationError, FusedBatchError, InjectedFaultError
+from ..errors import (
+    ComputeValidationError,
+    FusedBatchError,
+    InjectedFaultError,
+    KernelVerifyError,
+)
 from ..hardware import Devices, rate_prior
 from ..kernel.build import LaunchCounter
 from ..kernel.registry import KernelProgram
 from ..metrics.registry import REGISTRY
+from ..obs.debugserver import DEBUG_PORT_ENV
 from ..obs.decisions import DECISIONS
 from ..obs.drain import DrainController, apply_quarantine
 from ..obs.flight import FLIGHT, record_crash
@@ -339,6 +360,25 @@ class Cores:
         # rest moved to the other lanes), probed after a hold and readmitted
         # when its verdict clears
         self.drain = DrainController(self.health, lanes=len(self.workers))
+        # (kernel sequence, finding fingerprint) pairs the advisory verify
+        # gate has reported: one flight event each
+        self._verify_notified: set[tuple] = set()
+        # the debug server (obs/debugserver.py): started by serve_debug()
+        # or, for the first Cores of the process, by CK_DEBUG_PORT (a busy
+        # port is skipped: one debug plane per process, the first binder's)
+        self._debug_server = None
+        env_port = os.environ.get(DEBUG_PORT_ENV)
+        if env_port:
+            try:
+                port = int(env_port)
+                # a fixed port only: port 0 would bind a fresh ephemeral
+                # server per Cores and give scrapers no stable address
+                if port <= 0:
+                    raise ValueError("CK_DEBUG_PORT must be a fixed port > 0")
+                self.serve_debug(port)
+            except (OSError, ValueError) as e:
+                FLIGHT.event("debug-port-skipped", port=env_port,
+                             reason=f"{type(e).__name__}: {e}")
 
     @property
     def adaptive_load_balancer(self) -> bool:
@@ -499,6 +539,19 @@ class Cores:
         if global_range % step != 0:
             raise ComputeValidationError(
                 f"global_range ({global_range}) must be divisible by step ({step})")
+        # the kernel partition-safety / flag-soundness gate (analysis/):
+        # verdicts cache per launch shape in the program, so a steady call
+        # pays one environment read and one dict lookup, and a strict
+        # refusal comes before any window bookkeeping, transfer or launch
+        verify_mode = os.environ.get("CK_KERNEL_VERIFY", "advisory")
+        if verify_mode != "off":
+            verdict = self.program.verify(
+                tuple(kernel_names), tuple(flag_row(p.flags) for p in params),
+                window=self.enqueue_mode or self.repeat_count > 1)
+            if verdict.errors:
+                if verify_mode == "strict":
+                    raise KernelVerifyError(verdict.errors[0])
+                self._note_kernel_verdict(verdict, kernel_names)
         if self.enqueue_mode:
             with self._lock:
                 self._note_enqueue_call(compute_id, t_start)
@@ -602,6 +655,20 @@ class Cores:
                            or any(abs(a - b) > step for a, b in zip(ranges, old_ranges))):
             self.transfer_tuner.on_repartition()
             self._m_stream_retunes.inc()
+
+    def _note_kernel_verdict(self, verdict, kernel_names) -> None:
+        """Advisory-mode surfacing of an unsafe launch shape: one flight
+        event per distinct (kernel sequence, finding), a value key that
+        holds across racing verdict constructions."""
+        f = verdict.errors[0]
+        key = (tuple(kernel_names), f.fingerprint)
+        with self._lock:
+            if key in self._verify_notified:
+                return
+            self._verify_notified.add(key)
+        FLIGHT.event("kernel-verify", kernels="+".join(kernel_names), finding=f.kind,
+                     kernel=f.kernel, param=f.param, line=f.line,
+                     errors=len(verdict.errors))
 
     def _note_enqueue_call(self, compute_id: int, t_start: float) -> None:
         """Window bookkeeping of one enqueued call.  Caller holds ``_lock``."""
@@ -1822,6 +1889,18 @@ class Cores:
     def ranges_of(self, compute_id: int) -> list[int]:
         return list(self.global_ranges.get(compute_id, []))
 
+    def serve_debug(self, port: int = 0, host: str = "127.0.0.1"):
+        """Start the live debug HTTP server (``obs/debugserver.py``) over
+        this scheduler on a daemon thread.  ``port=0`` binds an ephemeral
+        port: read it from the returned server's ``.port``.  Idempotent per
+        Cores: a second call returns the running server."""
+        if self._debug_server is None:
+            from ..obs.debugserver import DebugServer
+
+            self._debug_server = DebugServer(self, port=port, host=host)
+            FLIGHT.event("debug-server", port=self._debug_server.port)
+        return self._debug_server
+
     def health_report(self) -> dict:
         """Per-lane health verdicts (``obs/health.py``): ``{lane:
         {"verdict": ok|suspect|degraded, "score", "evidence"}}``.  The
@@ -1840,8 +1919,11 @@ class Cores:
 
     def dispose(self) -> None:
         """Dispose every lane, then raise the first failure a lane's last
-        fence surfaced.  The decision log's tail is spilled first (under
-        ``CK_DECISION_LOG``)."""
+        fence surfaced.  The debug server closes and the decision log's
+        tail is spilled first (under ``CK_DECISION_LOG``)."""
+        if self._debug_server is not None:
+            self._debug_server.close()
+            self._debug_server = None
         DECISIONS.maybe_spill(force=True)
         errs = []
         for w in self.workers:

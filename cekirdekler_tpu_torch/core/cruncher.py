@@ -15,11 +15,11 @@ True, ``smooth_load_balancer`` True), ``no_compute_mode`` False,
 ``performance_feed`` False with ``performance_history`` and
 ``last_compute_performance_report``, and ``enqueue_mode_async_enable``
 (stored; a lane's enqueued work is always asynchronous),
-``fence_split`` False and ``pipeline_lookahead`` 2, and
-:meth:`health_report`.  Not ported: ``fine_grained_queue_control``
+``fence_split`` False and ``pipeline_lookahead`` 2,
+:meth:`health_report` and :meth:`serve_debug` (the debug endpoints; also
+started by ``CK_DEBUG_PORT``).  Not ported: ``fine_grained_queue_control``
 (queue markers, ROADMAP Queue A 4), which reads False and raises
-:class:`NotPortedError` when set True, ``dispatch_gate`` and the debug
-endpoints.
+:class:`NotPortedError` when set True, and ``dispatch_gate``.
 """
 
 from __future__ import annotations
@@ -299,6 +299,13 @@ class NumberCruncher:
 
     def ranges_of(self, compute_id: int) -> list[int]:
         return self.cores.ranges_of(compute_id)
+
+    def serve_debug(self, port: int = 0, host: str = "127.0.0.1"):
+        """Start the debug HTTP endpoints (``obs/debugserver.py``) over
+        this cruncher's scheduler on a daemon thread.  ``port=0`` is an
+        ephemeral port: read ``server.port``.  Also started by
+        ``CK_DEBUG_PORT``; closed by :meth:`dispose`."""
+        return self.cores.serve_debug(port=port, host=host)
 
     def health_report(self) -> dict:
         """Per-lane health verdicts (``obs/health.py``), as

@@ -25,6 +25,11 @@ alike, one callable per key that makes the same launches as the per-call
 path, in the same order; on CPU tensors it is a host loop, and on a GPU
 lane ``kernel/graphs.py`` captures one call of it into a CUDA graph and
 replays that.
+
+:meth:`KernelProgram.summaries` and :meth:`KernelProgram.verify` are the
+reference's partition-safety hooks (``analysis/``): one access summary per
+C kernel, built at the first verify, and one cached verdict per launch
+shape, which ``Cores.compute``'s verify gate reads on every call.
 """
 
 from __future__ import annotations
@@ -129,6 +134,10 @@ class KernelProgram:
         self._cache: dict[tuple, tuple[Callable, Any]] = {}
         self._routes: dict[str, str] = {}
         self._lock = threading.Lock()
+        # the partition-safety analysis (analysis/): one summary per kernel,
+        # built at the first verify, and one verdict per launch shape
+        self._analysis_summaries: dict | None = None
+        self._verdict_cache: dict[tuple, Any] = {}
         items = [source] if isinstance(source, (str, PythonKernel)) else list(source)
         for item in items:
             if isinstance(item, str):
@@ -175,6 +184,49 @@ class KernelProgram:
         if name in self._c_kernels:
             return [p.name for p in self._c_kernels[name].params if not p.is_pointer]
         return list(self._py_kernels[name].value_params)
+
+    # -- partition-safety verification (analysis/) ---------------------------
+    def summaries(self) -> dict:
+        """Per-kernel access summaries, built once per program (one
+        abstract interpretation per C kernel).  Python kernels, the hand
+        kernels that plug into ``compute()`` among them
+        (``workloads.mandelbrot_cuda_kernel``), map to ``None``: outside
+        the analyzable surface.  An analysis bail-out on one kernel
+        degrades that kernel to unverifiable, never breaks the build."""
+        out = self._analysis_summaries
+        if out is None:
+            from .. import analysis
+
+            out = {}
+            for name, kdef in self._c_kernels.items():
+                try:
+                    out[name] = analysis.summarize_kernel(kdef)
+                except Exception:  # noqa: BLE001 - degrade, never break
+                    out[name] = None
+            for name in self._py_kernels:
+                out[name] = None
+            self._analysis_summaries = out
+        return out
+
+    def verify(self, kernel_names, flag_rows, window: bool = False):
+        """Cached :class:`~..analysis.LaunchVerdict` for one launch
+        shape.  ``flag_rows`` is a tuple of :func:`~..analysis.flag_row`
+        tuples (positional, the call's parameter order).  Verification
+        runs once per distinct (kernel sequence, flags, window); every
+        later call is one dict lookup."""
+        key = (tuple(kernel_names), tuple(flag_rows), bool(window))
+        v = self._verdict_cache.get(key)
+        if v is None:
+            from .. import analysis
+
+            try:
+                v = analysis.verify_launch(
+                    self.summaries(), key[0], key[1], window=key[2])
+            except Exception:  # noqa: BLE001 - the verifier never sinks a
+                # compute: an empty verdict is "nothing proven"
+                v = analysis.LaunchVerdict(findings=())
+            self._verdict_cache[key] = v
+        return v
 
     def route(self, name: str) -> str:
         """``"cuda"`` (emitter subset), ``"torch"`` (torch lowering) or

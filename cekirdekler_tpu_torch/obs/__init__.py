@@ -13,10 +13,16 @@ is ported.
   detector (``HealthMonitor``, ``Cores.health``).
 - :mod:`.drain` — the barrier-time actuator over those verdicts
   (``DrainController``, ``apply_quarantine``, ``Cores.drain``).
+- :mod:`.reqtrace` — request-lifecycle tracing (``REQTRACE``) and its pure
+  folds (``fold_phases``, ``tail_anatomy``); its producers are the serving
+  tier (ROADMAP Queue A 8).
+- :mod:`.debugserver` — the stdlib HTTP debug endpoints over a ``Cores``
+  (``/metrics``, ``/statusz``, ``/tracez``, ``/healthz``, ``/flightz``,
+  ``/profilez``, ``/decisionz``, ``/reqz``), started by
+  ``Cores.serve_debug`` or ``CK_DEBUG_PORT`` (``DEBUG_PORT_ENV``).
 
-Copies of the reference's modules; its debug server (``DEBUG_PORT_ENV``,
-``serve_debug``) and request tracing (``obs/reqtrace.py``) are ROADMAP
-Queue A 5's third part.  Nothing here imports torch at module level.
+Copies of the reference's modules.  Nothing here imports torch at module
+level.
 """
 
 from .decisions import (
@@ -28,6 +34,7 @@ from .decisions import (
     DecisionRecord,
     load_decision_log,
 )
+from .debugserver import DEBUG_PORT_ENV, DebugServer, serve_debug
 from .flight import (
     FLIGHT,
     POSTMORTEM_DIR_ENV,
@@ -45,11 +52,23 @@ from .health import (
     evaluate_window,
     registry_health_summary,
 )
+from .reqtrace import (
+    REQ_EVENT_KINDS,
+    REQTRACE,
+    ReqEvent,
+    ReqTrace,
+    fold_phases,
+    request_chrome_events,
+    reqz_payload,
+    tail_anatomy,
+)
 
 __all__ = [
+    "DEBUG_PORT_ENV",
     "DECISIONS",
     "DECISION_KINDS",
     "DECISION_LOG_ENV",
+    "DebugServer",
     "DecisionLog",
     "DecisionRecord",
     "FLIGHT",
@@ -58,13 +77,22 @@ __all__ = [
     "HealthMonitor",
     "POSTMORTEM_DIR_ENV",
     "REPLAYABLE_KINDS",
+    "REQTRACE",
+    "REQ_EVENT_KINDS",
+    "ReqEvent",
+    "ReqTrace",
     "VERDICTS",
     "cluster_health_table",
     "dump_postmortem",
     "evaluate_window",
+    "fold_phases",
     "load_decision_log",
     "load_postmortem",
     "postmortem_spans",
     "record_crash",
     "registry_health_summary",
+    "request_chrome_events",
+    "reqz_payload",
+    "serve_debug",
+    "tail_anatomy",
 ]

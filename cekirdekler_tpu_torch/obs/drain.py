@@ -63,7 +63,7 @@ LANE_PROBATION = "probation"
 #: Machine-checked temporal invariants of the drain state machine
 #: (``(id, kind, statement)`` — kind is ``safety`` or ``liveness``).
 #: Declared NEXT to the machine they bind (the ``MODEL_INVARIANTS``
-#: contract): the reference's model checker explores the product state
+#: contract): ``analysis/model.DrainMachine`` explores the product state
 #: space of :func:`drain_transition` × :func:`apply_quarantine` under
 #: small bounds and proves each of these over every reachable state
 #: (probation↔quarantine flapping among them).

@@ -1,7 +1,7 @@
 """What the observability hooks and the stream engine's bookkeeping cost a
 call's host time, on the first CUDA lane.
 
-Three measurements on one cruncher each, A and B interleaved call by
+Four measurements on one cruncher each, A and B interleaved call by
 call in the pattern A B B A (``--calls`` calls of each, after warm
 calls), so a drift of the host's pace falls on both alike:
 
@@ -23,7 +23,10 @@ calls), so a drift of the host's pace falls on both alike:
    stream engine's decision (``Cores._run_streamed`` when it hands the
    call back) and its observation (``Cores._note_transfer``: the lane's
    transfer bench and the tuner's ``observe``), both timed by wrappers,
-   the fence wait, and the rest.
+   the fence wait, and the rest;
+4. the kernel verify gate: measurement 1's call with ``CK_KERNEL_VERIFY``
+   as the environment leaves it (A; unset is ``advisory``, a verdict
+   looked up a call) against ``off`` (B), the planes at their defaults.
 
 Prints one line per measurement with medians in microseconds, and one
 JSON line of everything.  Needs a CUDA device.  From the repository
@@ -36,6 +39,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
 import statistics
 import time
 
@@ -85,9 +89,20 @@ def _blocks(samples: dict) -> list[dict]:
             for label, cols in samples.items()]
 
 
-def per_call(ck, wl, lanes, calls: int) -> dict:
+def _verify_gate(mode: str | None) -> None:
+    """Set ``CK_KERNEL_VERIFY`` (None: unset, the gate's default)."""
+    if mode is None:
+        os.environ.pop("CK_KERNEL_VERIFY", None)
+    else:
+        os.environ["CK_KERNEL_VERIFY"] = mode
+
+
+def per_call(ck, wl, lanes, calls: int, switch=None) -> dict:
+    """The headline call, A against B; ``switch(label)`` sets the label's
+    state before each call (default: the planes on for A, off for B)."""
     import numpy as np
 
+    switch = switch or (lambda label: _planes(label == "A"))
     out = ck.ClArray(W * H, np.float32, name="mandel_out", read=False, write=True, fast=True)
     vals = (-2.0, -1.25, 2.5 / W, 2.5 / H, W, MAX_ITER)
     samples = {"A": {"host_us": [], "wall_us": []}, "B": {"host_us": [], "wall_us": []}}
@@ -96,7 +111,7 @@ def per_call(ck, wl, lanes, calls: int) -> dict:
         for _ in range(5):
             out.compute(cr, CID, "mandelbrot", W * H, 256, values=vals)
         for label in _pattern(calls):
-            _planes(label == "A")
+            switch(label)
             waits.append(0.0)
             t0 = time.perf_counter()
             out.compute(cr, CID, "mandelbrot", W * H, 256, values=vals)
@@ -105,6 +120,19 @@ def per_call(ck, wl, lanes, calls: int) -> dict:
             samples[label]["host_us"].append(dt - waits[-1])
     _planes(True)
     return {"blocks": _blocks(samples)}
+
+
+def verify_gate(ck, wl, lanes, calls: int) -> dict:
+    """The headline call with the kernel verify gate as the environment
+    leaves it (A; advisory by default) against ``CK_KERNEL_VERIFY=off``
+    (B), the planes at their defaults."""
+    mode = os.environ.get("CK_KERNEL_VERIFY")
+    try:
+        res = per_call(ck, wl, lanes, calls,
+                       switch=lambda label: _verify_gate(mode if label == "A" else "off"))
+    finally:
+        _verify_gate(mode)
+    return {"verify": mode or "advisory", **res}
 
 
 def deferred(ck, wl, lanes, calls: int, windows: int = 4) -> dict:
@@ -223,8 +251,9 @@ def main(argv: list[str] | None = None) -> int:
     res = {"card": card,
            "per_call": per_call(ck, wl, lanes, args.calls),
            "deferred": deferred(ck, wl, lanes, args.deferred),
-           "streamed_split": streamed_split(ck, wl, lanes, args.calls)}
-    for name in ("per_call", "deferred", "streamed_split"):
+           "streamed_split": streamed_split(ck, wl, lanes, args.calls),
+           "verify_gate": verify_gate(ck, wl, lanes, args.calls)}
+    for name in ("per_call", "deferred", "streamed_split", "verify_gate"):
         print(f"{name} ({card}): " + "; ".join(
             " ".join(f"{k}={v}" for k, v in b.items()) for b in res[name]["blocks"]))
     print(json.dumps(res))

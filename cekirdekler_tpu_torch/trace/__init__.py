@@ -15,11 +15,12 @@ attribution.
 - :mod:`.device` — device-timeline attribution on ``torch.profiler``:
   launch marks (``MARKS``), per-kernel device profiles from the CUDA
   kernel records reconciled against the host window, roofline rows, the
-  unified host + device Perfetto export and the kernel-profile store
-  (``CK_PROFILE_STORE``).
+  unified host + device Perfetto export (with ``obs/reqtrace.py``'s
+  request tracks) and the kernel-profile store (``CK_PROFILE_STORE``).
 
-The reference's cluster aggregation (``trace/aggregate.py``) is ROADMAP
-Queue A 5's third part.  Nothing here imports torch at module level.
+The reference's cluster aggregation (``trace/aggregate.py``) comes with the
+cluster tier (ROADMAP Queue A 7): its only transport is a live cluster
+accelerator.  Nothing here imports torch at module level.
 """
 
 from .attribution import AttributionReport, split_fence_benches, union_ms, window_report

@@ -61,7 +61,6 @@ from contextlib import contextmanager
 from dataclasses import dataclass, field
 from typing import Any, NamedTuple, Sequence
 
-from ..errors import NotPortedError
 from .spans import Span
 # interval-union reduction shared with the busy/span analyzer — one
 # implementation (utils/timeline.py), two consumers, no drift
@@ -791,9 +790,9 @@ def unified_chrome_trace(
     exported against their own origin and the trace says so
     (``args.anchor: null`` on the metadata).  Marks replay as
     zero-cost ``device-mark`` instants so the dispatch edge is visible
-    beside the ops it explains.  ``req_events`` (request-lifecycle
-    tracks) need ``obs/reqtrace.py``, not ported yet: a non-empty one
-    raises :class:`NotPortedError`.  ``split_unified_trace`` reads the
+    beside the ops it explains.  ``req_events`` (``obs/reqtrace.py``
+    events) merge as per-request tracks (cat ``ck-req``, one thread per
+    rid), which ``split_unified_trace`` leaves out.  It reads the
     merged schema back — the round trip is pinned by test."""
     from .export import to_chrome_trace
 
@@ -871,11 +870,8 @@ def unified_chrome_trace(
                      "kind": "device-mark"},
         })
     if req_events:
-        # request-lifecycle tracks come with obs/reqtrace.py
-        raise NotPortedError(
-            "unified_chrome_trace(req_events=...) needs obs/reqtrace.py, part of "
-            "ROADMAP Queue A 5's third part (debug server, request tracing, "
-            "trace aggregation, checkpoints, analysis)")
+        from ..obs.reqtrace import request_chrome_events
+        events.extend(request_chrome_events(req_events))
     return doc
 
 

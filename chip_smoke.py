@@ -154,6 +154,32 @@ Phases, each of which raises on failure (the script then exits non-zero):
    profile's busy share.  Every phase's drains and readmits (what
    ``ck_drain_total`` and ``ck_drain_readmit_total`` count) are printed
    with their decision rows;
+5h. the verify gate, checkpoints and the debug server: (a) under
+   ``CK_KERNEL_VERIFY=strict``, the main path's launch shapes
+   (``verify_shapes``: the emitted and the hand mandelbrot at
+   2048x2048x256, streamAdd and saxpy at 2^24, n-body at 8192) each print
+   their verdict; exactly the shapes ``VERIFY_CLEAN`` names (the ones the
+   reference finds clean, ``tests/test_torch_verify.py``) run, with every
+   image or buffer exact; then a planted 3-point stencil (``STENCIL_SRC``)
+   at 2^22 items on two partition lanes of the card: with ``x`` under
+   ``partial_read`` the verdict names ``partial-read-halo``, the advisory
+   split run differs from the whole-card run exactly at the partition
+   boundary, and the strict call raises ``KernelVerifyError`` with no launch
+   and no transfer; with a full read of ``x`` the verdict is clean and the
+   split run equals the whole-card run bit for bit; one ``kernel-verify``
+   flight event for the unsafe shape, not one per call; (b) the transformer
+   phase's model with bf16 parameters, trained 4 steps at 4x2049,
+   ``save_pytree`` of the model's and AdamW's state dicts, ``load_pytree``
+   into a fresh model and optimizer on the card, every leaf equal bit for
+   bit (bf16 leaves and the AdamW moments included), then 4 more steps on
+   both with losses within 1e-3 relative, every flash launch on ``tc``;
+   (c) ``serve_debug(0)`` on a cruncher over two partition lanes of the
+   card while 12 mandelbrot calls run, one ``capture_device`` window among
+   them: every endpoint answers 200 and parses (``/metrics`` names the
+   lanes' ``ck_*`` series, ``/statusz`` the lanes and their shares,
+   ``/profilez`` the emitted mandelbrot's row of the capture,
+   ``/decisionz`` the calls' decision rows), ``/servez`` answers 501, and
+   after ``close`` the port no longer answers;
 6. transformer: the flagship transformer's forward at the default width
    (vocab 32000, d_model 512, 4 layers, 8 heads of 64, d_ff 2048, bf16,
    ``attention="flash"``, seeded random weights) on ``cuda:0``.  With every
@@ -263,6 +289,28 @@ __kernel void saxpy(__global float* x, __global float* y, float a) {
     y[i] = a * x[i] + y[i];
 }
 """
+
+# phase 5h's planted kernel: a 3-point stencil, guarded at the ends.  Under
+# partial_read on x each lane receives only its own slice, so the reads one
+# past either end of a lane's range see zeros: the verifier's
+# partial-read-halo, which the split run shows at the partition boundary
+STENCIL_SRC = """
+__kernel void stencil3(__global float* x, __global float* out, int n) {
+    int i = get_global_id(0);
+    float l = 0.0f;
+    float r = 0.0f;
+    if (i > 0) { l = x[i - 1]; }
+    if (i < n - 1) { r = x[i + 1]; }
+    out[i] = l + x[i] + r;
+}
+"""
+VERIFY_ID = 7401
+# the main path's launch shapes the reference's verifier finds clean (no
+# error finding; tests/test_torch_verify.py holds this set against it)
+VERIFY_CLEAN = frozenset({"mandelbrot", "mandelbrot.cu", "streamAdd", "saxpy", "nBody"})
+DEBUG_CALLS = 12
+DEBUG_ID = 7402
+CKPT_STEPS = 4
 
 
 def chain(a, b):
@@ -2746,6 +2794,398 @@ def check_nbody_attribution(wl, gpus) -> dict:
     return {"busy_frac": att["device_busy_frac_of_wall"]}
 
 
+def verify_shapes(wl) -> list[dict]:
+    """The main path's launch shapes as ``compute()`` makes them: kernel
+    source (None for the hand kernel, a Python kernel), kernel names and
+    each parameter's transfer flags (``workloads.run_mandelbrot``,
+    ``run_stream``, ``run_nbody`` and phase 4's saxpy)."""
+    return [
+        {"label": "mandelbrot", "source": wl.MANDELBROT_SRC, "names": ["mandelbrot"],
+         "flags": [dict(read=False, write=True)]},
+        {"label": "mandelbrot.cu", "source": None, "names": ["mandelbrot"],
+         "flags": [dict(read=False, write=True)]},
+        {"label": "streamAdd", "source": wl.STREAM_SRC, "names": ["streamAdd"],
+         "flags": [dict(partial_read=True, read_only=True)] * 2 + [dict(write_only=True)]},
+        {"label": "saxpy", "source": SAXPY_SRC, "names": ["saxpy"],
+         "flags": [dict(read_only=True), dict()]},
+        {"label": "nBody", "source": wl.NBODY_SRC, "names": ["nBody"],
+         "flags": [dict(read_only=True)] * 3 + [dict(partial_read=True)] * 3},
+    ]
+
+
+def stencil_flags(full: bool) -> list[dict]:
+    """The planted stencil's flags: ``x`` read whole, or under
+    ``partial_read`` (the unsafe shape); ``out`` written only."""
+    return [dict(read_only=True) if full else dict(partial_read=True, read_only=True),
+            dict(write_only=True)]
+
+
+def stencil_host(x: np.ndarray) -> np.ndarray:
+    """The stencil in f32 on the host, in the kernel's order of additions."""
+    left = np.concatenate([[np.float32(0)], x[:-1]]).astype(np.float32)
+    right = np.concatenate([x[1:], [np.float32(0)]]).astype(np.float32)
+    return (left + x) + right
+
+
+def shape_verdicts(ck, wl) -> dict[str, dict]:
+    """Each main-path shape's verdict from the port's verifier, by label:
+    its error and advisory findings as rows."""
+    from cekirdekler_tpu_torch import analysis
+    from cekirdekler_tpu_torch.arrays.clarray import TransferFlags
+    from cekirdekler_tpu_torch.kernel.registry import KernelProgram
+
+    out = {}
+    for shape in verify_shapes(wl):
+        prog = KernelProgram(shape["source"] if shape["source"] is not None
+                             else wl.mandelbrot_cuda_kernel())
+        v = prog.verify(tuple(shape["names"]),
+                        tuple(analysis.flag_row(TransferFlags(**f)) for f in shape["flags"]))
+        out[shape["label"]] = {"errors": [f.render() for f in v.errors],
+                               "advisories": [f.kind for f in v.advisories]}
+    return out
+
+
+def run_stencil(ck, lanes, x: np.ndarray, full: bool) -> tuple[np.ndarray, list[int], object]:
+    """One stencil call through ``compute()`` on ``lanes`` (the split pinned
+    equal): the output, the range table, and the call's verdict from the
+    cruncher's program."""
+    from cekirdekler_tpu_torch import analysis
+
+    n = x.size
+    flags = stencil_flags(full)
+    xa = ck.ClArray(x.copy(), name="stencil_x", **flags[0])
+    out = ck.ClArray(np.zeros(n, np.float32), name="stencil_out", **flags[1])
+    with ck.NumberCruncher(lanes, STENCIL_SRC) as cr:
+        cr.normalized_compute_powers_of_devices = [1.0 / len(lanes)] * len(lanes)
+        xa.next_param(out).compute(cr, VERIFY_ID, "stencil3", n, 256, values=(n,))
+        verdict = cr.cores.program.verify(
+            ("stencil3",), tuple(analysis.flag_row(a.flags) for a in (xa, out)))
+        ranges = cr.ranges_of(VERIFY_ID)
+    return out.host().copy(), ranges, verdict
+
+
+def check_planted(ck, split, whole, n: int, counters=()) -> dict:
+    """Phase 5h (a), the planted stencil at ``n`` items on the ``split``
+    lanes against the ``whole`` lane, in advisory mode, then strict.
+    ``counters`` are launch counters (``.by_key`` or dicts) that must not
+    move at the strict refusal.  Returns what the gates read."""
+    from cekirdekler_tpu_torch.errors import KernelVerifyError
+    from cekirdekler_tpu_torch.kernel import registry
+    from cekirdekler_tpu_torch.obs.flight import FLIGHT
+
+    rng = np.random.default_rng(21)
+    x = rng.standard_normal(n).astype(np.float32)
+    want = stencil_host(x)
+    os.environ.pop("CK_KERNEL_VERIFY", None)
+    t_start = time.time()
+    whole_out, _, _ = run_stencil(ck, whole, x, full=True)
+    gate_exact(whole_out, want, "stencil on the whole lane")
+    full_out, full_ranges, full_v = run_stencil(ck, split, x, full=True)
+    if full_v.errors or not np.array_equal(full_out.view(np.int32), whole_out.view(np.int32)):
+        raise AssertionError(f"verify gate: the full-read stencil's verdict "
+                             f"{[f.render() for f in full_v.errors]} or its split run differs "
+                             f"from the whole run")
+    # the unsafe shape: three advisory calls on one cruncher, one event
+    flags = stencil_flags(False)
+    xa = ck.ClArray(x.copy(), name="stencil_x", **flags[0])
+    out = ck.ClArray(np.zeros(n, np.float32), name="stencil_out", **flags[1])
+    with ck.NumberCruncher(split, STENCIL_SRC) as cr:
+        # pinned, so no rebalance leaves a lane's earlier slice in its buffer
+        cr.normalized_compute_powers_of_devices = [1.0 / len(split)] * len(split)
+        for _ in range(3):
+            xa.next_param(out).compute(cr, VERIFY_ID, "stencil3", n, 256, values=(n,))
+        halo_ranges = cr.ranges_of(VERIFY_ID)
+        halo_out = out.host().copy()
+        events = [e for e in FLIGHT.snapshot() if e.kind == "kernel-verify" and e.t >= t_start]
+        os.environ["CK_KERNEL_VERIFY"] = "strict"
+        try:
+            seen = (dict(registry.launch_counts), [dict(getattr(c, "by_key", c)) for c in counters],
+                    [dict(w.transfers) for w in cr.cores.workers])
+            try:
+                xa.next_param(out).compute(cr, VERIFY_ID, "stencil3", n, 256, values=(n,))
+                raise AssertionError("verify gate: strict mode ran the halo stencil")
+            except KernelVerifyError as e:
+                refused = e.finding
+            after = (dict(registry.launch_counts), [dict(getattr(c, "by_key", c)) for c in counters],
+                     [dict(w.transfers) for w in cr.cores.workers])
+        finally:
+            os.environ.pop("CK_KERNEL_VERIFY", None)
+    bounds = np.cumsum(halo_ranges)[:-1].tolist()
+    bad = np.flatnonzero(halo_out.view(np.int32) != whole_out.view(np.int32)).tolist()
+    boundary = sorted({i for b in bounds for i in (b - 1, b)})
+    res = {"split": halo_ranges, "full_split": full_ranges, "differs_at": bad[:8],
+           "boundary": boundary, "refused": refused.kind, "refused_param": refused.param,
+           "kernel_verify_events": [e.fields for e in events]}
+    print(f"verify gate, planted stencil at {n} items: {json.dumps(res)}")
+    if bad != boundary or not bounds:
+        raise AssertionError(f"verify gate: the halo stencil's split run differs at {bad[:16]}, "
+                             f"not exactly at the partition boundary {boundary}")
+    if refused.kind != "partial-read-halo" or refused.param != "x":
+        raise AssertionError(f"verify gate: strict refused with {refused.kind} on "
+                             f"{refused.param}")
+    if after != seen:
+        raise AssertionError(f"verify gate: the strict refusal launched or transferred: "
+                             f"{seen} -> {after}")
+    if [(e.fields["finding"], e.fields["param"]) for e in events] != [("partial-read-halo", "x")]:
+        raise AssertionError(f"verify gate: kernel-verify events {[e.fields for e in events]}, "
+                             "want one for the halo shape")
+    return res
+
+
+def check_verify_gate(ck, wl, gpus, mods, ref_img: np.ndarray, W: int = 2048,
+                      max_iter: int = 256) -> dict:
+    """Phase 5h (a) on the card: the main path's shapes under strict, then
+    the planted stencil on two partition lanes."""
+    registry, _graphs, cuda_backend, mandel_op, _ew = mods
+    verdicts = shape_verdicts(ck, wl)
+    for label, v in verdicts.items():
+        print(f"verify gate, main path shape {label}: errors {v['errors']}, "
+              f"advisories {v['advisories']}")
+    clean = {k for k, v in verdicts.items() if not v["errors"]}
+    if clean != VERIFY_CLEAN:
+        raise AssertionError(f"verify gate: clean shapes {sorted(clean)}, want "
+                             f"{sorted(VERIFY_CLEAN)}")
+    os.environ["CK_KERNEL_VERIFY"] = "strict"
+    try:
+        for hand in (False, True):
+            r = wl.run_mandelbrot(gpus, W, W, max_iter, local_range=256, keep_image=True,
+                                  use_cuda_kernel=hand, iters=2)
+            gate_exact(r.image.ravel(), ref_img, f"strict mandelbrot (hand={hand})")
+        st = wl.run_stream(gpus, n=1 << 24, reps=1)
+        nbr = wl.run_nbody(gpus, n=8192, iters=2)
+        if nbr["host_check_max_err"] > 0.01:
+            raise AssertionError(f"strict n-body host check {nbr['host_check_max_err']}")
+        n = 1 << 24
+        x = ck.ClArray(np.arange(n, dtype=np.float32) % 7, name="x", read_only=True, fast=True)
+        y = ck.ClArray(np.ones(n, dtype=np.float32), name="y", fast=True)
+        with ck.NumberCruncher(gpus, SAXPY_SRC) as cr:
+            x.next_param(y).compute(cr, 7004, "saxpy", n, 256, values=(ALPHA,))
+        gate_exact(y.host(), np.float32(ALPHA) * x.host() + np.float32(1.0), "strict saxpy")
+    finally:
+        os.environ.pop("CK_KERNEL_VERIFY", None)
+    print(f"verify gate: the main path ran under CK_KERNEL_VERIFY=strict (streamAdd "
+          f"{st['gb_per_sec']:.1f} GB/s, n-body host check {nbr['host_check_max_err']:.3g})")
+    res = check_planted(ck, gpus[0].as_partitions(2), gpus.subset(1), 1 << 22,
+                        counters=(cuda_backend.LAUNCHES, mandel_op.LAUNCHES))
+    res["clean"] = sorted(clean)
+    return res
+
+
+def checkpoint_resume(wl, cfg, tokens, steps: int, device=None) -> dict:
+    """Train ``steps`` steps, checkpoint the model's and AdamW's state
+    dicts with ``utils.checkpoint.save_pytree``, load them into a fresh
+    model and optimizer with ``load_pytree``, and train ``steps`` more on
+    both.  Returns the leaf counts, the leaves that differ after the load,
+    and both runs' losses."""
+    import tempfile
+
+    import torch
+
+    from cekirdekler_tpu_torch.models import Transformer, adamw
+    from cekirdekler_tpu_torch.utils import checkpoint
+
+    kw = {} if device is None else {"device": device}
+    model = Transformer(cfg, seed=0, **kw)
+    opt = adamw(model, 1e-3)
+    batch = {"tokens": tokens}
+    first = wl.run_transformer_train(model, opt, batch, steps)["losses"]
+    saved = {"model": model.state_dict(), "opt": opt.state_dict()}
+    fresh = Transformer(cfg, seed=1, **kw)
+    fresh_opt = adamw(fresh, 1e-3)
+    # a fresh AdamW holds no moments until its first step: one step on
+    # zero gradients gives its state the saved one's structure, devices
+    # and dtypes, and the load below overwrites model and optimizer alike
+    for p in fresh.parameters():
+        p.grad = torch.zeros_like(p)
+    fresh_opt.step()
+    fresh_opt.zero_grad()
+    with tempfile.TemporaryDirectory() as tmp:
+        checkpoint.save_pytree(tmp, steps, saved)
+        like = {"model": fresh.state_dict(), "opt": fresh_opt.state_dict()}
+        got = checkpoint.load_pytree(tmp, like)
+    fresh.load_state_dict(got["model"])
+    fresh_opt.load_state_dict(got["opt"])
+    mine, _ = checkpoint._flatten({"model": model.state_dict(), "opt": opt.state_dict()})
+    back, _ = checkpoint._flatten({"model": fresh.state_dict(), "opt": fresh_opt.state_dict()})
+    differ = []
+    for i, (a, b) in enumerate(zip(mine, back)):
+        if torch.is_tensor(a):
+            same = (torch.is_tensor(b) and a.dtype == b.dtype and a.shape == b.shape
+                    and a.device == b.device and torch.equal(a, b))
+        else:
+            same = type(a) is type(b) and a == b
+        if not same:
+            differ.append(i)
+    bf16 = sum(1 for a in mine if torch.is_tensor(a) and a.dtype == torch.bfloat16)
+    moments = sum(1 for k in ("exp_avg", "exp_avg_sq") for st in opt.state.values() if k in st)
+    a = wl.run_transformer_train(model, opt, batch, steps)["losses"]
+    b = wl.run_transformer_train(fresh, fresh_opt, batch, steps)["losses"]
+    return {"leaves": len(mine), "loaded": len(back), "differ": differ, "bf16_leaves": bf16,
+            "moments": moments, "first": first, "losses": a, "resumed": b}
+
+
+def check_checkpoint(wl, fa, card: str) -> dict:
+    """Phase 5h (b) on the card: the transformer phase's widths with bf16
+    parameters, ``attention="flash"``, 4x2049."""
+    import torch
+
+    from cekirdekler_tpu_torch.models import TransformerConfig
+
+    cfg = TransformerConfig(attention="flash", param_dtype=torch.bfloat16)
+    rng = np.random.default_rng(17)
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab, (4, 2049))).cuda()
+    counters = (fa.LAUNCHES, fa.BWD_LAUNCHES, fa.PLAIN_RUNS, fa.PLAIN_BWD_RUNS, fa.BWD_ROUTES)
+    for c in counters:
+        c.reset()
+    res = checkpoint_resume(wl, cfg, tokens, CKPT_STEPS)
+    seen = {"LAUNCHES": dict(fa.LAUNCHES.by_key), "BWD_LAUNCHES": dict(fa.BWD_LAUNCHES.by_key),
+            "BWD_ROUTES": dict(fa.BWD_ROUTES.by_key), "plain": fa.PLAIN_RUNS.count,
+            "plain_bwd": fa.PLAIN_BWD_RUNS.count}
+    rel = [abs(a - b) / abs(a) for a, b in zip(res["losses"], res["resumed"])]
+    print(f"checkpoint of {res['leaves']} leaves ({res['bf16_leaves']} bf16, {res['moments']} "
+          f"AdamW moments) after {CKPT_STEPS} steps at 4x2048: leaves that differ after the load "
+          f"{res['differ']}; losses {res['first']} then {res['losses']} against the resumed "
+          f"{res['resumed']} (relative {max(rel):.3g}, limit 1e-3); launch counts {seen} on {card}")
+    n = cfg.n_layers * 3 * CKPT_STEPS
+    want = {"LAUNCHES": {"tc": n}, "BWD_LAUNCHES": {"dq": n, "dkv": n},
+            "BWD_ROUTES": {"tc": 2 * n}, "plain": 0, "plain_bwd": 0}
+    if res["differ"] or res["leaves"] != res["loaded"] or not res["bf16_leaves"] \
+            or not res["moments"]:
+        raise AssertionError(f"checkpoint: leaves {res['leaves']} / {res['loaded']}, differ at "
+                             f"{res['differ']}")
+    if max(rel) > 1e-3 or not all(np.isfinite(res["losses"] + res["resumed"])):
+        raise AssertionError(f"checkpoint: resumed losses {res['resumed']} against "
+                             f"{res['losses']}")
+    if seen != want:
+        raise AssertionError(f"checkpoint: launch counts {seen}, want {want}")
+    res["max_rel"] = max(rel)
+    return res
+
+
+def fetch(url: str, timeout: float = 10.0) -> tuple[int, bytes]:
+    """GET ``url``: (status, body), an HTTP error's status and body too."""
+    import urllib.error
+    import urllib.request
+
+    try:
+        with urllib.request.urlopen(url, timeout=timeout) as r:
+            return r.status, r.read()
+    except urllib.error.HTTPError as e:
+        return e.code, e.read()
+
+
+DEBUG_ENDPOINTS = ("/", "/metrics", "/statusz", "/tracez", "/healthz", "/flightz",
+                   "/profilez", "/decisionz", "/reqz", "/servez")
+
+
+def debug_server_run(ck, wl, lanes, ref_img: np.ndarray, W: int, max_iter: int,
+                     calls: int = DEBUG_CALLS) -> dict:
+    """``serve_debug(0)`` on a cruncher over ``lanes`` while ``calls``
+    mandelbrot calls run (calls 4-7 inside one ``capture_device``
+    window), a thread fetching every endpoint in turn meanwhile; then each
+    endpoint once more, the server closed, and the port tried again.
+    Returns each endpoint's statuses and last body."""
+    import contextlib
+    import tempfile
+    import threading
+    import urllib.error
+
+    from cekirdekler_tpu_torch.trace import device as dv
+
+    n = W * W
+    out = ck.ClArray(n, np.float32, name="debug_out", read=False, write=True, fast=True)
+    vals = (-2.0, -1.25, 2.5 / W, 2.5 / W, W, max_iter)
+    seen: dict[str, list[int]] = {ep: [] for ep in DEBUG_ENDPOINTS}
+    bodies: dict[str, bytes] = {}
+    done = threading.Event()
+    with ck.NumberCruncher(lanes, wl.MANDELBROT_SRC) as cr:
+        srv = cr.serve_debug(0)
+        if cr.serve_debug(0) is not srv or srv.host != "127.0.0.1":
+            raise AssertionError("debug server: serve_debug is not idempotent on 127.0.0.1")
+
+        def scrape() -> None:
+            while not done.is_set():
+                for ep in DEBUG_ENDPOINTS:
+                    code, body = fetch(srv.url + ep)
+                    seen[ep].append(code)
+
+        t = threading.Thread(target=scrape, name="debug-scrape", daemon=True)
+        t.start()
+        with tempfile.TemporaryDirectory() as tmp, contextlib.ExitStack() as window:
+            for k in range(calls):
+                if k == 4:
+                    cap = window.enter_context(dv.capture_device(tmp))
+                out.compute(cr, DEBUG_ID, "mandelbrot", n, 256, values=vals)
+                if k == 7:
+                    window.close()
+        done.set()
+        t.join(timeout=60)
+        gate_exact(out.host(), ref_img, "mandelbrot under the debug server")
+        for ep in DEBUG_ENDPOINTS:
+            code, body = fetch(srv.url + ep)
+            seen[ep].append(code)
+            bodies[ep] = body
+        url = srv.url
+    try:
+        fetch(url + "/", timeout=5.0)
+        answered = True
+    except (urllib.error.URLError, ConnectionError, OSError):
+        answered = False
+    return {"statuses": seen, "bodies": bodies, "answered_after_close": answered,
+            "report": cap.report, "url": url}
+
+
+def gate_debug_server(run: dict, lanes: int, on_card: bool) -> dict:
+    """The debug-server gates on one :func:`debug_server_run`."""
+    st, bodies = run["statuses"], run["bodies"]
+    for ep, codes in st.items():
+        want = 501 if ep == "/servez" else 200
+        if not codes or any(c != want for c in codes):
+            raise AssertionError(f"debug server: {ep} answered {sorted(set(codes))}, want {want}")
+    docs = {ep: json.loads(b) for ep, b in bodies.items() if ep != "/metrics"}
+    metrics = bodies["/metrics"].decode()
+    lane_series = sorted({line.split("{")[0] for line in metrics.splitlines()
+                          if line.startswith("ck_") and f'lane="{lanes - 1}"' in line})
+    status = docs["/statusz"]
+    shares = status.get("shares", {}).get(str(DEBUG_ID))
+    prof = docs["/profilez"]["last_capture"] or {}
+    rows = [k for k in prof.get("kernels", []) if k["kernel"] == "mandelbrot"]
+    dec = docs["/decisionz"]
+    mine = [r for r in dec["recent"] if (r.get("inputs") or {}).get("cid") == DEBUG_ID]
+    res = {"calls_scraped": {ep: len(c) for ep, c in st.items()}, "lane_series": lane_series,
+           "lanes": [ln["device"] for ln in status.get("lanes", [])], "shares": shares,
+           "profilez_rows": rows, "profilez_absent": prof.get("absent"),
+           "decision_rows": len(mine), "decision_kinds": sorted({r["kind"] for r in mine}),
+           "servez": docs["/servez"], "answered_after_close": run["answered_after_close"]}
+    if not lane_series:
+        raise AssertionError(f"debug server: /metrics names no ck_* series of lane {lanes - 1}")
+    if len(status.get("lanes", [])) != lanes or not shares or sum(shares) == 0:
+        raise AssertionError(f"debug server: /statusz lanes {res['lanes']}, shares {shares}")
+    if on_card and (not rows or rows[0]["launches"] <= 0):
+        raise AssertionError(f"debug server: /profilez holds no mandelbrot row: {prof}")
+    if not on_card and not (rows or prof.get("absent")):
+        raise AssertionError(f"debug server: /profilez holds neither a row nor an absence: {prof}")
+    if not mine:
+        raise AssertionError("debug server: /decisionz holds none of the calls' decision rows")
+    if "A 8" not in docs["/servez"].get("error", ""):
+        raise AssertionError(f"debug server: /servez body {docs['/servez']}")
+    if docs["/healthz"].get("healthy") is not True:
+        raise AssertionError(f"debug server: /healthz {docs['/healthz']}")
+    if run["answered_after_close"]:
+        raise AssertionError("debug server: the port still answers after close")
+    return res
+
+
+def check_debug_server(ck, wl, gpus, ref_img: np.ndarray, W: int = 2048,
+                       max_iter: int = 256) -> dict:
+    """Phase 5h (c) on the card: two partition lanes, the main path's
+    mandelbrot 2048x2048x256."""
+    run = debug_server_run(ck, wl, gpus[0].as_partitions(2), ref_img, W, max_iter)
+    res = gate_debug_server(run, 2, on_card=True)
+    print(f"debug server at {run['url']}: {json.dumps(res)}")
+    return res
+
+
 def main() -> int:
     import torch
 
@@ -3074,6 +3514,11 @@ def main() -> int:
           f"{trace_res['trace_ms']:.4f}, by CUDA events {rows['emitter:mandelbrot']['event_ms']:.4f}, "
           f"by the profiler (kernels phase) {rows['emitter:mandelbrot']['ms']:.4f}")
 
+    phase("verify gate, checkpoint, debug server")
+    verify_res = check_verify_gate(ck, wl, gpus, mods, ref_img)
+    debug_res = check_debug_server(ck, wl, gpus, ref_img)
+    ckpt_res = check_checkpoint(wl, fa_op, card)
+
     phase("transformer forward")
     rows["flash_attention"]["launches"] = check_transformer(wl, fa_op, card)
 
@@ -3143,6 +3588,7 @@ def main() -> int:
           f"{REGISTRY.counter('ck_drain_total').value}")
     for row in DRAIN_ROWS:
         print(f"  drain decision rows: {json.dumps(row)}")
+    print(f"verify gate, checkpoint, debug server: {json.dumps({'verify': verify_res, 'checkpoint': {k: ckpt_res[k] for k in ('leaves', 'bf16_leaves', 'moments', 'max_rel')}, 'debug': {k: debug_res[k] for k in ('lane_series', 'decision_kinds', 'profilez_rows')}})}")
     print(f"phase seconds: {json.dumps(phase_seconds())}")
     print(card)
     print(json.dumps({"kernels": kernels}))

@@ -10,6 +10,10 @@ jump) fails it, although ``workloads._converged_at`` calls both settled.
 The enqueue phases' gates run their phases on host lanes at a small size:
 they pass the port, and fail a modelled premature D2H (a barrier that
 reads back) and a modelled lost update (a move without the flush).
+Phase 5h's gates run on host lanes too: the planted stencil (and its gate
+failing once the halo is gone), a checkpoint resume at a small width, and
+the debug server scraped during a workload (and its gate failing on a
+/servez that answers or a port that still answers after close).
 """
 
 from __future__ import annotations
@@ -694,3 +698,77 @@ def test_the_device_trace_gate_passes_a_drop_that_ran_past_the_leads(lost, leads
 def test_the_device_trace_gate_fails_a_mark_lost_otherwise(lost, leads):
     with pytest.raises(AssertionError, match="matched no kernel record"):
         chip_smoke.gate_trace_marks(_marks(), lost, leads, 12)
+
+
+# -- phase 5h: the verify gate, checkpoints and the debug server, on host lanes
+
+
+@pytest.fixture
+def _clean_planes(monkeypatch):
+    from tests.test_torch_metrics import restore_planes, save_planes
+
+    monkeypatch.delenv("CK_KERNEL_VERIFY", raising=False)
+    saved = save_planes()
+    yield
+    restore_planes(saved)
+
+
+def test_phase_5h_planted_stencil_gates_pass_on_host_lanes(_clean_planes):
+    import cekirdekler_tpu_torch as ck
+
+    res = chip_smoke.check_planted(ck, ck.all_devices().cpus(2), ck.all_devices().cpus(1),
+                                   4096)
+    assert res["split"] == [2048, 2048] and res["differs_at"] == res["boundary"] == [2047, 2048]
+    assert res["refused"] == "partial-read-halo" and len(res["kernel_verify_events"]) == 1
+
+
+def test_phase_5h_planted_stencil_gate_fails_without_the_halo(_clean_planes, monkeypatch):
+    """With the unsafe shape's flags made safe, the split run no longer
+    differs at the boundary and strict no longer refuses: the gate raises."""
+    import cekirdekler_tpu_torch as ck
+
+    monkeypatch.setattr(chip_smoke, "stencil_flags",
+                        lambda full: [dict(read_only=True), dict(write_only=True)])
+    with pytest.raises(AssertionError, match="strict mode ran|not exactly"):
+        chip_smoke.check_planted(ck, ck.all_devices().cpus(2), ck.all_devices().cpus(1), 4096)
+
+
+def test_phase_5h_stencil_host_is_the_kernel_s():
+    x = np.random.default_rng(0).standard_normal(257).astype(np.float32)
+    want = np.array([(x[i - 1] if i else np.float32(0)) + x[i]
+                     + (x[i + 1] if i < 256 else np.float32(0)) for i in range(257)],
+                    np.float32)
+    assert chip_smoke.stencil_host(x).tobytes() == want.tobytes()
+
+
+def test_phase_5h_checkpoint_resume_on_the_cpu(_clean_planes):
+    import torch
+
+    from cekirdekler_tpu_torch import workloads as wl
+    from cekirdekler_tpu_torch.models import TransformerConfig
+
+    cfg = TransformerConfig(vocab=64, d_model=32, n_layers=2, n_heads=2, d_ff=64, max_seq=64,
+                            param_dtype=torch.bfloat16)
+    tokens = torch.from_numpy(np.random.default_rng(3).integers(0, 64, (2, 33)))
+    res = chip_smoke.checkpoint_resume(wl, cfg, tokens, 2, device="cpu")
+    assert res["differ"] == [] and res["leaves"] == res["loaded"]
+    assert res["bf16_leaves"] > 0 and res["moments"] == 2 * (2 + 6 * cfg.n_layers)
+    assert all(abs(a - b) <= 1e-3 * abs(a) for a, b in zip(res["losses"], res["resumed"]))
+
+
+def test_phase_5h_debug_server_gates_pass_on_host_lanes(_clean_planes):
+    import cekirdekler_tpu_torch as ck
+    from cekirdekler_tpu_torch import workloads as wl
+
+    W, it = 64, 32
+    ref_img = wl.mandelbrot_host(W, W, -2.0, -1.25, 2.5 / W, 2.5 / W, it)
+    run = chip_smoke.debug_server_run(ck, wl, ck.all_devices().cpus(2), ref_img, W, it,
+                                      calls=10)
+    res = chip_smoke.gate_debug_server(run, 2, on_card=False)
+    assert res["decision_rows"] > 0 and "load-balance" in res["decision_kinds"]
+    assert run["answered_after_close"] is False
+    broken = dict(run, statuses=dict(run["statuses"], **{"/servez": [200]}))
+    with pytest.raises(AssertionError, match="/servez"):
+        chip_smoke.gate_debug_server(broken, 2, on_card=False)
+    with pytest.raises(AssertionError, match="after close"):
+        chip_smoke.gate_debug_server(dict(run, answered_after_close=True), 2, on_card=False)

@@ -38,7 +38,6 @@ from cekirdekler_tpu.trace import device as ref_dv
 from cekirdekler_tpu.trace import export as ref_export
 from cekirdekler_tpu.trace.spans import Span as RefSpan
 from cekirdekler_tpu.utils import timeline as ref_timeline
-from cekirdekler_tpu_torch.errors import NotPortedError
 from cekirdekler_tpu_torch.trace import attribution, export
 from cekirdekler_tpu_torch.trace import device as dv
 from cekirdekler_tpu_torch.trace.spans import Span
@@ -213,8 +212,24 @@ def test_unified_trace_and_its_split_are_the_reference_s(seed, tmp_path):
 
 
 def test_unified_trace_refuses_request_tracks_until_reqtrace_is_ported():
-    with pytest.raises(NotPortedError, match="A 5"):
-        dv.unified_chrome_trace([], None, req_events=[{"rid": "r1"}])
+    """``obs/reqtrace.py`` is ported: request events merge as the
+    reference merges them (per-rid ``ck-req`` tracks after the host and
+    device events), and the split leaves them out of the host spans."""
+    t0 = 1000.0
+    req = [{"t": t0, "rid": "r1", "kind": "admitted", "fields": {"wait_s": 0.002}},
+           {"t": t0 + 0.001, "rid": "r1", "kind": "queued", "fields": {}},
+           {"t": t0 + 0.004, "rid": "r1", "kind": "resolved", "fields": {"latency_s": 0.006}},
+           {"t": t0 + 0.0005, "rid": "r2", "kind": "admitted", "fields": {}},
+           {"t": t0 + 0.003, "rid": "r2", "kind": "failed", "fields": {"tenant": "a"}}]
+    spans = [Span("enqueue", 1.0, 1.5, 7, 0, "k")]
+    ref_spans = [RefSpan("enqueue", 1.0, 1.5, 7, 0, "k")]
+    mine = dv.unified_chrome_trace(spans, None, req_events=req)
+    ref = ref_dv.unified_chrome_trace(ref_spans, None, req_events=req)
+    assert mine["traceEvents"][-len(req) - 3:] == ref["traceEvents"][-len(req) - 3:]
+    tracks = [e for e in mine["traceEvents"] if e.get("cat") == "ck-req"]
+    assert [e["name"] for e in tracks] == ["admitted", "queued", "resolved", "failed"]
+    m_spans, m_ops = dv.split_unified_trace(mine)
+    assert [s.kind for s in m_spans] == ["enqueue"] and m_ops == []
 
 
 @pytest.mark.parametrize("seed", range(6))

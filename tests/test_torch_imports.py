@@ -151,3 +151,50 @@ def test_chip_smoke_alone_fails_without_result(tmp_path):
                           capture_output=True, text=True, timeout=240)
     assert proc.returncode != 0
     assert '"ok"' not in proc.stdout
+
+
+OBS_SLICE = ("analysis", "analysis.model", "obs.reqtrace", "obs.debugserver",
+             "utils.checkpoint", "tools.ckprove")
+
+
+@pytest.mark.parametrize("name", OBS_SLICE)
+def test_observability_slice_modules_are_scanned(name):
+    """The verifier, the model checker, request tracing, the debug server,
+    checkpoints and the ckprove CLI are among the scanned files and import
+    no JAX and nothing of the JAX package."""
+    parts = name.split(".")
+    path = PORT.joinpath(*parts[:-1], parts[-1] + ".py")
+    if not path.is_file():
+        path = PORT.joinpath(*parts, "__init__.py")
+    assert path in FILES
+    assert not any(_forbidden(m) for m in _imported_names(path))
+    assert _relative_escapes(path) == []
+
+
+_SLICE_CHILD = r"""
+import importlib, sys
+
+class Block:
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in ("jax", "jaxlib", "cekirdekler_tpu"):
+            raise ImportError(f"blocked import of {name}")
+        return None
+
+sys.meta_path.insert(0, Block())
+for name in sys.argv[1:]:
+    importlib.import_module("cekirdekler_tpu_torch." + name)
+from cekirdekler_tpu_torch.analysis import model
+model.check_machine("drain", quick=True)
+from cekirdekler_tpu_torch.tools import ckprove
+assert ckprove.main([]) == 0
+leaked = sorted(k for k in sys.modules if k.split(".")[0] in ("jax", "jaxlib", "cekirdekler_tpu"))
+assert not leaked, leaked
+print("SLICE OK")
+"""
+
+
+def test_observability_slice_runs_with_jax_blocked():
+    proc = subprocess.run([sys.executable, "-c", _SLICE_CHILD, *OBS_SLICE], cwd=ROOT,
+                          env=_child_env(), capture_output=True, text=True, timeout=240)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert "SLICE OK" in proc.stdout and "ckprove: clean" in proc.stdout

@@ -120,8 +120,14 @@ at :meth:`serve_debug`, or at the first ``Cores`` of a process when
 ``CK_DEBUG_PORT`` names a fixed port > 0 (a bad or busy port records a
 ``debug-port-skipped`` flight event), and closes at :meth:`dispose`.
 
-Not ported yet (queued in ROADMAP.md): the compile cache and ``warmup``
-(with its ``cache-warmup`` record) and ``dispatch_gate``.
+The compile cache (``core/compilecache.py``), as the reference's:
+:meth:`warmup` builds and runs a plan's whole ladders before traffic
+(``warm_from_disk`` feeds it the specs kept on disk), a window's
+engagement records its spec when ``CK_COMPILE_CACHE`` is set
+(:meth:`_cache_record_engaged`), and :meth:`compute_fused_batch` then
+reports the batch's cache hits and misses.
+
+Not ported yet (queued in ROADMAP.md): ``dispatch_gate``.
 """
 
 from __future__ import annotations
@@ -165,8 +171,10 @@ from .balance import (
     per_iteration_benches,
     prior_split,
 )
+from .compilecache import CACHE as COMPILE_CACHE
+from .compilecache import WarmupSpec, probe_counts
 from .stream import TransferTuner, chunk_plan
-from .worker import PIPE_QUEUES, Worker, _ladder, _pinned
+from .worker import PIPE_QUEUES, Worker, _pinned, launch_ladder
 
 __all__ = ["Cores", "ComputePerf", "job_signature", "PIPELINE_DRIVER", "PIPELINE_EVENT",
            "STREAMED"]
@@ -237,6 +245,11 @@ class Cores:
         devices.require_nonempty("Cores device selection")
         self.devices = devices
         self.program = program
+        # the compile cache armed at construction, so every library this
+        # process builds lands in its library layer, the per-call launches
+        # before a window engages included; nothing unless CK_COMPILE_CACHE
+        if COMPILE_CACHE.enabled:
+            COMPILE_CACHE.arm()
         self.workers = [Worker(d.torch_device, i) for i, d in enumerate(devices)]
         # each lane's kind and its table-derived rate prior: a mixed
         # GPU + host-CPU fleet seeds its first split from these
@@ -761,7 +774,7 @@ class Cores:
         tuner_key = self._tuner_kernel_key(kernel_names, value_args) if key_bytes else None
         measuring, tuner_key = self._measuring(w, tuner_key, key_bytes)
         if measuring:
-            self._build_launchers(w, kernel_names, _ladder(size, local_range), local_range,
+            self._build_launchers(w, kernel_names, launch_ladder(size, local_range), local_range,
                                   global_range)
         on_card = measuring and w.stream is not None
         marks: list = []
@@ -1067,7 +1080,7 @@ class Cores:
                    if (up_parts and ki == 0) or (down_parts and ki == last)]
         self._build_launchers(w, chunked, [csz for _off, csz in plan], local_range,
                               global_range)
-        self._build_launchers(w, [n for n in names if n not in chunked], _ladder(size, step),
+        self._build_launchers(w, [n for n in names if n not in chunked], launch_ladder(size, step),
                               local_range, global_range)
         _tt = TRACER.t0()
         t_phase0 = time.perf_counter()
@@ -1432,6 +1445,10 @@ class Cores:
             self._note_disengage(refused, compute_id)
             return
         FLIGHT.event("fused-engage", cid=compute_id, rows=len(rows))
+        # an engaged window's spec is what another process would warm: kept
+        # here, once a key a process (engagement is cold, never a deferral)
+        if COMPILE_CACHE.enabled:
+            self._cache_record_engaged(run)
         if DECISIONS.enabled:
             # provenance, not replayable: the engage check reads live
             # residency
@@ -1601,7 +1618,9 @@ class Cores:
         the iterations applied before it; its residue is ``clean`` only when
         an injected fault refused it at a preflight, before anything of it
         was queued.  With the fault plane armed, each per-call iteration
-        preflights every lane first."""
+        preflights every lane first.  With the compile cache armed, the
+        result adds ``cache_hits`` and ``cache_misses``: the cache probes
+        the batch made (a window that engaged on a missed key)."""
         iters = int(iters)
         if iters < 1:
             raise ComputeValidationError(f"compute_fused_batch needs iters >= 1, got {iters}")
@@ -1611,6 +1630,9 @@ class Cores:
                 "batch contract)")
         sig = job_signature(kernel_names, params, compute_id, global_range, local_range,
                             global_offset, value_args)
+        probe_cache = COMPILE_CACHE.enabled
+        if probe_cache:
+            hits0, misses0 = probe_counts()
         done = ladder = 0
         try:
             while done < iters:
@@ -1636,8 +1658,188 @@ class Cores:
             raise FusedBatchError(cause=cause, applied_iters=done, requested_iters=iters,
                                   clean=bool(getattr(e, "_ck_clean_window", False)),
                                   original=e) from e
-        return {"iters": iters, "fused": ladder > 0, "ladder_iters": ladder,
-                "per_call_iters": iters - ladder}
+        out = {"iters": iters, "fused": ladder > 0, "ladder_iters": ladder,
+               "per_call_iters": iters - ladder}
+        if probe_cache:
+            hits1, misses1 = probe_counts()
+            out["cache_hits"] = hits1 - hits0
+            out["cache_misses"] = misses1 - misses0
+        return out
+
+    # -- warmup and the compile cache (core/compilecache.py) ------------------
+    def _warm_targets(self) -> list[tuple]:
+        """The distinct ``(platform, device_kind, device)`` of the lanes:
+        every launcher key variant the live path can ask for.  ``platform``
+        is the lane's ``device.type``, exactly what ``Worker.launch_fused``
+        and ``Worker.launch`` pass: a warmed key that differs from the live
+        one in any part warms nothing.  Each device is its own target, as
+        each loads its own modules."""
+        seen: dict = {}
+        for w, d in zip(self.workers, self.devices):
+            seen.setdefault((w.device.type, d.kind, w.device), w)
+        return [(p, k, dev) for (p, k, dev) in seen]
+
+    @staticmethod
+    def _torch_dtype(dtype: str) -> torch.dtype:
+        """The torch dtype of a param's numpy dtype name (as a lane's
+        buffer of that param has it)."""
+        import numpy as np
+
+        return torch.from_numpy(np.empty(0, np.dtype(dtype))).dtype
+
+    def warmup(self, plan) -> dict:
+        """Build and run a plan's whole predicated ladders before traffic
+        arrives (reference ``Cores.warmup``).
+
+        ``plan`` is an iterable of :class:`~.compilecache.WarmupSpec`, or
+        of objects with the job surface (``kernels``, ``params``,
+        ``global_range``, ``local_range``, ``values``; the params are read
+        for size and dtype, never run on).  A duplicate is warmed once; a
+        spec whose kernels the program lacks, whose range is no multiple
+        of its local range or which has fewer params than a kernel's arrays
+        is skipped.  For each spec and each lane target
+        (:meth:`_warm_targets`) this builds, under the keys the live path
+        asks for:
+
+        - the fused ladder (``KernelProgram.fused_launcher`` with the live
+          window's arguments), and
+        - every per-chunk launcher ``step << k`` up to the global range
+          (any split's ladder is a subset),
+
+        and runs each once on zero-filled scratch tensors on the target's
+        device (on the lane's stream, then synchronized).  The run matters
+        on the card: it builds or loads each library and loads its CUDA
+        module (the emitter's forms are separate ``__global__`` functions,
+        loaded at their first launch, so every chunk runs), and the first
+        live launch pays for neither.  A ``@kernel`` over ``csrc/``
+        (``workloads.mandelbrot_cuda_kernel``) runs like any other
+        launcher.  No CUDA graph is captured: a graph holds the live
+        buffers' addresses, so a lane captures its own at a key's second
+        live run (``kernel/graphs.py``).
+
+        With ``CK_COMPILE_CACHE`` set, each spec's key is looked up
+        (counted as a hit or a miss) and a missed one is recorded for
+        other processes; unset, the disk is never touched and the results
+        are the same bit for bit.  One ``cache-warmup`` flight event and
+        one context decision record each plan.  Returns ``{"warmed",
+        "hits", "misses", "skipped", "wall_s", "kinds"}``."""
+        t0 = time.perf_counter()
+        armed = COMPILE_CACHE.enabled
+        if armed:
+            COMPILE_CACHE.arm()
+        specs: list[tuple[WarmupSpec, tuple]] = []
+        seen_specs: set = set()
+        skipped = 0
+        for item in plan:
+            if isinstance(item, WarmupSpec):
+                spec = item
+            else:
+                try:
+                    spec = WarmupSpec.from_job(
+                        item.kernels, item.params, getattr(item, "compute_id", 0),
+                        item.global_range, item.local_range, getattr(item, "global_offset", 0),
+                        getattr(item, "values", ()))
+                except Exception:  # noqa: BLE001 - an unwarmable job shape
+                    skipped += 1
+                    continue
+            ident = (spec.kernels, spec.params, spec.global_range, spec.local_range,
+                     spec.values)
+            if ident in seen_specs:
+                continue
+            seen_specs.add(ident)
+            if (spec.local_range <= 0 or spec.global_range % spec.local_range != 0
+                    or not all(n in self.program for n in spec.kernels)
+                    or any(self.program.array_param_count(n) > len(spec.params)
+                           for n in spec.kernels)):
+                skipped += 1
+                continue
+            try:
+                dtypes = tuple(self._torch_dtype(d) for _n, d in spec.params)
+            except Exception:  # noqa: BLE001 - a dtype no lane buffer has
+                skipped += 1
+                continue
+            specs.append((spec, dtypes))
+
+        hits = misses = 0
+        keys: list[str] = []
+        kinds: dict[str, int] = {}
+        for spec, dtypes in specs:
+            step = spec.local_range
+            units = spec.global_range // step
+            vals = spec.value_args()
+            names = tuple(spec.kernels)
+            for platform, device_kind, device in self._warm_targets():
+                kinds[device_kind] = kinds.get(device_kind, 0) + 1
+                key = None
+                hit = False
+                if armed:
+                    key = COMPILE_CACHE.ladder_key(self.program, spec, platform, device_kind)
+                    keys.append(key)
+                    hit = COMPILE_CACHE.lookup(key)
+                stream = next(w.stream for w in self.workers if w.device == device)
+                with torch.cuda.stream(stream) if stream is not None else nullcontext():
+                    bufs = tuple(torch.zeros(n, dtype=dt, device=device)
+                                 for (n, _d), dt in zip(spec.params, dtypes))
+                    # the fused ladder, under the live window's key
+                    fn = self.program.fused_launcher(names, step, spec.global_range,
+                                                     spec.local_range, spec.global_range, vals,
+                                                     platform=platform)
+                    if fn is not None:
+                        bufs = tuple(fn(0, units, 1, bufs))
+                    # every per-call chunk the binary ladder can launch
+                    for name in dict.fromkeys(names):
+                        n_arr = self.program.array_param_count(name)
+                        va = tuple(vals.get(name, ()) if isinstance(vals, dict) else vals)
+                        for k in range(max(1, units.bit_length())):
+                            chunk = step << k
+                            if chunk > spec.global_range:
+                                break
+                            f2, _info = self.program.launcher(
+                                name, chunk, spec.local_range, spec.global_range, platform)
+                            out = f2(0, bufs[:n_arr], va)
+                            bufs = tuple(out) + bufs[n_arr:]
+                if stream is not None:
+                    stream.synchronize()
+                if armed:
+                    if hit:
+                        hits += 1
+                    else:
+                        misses += 1
+                        COMPILE_CACHE.record(key, spec, platform, device_kind)
+        wall_s = time.perf_counter() - t0
+        FLIGHT.event("cache-warmup", warmed=len(specs), hits=hits, misses=misses,
+                     skipped=skipped, wall_ms=round(wall_s * 1e3, 3), cache=armed,
+                     kinds=dict(kinds))
+        if DECISIONS.enabled:
+            # context, not replayable: it reads the cache on disk
+            DECISIONS.record("cache-warmup", {
+                "specs": [s.to_payload() for s, _dt in specs],
+                "cache_enabled": armed,
+                "cache_root": COMPILE_CACHE.root,
+            }, {
+                "warmed": len(specs), "hits": hits, "misses": misses,
+                "skipped": skipped, "keys": keys,
+                "wall_ms": round(wall_s * 1e3, 3), "kinds": dict(kinds),
+            })
+        return {"warmed": len(specs), "hits": hits, "misses": misses, "skipped": skipped,
+                "wall_s": wall_s, "kinds": dict(kinds)}
+
+    def _cache_record_engaged(self, run: _FusedRun) -> None:
+        """Keep an engaged window's spec, so other processes can warm it
+        from disk (the fleet's live signature mix is the cache's content).
+        Cold: at most one disk probe a key a process (``_seen``); best
+        effort, as every cache write."""
+        try:
+            spec = WarmupSpec.from_job(run.kernel_names, run.params, run.compute_id,
+                                       run.global_range, run.local_range, 0, run.value_args)
+            for platform, device_kind, _dev in self._warm_targets():
+                key = COMPILE_CACHE.ladder_key(self.program, spec, platform, device_kind)
+                if key in COMPILE_CACHE._seen:
+                    continue
+                if not COMPILE_CACHE.lookup(key, count=False):
+                    COMPILE_CACHE.record(key, spec, platform, device_kind)
+        except Exception:  # noqa: BLE001 - the cache is never load-bearing
+            pass
 
     # -- enqueue-mode sync (reference: flushLastUsedCommandQueue / finish) ----
     @staticmethod

@@ -85,7 +85,7 @@ import threading
 from dataclasses import dataclass
 
 from ..obs.decisions import DECISIONS
-from .worker import _ladder
+from .worker import launch_ladder
 
 __all__ = [
     "chunk_plan",
@@ -130,10 +130,10 @@ def chunk_plan(size: int, step: int, target: int) -> list[tuple[int, int]]:
     is reached."""
     if step <= 0 or size % step != 0:
         raise ValueError(f"size {size} must be a positive multiple of step {step}")
-    # the launcher's OWN decomposition (worker._ladder) is the starting
-    # plan — one source of truth for the geometry the executable cache
-    # is keyed on
-    sizes: list[int] = _ladder(size, step)
+    # the launcher's OWN decomposition (worker.launch_ladder) is the
+    # starting plan — one source of truth for the geometry the compile
+    # cache is keyed on
+    sizes: list[int] = launch_ladder(size, step)
     target = max(1, int(target))
     while len(sizes) < target:
         i = max(range(len(sizes)), key=lambda k: sizes[k])
@@ -155,7 +155,7 @@ def plan_signature(plan) -> str:
     descending chunk sizes joined with ``+`` (e.g. ``"4096+2048+512"``).
 
     Accepts :func:`chunk_plan` output (``[(offset, size), ...]``) or a
-    bare size list (``worker._ladder`` output).  This string is the
+    bare size list (``worker.launch_ladder`` output).  This string is the
     ``blocks`` component of kernel-profile store keys
     (``trace/device.ProfileStore``) — the same kernel at two chunk
     geometries is two different device-time stories, and launch marks

@@ -91,7 +91,7 @@ from ..trace.device import MARKS
 from ..trace.spans import TRACER
 from ..utils.faultinject import FAULTS
 
-__all__ = ["PIPE_QUEUES", "Worker"]
+__all__ = ["PIPE_QUEUES", "Worker", "launch_ladder"]
 
 #: the DRIVER engine's streams on a GPU lane: blob k runs on stream k mod 16
 PIPE_QUEUES = 16
@@ -109,6 +109,16 @@ def _ladder(size: int, step: int) -> list[int]:
             units -= bit
         bit >>= 1
     return out
+
+
+def launch_ladder(size: int, step: int) -> list[int]:
+    """The one decomposition every launch geometry's user shares: the
+    per-call dispatch (:meth:`Worker.launch`), the launchers a phase builds
+    before it is timed (``Cores._build_launchers``), the streamed chunk
+    planner (``core/stream.chunk_plan``) and the compile cache's key and
+    warmup (``core/compilecache``).  A second decomposition would warm keys
+    the live path never asks for."""
+    return _ladder(size, step)
 
 
 def _host_tensor(arr: ClArray) -> torch.Tensor:
@@ -874,7 +884,7 @@ class Worker:
             plan = list(names)
             for _ in range(repeats - 1):
                 plan += ([sync_kernel] if sync_kernel else []) + list(names)
-            ladder = _ladder(size, step)
+            ladder = launch_ladder(size, step)
             bufs = tuple(self._buffers[id(p)] for p in params)
             for name in plan:
                 va = tuple(value_args.get(name, ()) if isinstance(value_args, dict)

@@ -172,6 +172,23 @@ class KernelProgram:
         with self._lock:
             return sum(1 for k in self._cache if len(k) == 9 and k[0] == "fused")
 
+    def compiled_counts_by_platform(self) -> dict[str, int]:
+        """Distinct cached launchers per platform in their key (the lanes'
+        ``device.type``: ``"cuda"``, ``"cpu"``), fused ladders and per-chunk
+        launchers alike: a host lane joining a GPU lane grows only the
+        ``"cpu"`` count, and no kind ever rebuilds another's launchers."""
+        with self._lock:
+            out: dict[str, int] = {}
+            for k in self._cache:
+                if len(k) == 9 and k[0] == "fused":
+                    p = k[7]
+                elif len(k) == 5:
+                    p = k[4]
+                else:  # another key shape: never miscounted
+                    p = "?"
+                out[str(p)] = out.get(str(p), 0) + 1
+        return out
+
     def __contains__(self, name: str) -> bool:
         return name in self._c_kernels or name in self._py_kernels
 

@@ -12,7 +12,10 @@ name:
   64 calls and a barrier on one cruncher and the same arrays, per call and
   fused, beside 64 times the elementwise kernel's own time (CUDA events);
 - ``fresh``: the same saxpy on a new cruncher a run, 63 calls after a warm
-  call: the calls' host ms and the barrier's;
+  call: the calls' host ms and the barrier's.  With ``--warmup`` only
+  this measurement runs, per call and fused, each A B B A: a new cruncher
+  as above, then one that ``Cores.warmup`` warmed for the saxpy shape
+  first (its ms printed beside), twice, then one as above;
 - ``sync12``: mandelbrot 2048x2048x256 by both routes,
   ``readback="final"`` with a barrier every 12 calls, on one cruncher a
   route, per call and fused, in turns.
@@ -23,7 +26,7 @@ launches and no capture.  ``sync12`` warms each cruncher with one untimed
 run first.  Needs a CUDA device.  From the
 repository root::
 
-    python -m cekirdekler_tpu_torch.tools.fused_windows [--reps 2]
+    python -m cekirdekler_tpu_torch.tools.fused_windows [--reps 2] [--warmup]
 """
 
 from __future__ import annotations
@@ -129,15 +132,28 @@ def steady(gpus, dev, windows: int = 20) -> None:
               f"{kernel64:.3f} ms (CUDA events)", flush=True)
 
 
-def fresh(gpus, reps: int) -> None:
+def fresh(gpus, reps: int, warmup: bool = False) -> None:
     from .. import NumberCruncher, workloads
+    from ..core.compilecache import WarmupSpec
 
     n = 1 << 24
     out: dict = {}
-    for mode in ["per call", "fused", "fused", "per call"] * reps:
+    if warmup:
+        order = [(mode, warm) for mode in ("per call", "fused")
+                 for warm in (False, True, True, False)]
+    else:
+        order = [(mode, False) for mode in ("per call", "fused", "fused", "per call")]
+    for mode, warm in order * reps:
         x, y = _saxpy_arrays(n)
         with NumberCruncher(gpus, workloads.saxpy_kernel()) as cr:
             cr.fused_dispatch = mode != "per call"
+            label = mode
+            if warm:
+                t0 = time.perf_counter()
+                cr.cores.warmup([WarmupSpec.from_job(["saxpy"], [x, y], 1, n, 256, 0, (1.5,))])
+                label = f"{mode}, warmed"
+                out.setdefault(f"{label}: warmup ms", []).append(
+                    round((time.perf_counter() - t0) * 1e3, 3))
             cr.enqueue_mode = True
             x.next_param(y).compute(cr, 1, "saxpy", n, 256, values=(1.5,))
             cr.barrier()
@@ -148,7 +164,7 @@ def fresh(gpus, reps: int) -> None:
             cr.barrier()
             t2 = time.perf_counter()
             cr.enqueue_mode = False
-        out.setdefault(mode, []).append((round((t1 - t0) * 1e3, 3), round((t2 - t1) * 1e3, 3)))
+        out.setdefault(label, []).append((round((t1 - t0) * 1e3, 3), round((t2 - t1) * 1e3, 3)))
     print(f"fresh saxpy 2^24, a new cruncher a run, 63 calls after a warm call "
           f"(calls ms, barrier ms): {out}", flush=True)
 
@@ -174,6 +190,8 @@ def sync12(gpus, reps: int) -> None:
 def main(argv: list[str] | None = None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--reps", type=int, default=2, help="turns of fresh and sync12")
+    ap.add_argument("--warmup", action="store_true",
+                    help="only fresh, each mode A B B A against a cruncher warmed by Cores.warmup")
     args = ap.parse_args(argv)
 
     import torch
@@ -183,6 +201,9 @@ def main(argv: list[str] | None = None) -> int:
     gpus = all_devices().gpus().require_nonempty("a CUDA device").subset(1)
     dev = gpus[0].torch_device
     print(f"{_card()}; {torch.cuda.get_device_name(dev)}", flush=True)
+    if args.warmup:
+        fresh(gpus, args.reps, warmup=True)
+        return 0
     capture_costs(dev)
     steady(gpus, dev)
     fresh(gpus, args.reps)

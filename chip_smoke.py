@@ -180,6 +180,21 @@ Phases, each of which raises on failure (the script then exits non-zero):
    ``/profilez`` the emitted mandelbrot's row of the capture,
    ``/decisionz`` the calls' decision rows), ``/servez`` answers 501, and
    after ``close`` the port no longer answers;
+5i. the compile cache: (a) on a fresh cruncher on the GPU lane,
+   ``Cores.warmup`` of the emitted mandelbrot at 2048x2048x256 and then its
+   first enqueue-mode windows (``run_mandelbrot``, ``readback="final"``,
+   ``sync_every=12``), and the same for ``mandelbrot_cuda_kernel``: the
+   windows build no launcher (``compiled_count``, ``fused_compiled_count``),
+   run no compiler and load no library (``kernel/build.BUILDS``), the image
+   is exact against phase 3's reference image, and with the counts set to
+   0 before it the path launched its kernel; the emit-and-hash host ms of a
+   chunk's first launcher beside it; (b) ``tools/coldstart``'s three child
+   processes (cold, populate, warm) on n-body at n = 8192, local range 256,
+   over a temporary cache root: their velocities equal bit for bit, the
+   warm child's first batch builds no launcher and runs no compiler,
+   populate left an entry and a library under ``<root>/lib``, each child's
+   n-body launched on the card; the three first batches' and the steady
+   batches' ms printed with the card's name and power limit;
 6. transformer: the flagship transformer's forward at the default width
    (vocab 32000, d_model 512, 4 layers, 8 heads of 64, d_ff 2048, bf16,
    ``attention="flash"``, seeded random weights) on ``cuda:0``.  With every
@@ -3186,6 +3201,166 @@ def check_debug_server(ck, wl, gpus, ref_img: np.ndarray, W: int = 2048,
     return res
 
 
+# -- phase 5i: the compile cache ------------------------------------------------
+
+
+def warm_first_window(ck, wl, lanes, source, ref_img: np.ndarray, W: int = 2048,
+                      max_iter: int = 256) -> dict:
+    """Phase 5i (a) for one mandelbrot source: a fresh cruncher on ``lanes``,
+    ``Cores.warmup`` of the W x W x ``max_iter`` shape, then its first
+    enqueue-mode windows.  Returns the counts before and after the windows
+    (launchers, fused ladders, ``BUILDS``), the launches the path made, the
+    warmup's result and whether the image is exact."""
+    from types import SimpleNamespace
+
+    from cekirdekler_tpu_torch.core.compilecache import WarmupSpec
+    from cekirdekler_tpu_torch.kernel import build, cuda_backend
+    from cekirdekler_tpu_torch.ops import mandelbrot as mandel_op
+
+    n = W * W
+    vals = (-2.0, -1.25, 2.5 / W, 2.5 / W, W, max_iter)
+    for counter in (cuda_backend.LAUNCHES, mandel_op.LAUNCHES):
+        counter.reset()
+    with ck.NumberCruncher(lanes, source) as cr:
+        prog = cr.cores.program
+
+        def counts() -> tuple:
+            return (prog.compiled_count, prog.fused_compiled_count, dict(build.BUILDS.by_key),
+                    prog.compiled_counts_by_platform())
+
+        at_start = counts()
+        t0 = time.perf_counter()
+        out = SimpleNamespace(size=n, dtype="float32")
+        warmed = cr.cores.warmup([WarmupSpec.from_job(["mandelbrot"], [out], 7001, n, 256, 0,
+                                                      vals)])
+        warm_s = time.perf_counter() - t0
+        before = counts()
+        t0 = time.perf_counter()
+        r = wl.run_mandelbrot(None, W, W, max_iter, local_range=256, keep_image=True,
+                              readback="final", sync_every=12, cruncher=cr)
+        window_s = time.perf_counter() - t0
+        after = counts()
+    return {"warmup": warmed, "warm_s": warm_s, "window_s": window_s,
+            "at_start": at_start, "before": before, "after": after,
+            "exact": bool(np.array_equal(r.image.ravel(), ref_img)),
+            "launches": {"emitted": cuda_backend.LAUNCHES.by_key.get("mandelbrot", 0),
+                         "mandelbrot.cu": mandel_op.LAUNCHES.count}}
+
+
+def gate_warm_window(label: str, run: dict, kernel: str | None) -> None:
+    """Phase 5i (a)'s gates: warmup warmed the spec, the windows after it
+    built, compiled and loaded nothing, the image is exact, and ``kernel``
+    (a key of ``run["launches"]``; None on host lanes) launched."""
+    if run["warmup"]["warmed"] != 1:
+        raise AssertionError(f"compile cache ({label}): warmup warmed {run['warmup']}")
+    if run["before"] != run["after"]:
+        raise AssertionError(f"compile cache ({label}): the first windows after warmup built "
+                             f"or loaded something: (launchers, fused ladders, builds, by "
+                             f"platform) {run['before']} -> {run['after']}")
+    if not run["exact"]:
+        raise AssertionError(f"compile cache ({label}): the image differs from the reference")
+    if kernel is not None and run["launches"][kernel] <= 0:
+        raise AssertionError(f"compile cache ({label}): {kernel} never launched: "
+                             f"{run['launches']}")
+
+
+def gate_coldstart(trio: dict, on_card: bool) -> None:
+    """Phase 5i (b)'s gates over ``tools/coldstart.trio``'s result: no child
+    failed, the three velocity hashes agree, the warm child's warmup hit
+    and its first batch built no launcher and ran no compiler, populate left
+    an entry, and on the card a library under ``<root>/lib`` and n-body
+    launches in every child."""
+    for mode in ("cold", "populate", "warm"):
+        if "error" in trio[mode]:
+            raise AssertionError(f"coldstart: the {mode} child failed: {trio[mode]['error']}")
+    if not trio["exact"]:
+        raise AssertionError("coldstart: the three children's velocities differ: "
+                             f"{[trio[m].get('digest') for m in ('cold', 'populate', 'warm')]}")
+    warm = trio["warm"]
+    first = warm["first_batch"]
+    if first.get("compile", 0) or first.get("launchers", 0):
+        raise AssertionError(f"coldstart: the warm child's first batch compiled: {first}")
+    if warm["warm"]["hits"] < 1 or warm["warm"]["misses"]:
+        raise AssertionError(f"coldstart: the warm child's warmup missed: {warm['warm']}")
+    if trio["entries"] < 1:
+        raise AssertionError("coldstart: populate wrote no entry")
+    if on_card:
+        if trio["libraries"] < 1:
+            raise AssertionError("coldstart: populate left no library under <root>/lib")
+        for mode in ("cold", "populate", "warm"):
+            if trio[mode].get("launches", {}).get("nBody", 0) <= 0:
+                raise AssertionError(f"coldstart: n-body never launched on the card in the "
+                                     f"{mode} child: {trio[mode].get('launches')}")
+
+
+def emit_hash_ms(cuda_backend, kdef, dev, reps: int = 20) -> float:
+    """Median host ms of a new ``_CudaKernel``'s ``entry`` for an already
+    loaded library: the emit, the hash and the lookup that every launch
+    geometry's first launch pays (``build_kernel_fn_cuda`` makes one a
+    geometry)."""
+    import torch
+
+    probe = cuda_backend._CudaKernel(kdef)
+    storage = probe.storage_of([torch.zeros(1, device=dev)] * len(probe.arrays))
+    probe.entry(storage)
+    walls = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        cuda_backend._CudaKernel(kdef).entry(storage)
+        walls.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(walls))
+
+
+def check_compile_cache(ck, wl, gpus, programs: dict, ref_img: np.ndarray, card: str) -> dict:
+    """Phase 5i on the card: (a) and (b) of the docstring."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from cekirdekler_tpu_torch.kernel import cuda_backend
+    from cekirdekler_tpu_torch.tools import coldstart
+
+    out: dict = {}
+    for label, source, kernel in (("C-subset", wl.MANDELBROT_SRC, "emitted"),
+                                  ("hand kernel", wl.mandelbrot_cuda_kernel(), "mandelbrot.cu")):
+        run = warm_first_window(ck, wl, gpus.subset(1), source, ref_img)
+        gate_warm_window(label, run, kernel)
+        print(f"compile cache ({label}): warmup {run['warmup']} in {run['warm_s']:.3f} s, then "
+              f"the first windows in {run['window_s']:.3f} s built nothing: (launchers, fused "
+              f"ladders, builds, by platform) at the start {run['at_start']}, after warmup "
+              f"{run['before']}, after the windows {run['after']}; launches {run['launches']}; "
+              f"image exact")
+        out[label] = {"warm_s": run["warm_s"], "window_s": run["window_s"],
+                      "launches": run["launches"]}
+    dev = gpus[0].torch_device
+    out["emit_hash_ms"] = {name: emit_hash_ms(cuda_backend, programs[name], dev)
+                           for name in ("mandelbrot", "nBody")}
+    print(f"emit and hash of a new launch geometry's kernel, the library loaded (median of "
+          f"20, host ms): {out['emit_hash_ms']} on {card}")
+    root = tempfile.mkdtemp(prefix="ck_coldstart_")
+    try:
+        trio = coldstart.trio(root, n=8192, local_range=256, iters=4, timeout=180.0)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    for mode in ("cold", "populate", "warm"):
+        print(f"coldstart {mode}: {json.dumps(trio[mode])}")
+    gate_coldstart(trio, on_card=True)
+    out["coldstart"] = {m: {"first_batch_ms": trio[m]["first_batch_ms"],
+                            "steady_batch_ms": trio[m]["steady_batch_ms"],
+                            "first_batch": trio[m]["first_batch"]}
+                        for m in ("cold", "populate", "warm")}
+    out["coldstart"]["warmup_ms"] = trio["warm"]["warmup_ms"]
+    print(f"coldstart n-body 8192 (local 256, 4 iterations a batch), first batch ms cold "
+          f"{trio['cold']['first_batch_ms']:.3f}, populate {trio['populate']['first_batch_ms']:.3f}, "
+          f"warm {trio['warm']['first_batch_ms']:.3f} (after warm_from_disk "
+          f"{trio['warm']['warmup_ms']:.3f}); steady ms {trio['cold']['steady_batch_ms']:.3f} / "
+          f"{trio['populate']['steady_batch_ms']:.3f} / {trio['warm']['steady_batch_ms']:.3f}; "
+          f"populate left {trio['entries']} entries, {trio['libraries']} libraries; exact; "
+          f"{torch.cuda.get_device_name(0)}; {card}")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -3519,6 +3694,9 @@ def main() -> int:
     debug_res = check_debug_server(ck, wl, gpus, ref_img)
     ckpt_res = check_checkpoint(wl, fa_op, card)
 
+    phase("5i compile cache")
+    cache_res = check_compile_cache(ck, wl, gpus, programs, ref_img, card)
+
     phase("transformer forward")
     rows["flash_attention"]["launches"] = check_transformer(wl, fa_op, card)
 
@@ -3589,6 +3767,7 @@ def main() -> int:
     for row in DRAIN_ROWS:
         print(f"  drain decision rows: {json.dumps(row)}")
     print(f"verify gate, checkpoint, debug server: {json.dumps({'verify': verify_res, 'checkpoint': {k: ckpt_res[k] for k in ('leaves', 'bf16_leaves', 'moments', 'max_rel')}, 'debug': {k: debug_res[k] for k in ('lane_series', 'decision_kinds', 'profilez_rows')}})}")
+    print(f"compile cache: {json.dumps(cache_res)}")
     print(f"phase seconds: {json.dumps(phase_seconds())}")
     print(card)
     print(json.dumps({"kernels": kernels}))

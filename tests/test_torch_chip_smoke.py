@@ -14,6 +14,10 @@ Phase 5h's gates run on host lanes too: the planted stencil (and its gate
 failing once the halo is gone), a checkpoint resume at a small width, and
 the debug server scraped during a workload (and its gate failing on a
 /servez that answers or a port that still answers after close).
+Phase 5i's gates: warmup then the first windows on a host lane (and the
+gate failing once warmup builds nothing), and the coldstart trio's gate
+over hand-made trios (refusing a warm child that compiled, an inexact
+trio, a missing library and the rest).
 """
 
 from __future__ import annotations
@@ -772,3 +776,90 @@ def test_phase_5h_debug_server_gates_pass_on_host_lanes(_clean_planes):
         chip_smoke.gate_debug_server(broken, 2, on_card=False)
     with pytest.raises(AssertionError, match="after close"):
         chip_smoke.gate_debug_server(dict(run, answered_after_close=True), 2, on_card=False)
+
+
+# -- phase 5i: the compile cache, on host lanes and over hand-made trios
+
+
+@pytest.mark.parametrize("hand", [False, True], ids=["C-subset", "hand kernel"])
+def test_phase_5i_warm_window_gate_passes_on_host_lanes(hand):
+    import cekirdekler_tpu_torch as ck
+    from cekirdekler_tpu_torch import workloads as wl
+
+    W, it = 64, 32
+    ref_img = wl.mandelbrot_host(W, W, -2.0, -1.25, 2.5 / W, 2.5 / W, it)
+    source = wl.mandelbrot_cuda_kernel() if hand else wl.MANDELBROT_SRC
+    run = chip_smoke.warm_first_window(ck, wl, ck.all_devices().cpus(1), source, ref_img, W, it)
+    chip_smoke.gate_warm_window("host", run, None)
+    assert run["before"][0] > 0 and run["before"] == run["after"]
+
+
+def test_phase_5i_warm_window_gate_fails_when_warmup_builds_nothing(monkeypatch):
+    """With warmup a stub that builds nothing, the first windows build the
+    launchers: the gate refuses."""
+    import cekirdekler_tpu_torch as ck
+    from cekirdekler_tpu_torch import workloads as wl
+    from cekirdekler_tpu_torch.core.cores import Cores
+
+    monkeypatch.setattr(Cores, "warmup", lambda self, plan: {"warmed": 1})
+    W, it = 64, 32
+    ref_img = wl.mandelbrot_host(W, W, -2.0, -1.25, 2.5 / W, 2.5 / W, it)
+    run = chip_smoke.warm_first_window(ck, wl, ck.all_devices().cpus(1), wl.MANDELBROT_SRC,
+                                       ref_img, W, it)
+    with pytest.raises(AssertionError, match="built or loaded"):
+        chip_smoke.gate_warm_window("host", run, None)
+
+
+def _trio() -> dict:
+    """A trio as ``tools/coldstart.trio`` gives it on the card."""
+    child = {"digest": "8cd5d45651024215", "first_batch_ms": 100.0, "steady_batch_ms": 3.0,
+             "first_batch": {"launchers": 7, "compile": 0, "load": 1}, "launches": {"nBody": 8}}
+    warm = dict(child, first_batch={"launchers": 0, "compile": 0, "load": 0},
+                warm={"warmed": 1, "hits": 1, "misses": 0}, warmup_ms=70.0)
+    return {"cold": dict(child), "populate": dict(child), "warm": warm, "ok": True,
+            "exact": True, "entries": 1, "libraries": 1}
+
+
+def test_phase_5i_coldstart_gate_passes_a_sound_trio():
+    chip_smoke.gate_coldstart(_trio(), on_card=True)
+
+
+@pytest.mark.parametrize("fault, match", [
+    ("warm child compiled", "first batch compiled"),
+    ("warm child built a launcher", "first batch compiled"),
+    ("inexact", "differ"),
+    ("no library", "no library"),
+    ("no entry", "no entry"),
+    ("child failed", "failed"),
+    ("warmup missed", "warmup missed"),
+    ("no launch on the card", "never launched"),
+])
+def test_phase_5i_coldstart_gate_refuses(fault, match):
+    trio = _trio()
+    if fault == "warm child compiled":
+        trio["warm"]["first_batch"] = {"launchers": 0, "compile": 1, "load": 1}
+    elif fault == "warm child built a launcher":
+        trio["warm"]["first_batch"] = {"launchers": 1, "compile": 0, "load": 0}
+    elif fault == "inexact":
+        trio["exact"] = False
+        trio["warm"]["digest"] = "0" * 16
+    elif fault == "no library":
+        trio["libraries"] = 0
+    elif fault == "no entry":
+        trio["entries"] = 0
+    elif fault == "child failed":
+        trio["populate"] = {"mode": "populate", "error": "timeout after 180.0 s"}
+    elif fault == "warmup missed":
+        trio["warm"]["warm"] = {"warmed": 1, "hits": 0, "misses": 1}
+    else:
+        trio["cold"]["launches"] = {}
+    with pytest.raises(AssertionError, match=match):
+        chip_smoke.gate_coldstart(trio, on_card=True)
+
+
+def test_phase_5i_coldstart_gate_on_host_lanes_needs_no_library():
+    trio = _trio()
+    trio["libraries"] = 0
+    for mode in ("cold", "populate", "warm"):
+        trio[mode]["launches"] = {}
+    chip_smoke.gate_coldstart(trio, on_card=False)

@@ -127,7 +127,17 @@ engagement records its spec when ``CK_COMPILE_CACHE`` is set
 (:meth:`_cache_record_engaged`), and :meth:`compute_fused_batch` then
 reports the batch's cache hits and misses.
 
-Not ported yet (queued in ROADMAP.md): ``dispatch_gate``.
+The dispatch gate, as the reference's (ClUserEvent.cs with
+Worker.cs:487-557's synchronized start): while :attr:`dispatch_gate` holds
+a ``utils.events.UserEvent``, every lane of a call waits for it at the top
+of :meth:`_run_worker`, before it takes the lane's lock, so a held gate
+holds no lock and ``trigger()`` starts the lanes together.  The GPU-first
+issue order stays: the caller waits for the GPU lanes' ``issued`` and so
+for the gate too, and submits the host lanes after it fires.  A compute
+call is therefore issued from another thread than the one that triggers,
+as the reference asks.  A set gate keeps enqueue-mode calls off the fused
+windows: it breaks an open one (``mode-change``) and refuses to open one
+(``dispatch-gate``).
 """
 
 from __future__ import annotations
@@ -274,6 +284,8 @@ class Cores:
         self.fixed_compute_powers: list[float] | None = None
         self.repeat_count = 1
         self.repeat_sync_kernel: str | None = None
+        # host-gated dispatch: a UserEvent every lane of a call waits for
+        self.dispatch_gate = None
         self.last_compute_id: int | None = None
         self.enqueue_mode = False
         # I/O only: a call uploads and downloads and launches nothing
@@ -521,7 +533,8 @@ class Cores:
             if self._sig_equal(sig, run.sig):
                 # the mode toggles are cruncher state, not call identity
                 if (not self.fused_dispatch or self.no_compute_mode or self.repeat_count > 1
-                        or self.repeat_sync_kernel or self.trace_lanes):
+                        or self.repeat_sync_kernel or self.dispatch_gate is not None
+                        or self.trace_lanes):
                     with self._lock:
                         self._fused_candidate = None
                     self._fused_break("mode-change")
@@ -611,7 +624,8 @@ class Cores:
         # lowered kernels hold the interpreter lock between their torch
         # calls, and a GPU lane issuing beside one waits for it at every
         # call that releases the lock (its kernels then start late and its
-        # bench holds the wait)
+        # bench holds the wait).  A held dispatch gate holds this caller
+        # here too, before any host lane is submitted
         lanes = [i for i in range(self.num_devices) if ranges[i] > 0]
         gpu = [i for i in lanes if self.workers[i].stream is not None]
         host = [i for i in lanes if self.workers[i].stream is None]
@@ -699,6 +713,10 @@ class Cores:
                     local_range, global_range, value_args, write_all_owner, blobs: int = 1,
                     pipeline_type: int = PIPELINE_EVENT,
                     issued: threading.Event | None = None) -> None:
+        gate = self.dispatch_gate
+        if gate is not None:
+            # the synchronized start: held outside the lane's lock
+            gate.wait()
         with w.lock:
             w.issued = issued
             w.start_bench(compute_id)
@@ -1390,6 +1408,8 @@ class Cores:
         elif self.repeat_count > 1 or self.repeat_sync_kernel:
             # each call runs its repeats as one dispatch already
             reason = "repeat-mode"
+        elif self.dispatch_gate is not None:
+            reason = "dispatch-gate"
         elif self.trace_lanes:
             reason = "trace-lanes"
         else:
@@ -1592,7 +1612,8 @@ class Cores:
             run = self._fused_run
             if (run is None or not self._sig_equal(self._fused_sig, sig)
                     or not self.fused_dispatch or self.no_compute_mode or self.repeat_count > 1
-                    or self.repeat_sync_kernel or self.trace_lanes
+                    or self.repeat_sync_kernel or self.dispatch_gate is not None
+                    or self.trace_lanes
                     or run.compute_id in self._enqueue_rebalance
                     or any(w.coverage_epoch != ep for w, ep in run.epochs)):
                 return False

@@ -17,18 +17,22 @@ True, ``smooth_load_balancer`` True), ``no_compute_mode`` False,
 (stored; a lane's enqueued work is always asynchronous),
 ``fence_split`` False and ``pipeline_lookahead`` 2,
 :meth:`health_report` and :meth:`serve_debug` (the debug endpoints; also
-started by ``CK_DEBUG_PORT``).  Not ported: ``fine_grained_queue_control``
-(queue markers, ROADMAP Queue A 4), which reads False and raises
-:class:`NotPortedError` when set True, and ``dispatch_gate``.
+started by ``CK_DEBUG_PORT``), ``fine_grained_queue_control`` False (a
+``utils.markers.MarkerCounter`` a lane while on, read by
+:meth:`count_markers_remaining`, :meth:`count_markers_reached` and
+:meth:`marker_reach_speed`) and ``dispatch_gate`` None (a
+``utils.events.UserEvent`` that holds every lane of a call until it
+fires).
 """
 
 from __future__ import annotations
 
 from typing import Sequence
 
-from ..errors import CekirdeklerError, NotPortedError
+from ..errors import CekirdeklerError
 from ..hardware import AcceleratorType, Devices, devices_for_type
 from ..kernel.registry import KernelProgram, PythonKernel
+from ..utils.markers import MarkerCounter
 from .cores import Cores
 
 __all__ = ["NumberCruncher"]
@@ -280,12 +284,47 @@ class NumberCruncher:
 
     @property
     def fine_grained_queue_control(self) -> bool:
-        return False
+        """Queue markers on every lane (reference: ClNumberCruncher.cs:81-85,
+        356-372): each transfer and launch adds markers that reach when its
+        work retires on the lane (``core/worker.py``).  Setting it makes or
+        closes one counter a lane, under the lane's lock."""
+        return any(w.markers is not None for w in self.cores.workers)
 
     @fine_grained_queue_control.setter
     def fine_grained_queue_control(self, v: bool) -> None:
-        if v:
-            _not_ported("fine_grained_queue_control=True (queue markers)")
+        for w in self.cores.workers:
+            with w.lock:
+                if v and w.markers is None:
+                    w.markers = MarkerCounter()
+                elif not v and w.markers is not None:
+                    w.markers.close()
+                    w.markers = None
+
+    def count_markers_remaining(self) -> int:
+        """Markers added and not yet reached, over the lanes (the in-flight
+        depth)."""
+        return sum(w.markers.remaining() for w in self.cores.workers if w.markers is not None)
+
+    def count_markers_reached(self) -> int:
+        return sum(w.markers.reached for w in self.cores.workers if w.markers is not None)
+
+    def marker_reach_speed(self) -> float:
+        """Retired operations a second, the sum of the lanes' rates."""
+        return sum(w.markers.reach_speed() for w in self.cores.workers if w.markers is not None)
+
+    @property
+    def dispatch_gate(self):
+        """A ``utils.events.UserEvent`` or None (reference: ClUserEvent.cs
+        with Worker.cs:487-557's synchronized start): while one is set and
+        has not fired, every lane of a compute call waits for it before it
+        takes its lock, so ``trigger()`` starts them together.  Call the
+        compute from another thread than the one that triggers.  A set gate
+        keeps enqueue-mode calls off the fused windows (``dispatch-gate``)."""
+        return self.cores.dispatch_gate
+
+    @dispatch_gate.setter
+    def dispatch_gate(self, gate) -> None:
+        self.cores.dispatch_gate = gate
 
     def reset_errors(self) -> None:
         """Re-arm a cruncher after a compute failure."""
@@ -323,7 +362,3 @@ class NumberCruncher:
     def __exit__(self, *exc) -> None:
         self.dispose()
 
-
-def _not_ported(what: str) -> None:
-    raise NotPortedError(f"{what} is not ported to cekirdekler_tpu_torch yet "
-                         "(ROADMAP.md Queue A 4)")

@@ -68,6 +68,19 @@ preflight (and at a GPU lane's inline chunk dispatch, its submit), and
 per-compute-id completion probe of ``Cores.fence_split``: a GPU lane waits
 on a CUDA event recorded after the compute id's last launch, a host lane
 for the compute id's queued work (:meth:`mark_cid`).
+
+Queue markers (``NumberCruncher.fine_grained_queue_control``): while
+:attr:`Worker.markers` holds a ``MarkerCounter``, every transfer and
+launch adds markers, as the reference's sites do.  An upload, a staged
+upload, a plain-path download and a launch add theirs once issued, and
+reach them when the work retires: on a GPU lane at a CUDA event recorded
+behind it on the stream that carried it, on a host lane at once (the
+work ran on the calling thread).  A launch adds one marker per launcher
+call (a fused ladder or a CUDA-graph replay is one); a fused window's
+launch adds one.  A deferred download (:meth:`download_async`,
+:meth:`download_chunk_async`) adds its marker when issued and its handle
+reaches it when :meth:`finish_download` has landed it, a failed copy
+included.  :attr:`markers_by_site` counts the markers by site.
 """
 
 from __future__ import annotations
@@ -90,6 +103,7 @@ from ..obs.flight import FLIGHT
 from ..trace.device import MARKS
 from ..trace.spans import TRACER
 from ..utils.faultinject import FAULTS
+from ..utils.markers import MarkerCounter
 
 __all__ = ["PIPE_QUEUES", "Worker", "launch_ladder"]
 
@@ -171,21 +185,49 @@ class _Download:
         self.tag = tag
         self.fut = fut
         self.done = False
+        # the lane's marker counter while its marker is owed (None after)
+        self.markers: MarkerCounter | None = None
+
+    def synchronize(self) -> None:
+        """Wait until the device side of the copy has completed (no host
+        copy): the handle's join as a marker completion."""
+        if self.fut is not None:
+            self.fut.exception()
+        if self.event is not None:
+            self.event.synchronize()
 
     def finish(self) -> None:
         if self.done:
             return
         _tt = TRACER.t0()
-        if self.fut is not None:
-            self.fut.result()
-        if self.event is not None:
-            self.event.synchronize()
-        if self.slot is not None:
-            self.dst.copy_(self.src)
-            if self.slot.pending is self:
-                self.slot.pending = None
+        try:
+            if self.fut is not None:
+                self.fut.result()
+            if self.event is not None:
+                self.event.synchronize()
+            if self.slot is not None:
+                self.dst.copy_(self.src)
+                if self.slot.pending is self:
+                    self.slot.pending = None
+        finally:
+            # landed, or failed: either way the copy has retired
+            markers, self.markers = self.markers, None
+            if markers is not None:
+                markers.reach()
         self.done = True
         TRACER.record(self.kind, _tt, lane=self.lane, tag=self.tag)
+
+
+class _Marked:
+    """A :meth:`Worker.download_async` handle whose lane counts markers:
+    :meth:`Worker.finish_download` finishes ``handle`` and then reaches
+    the marker the download added."""
+
+    __slots__ = ("handle", "markers")
+
+    def __init__(self, handle, markers: MarkerCounter | None):
+        self.handle = handle
+        self.markers = markers
 
 
 class _Ring:
@@ -404,6 +446,14 @@ class Worker:
         # work (host lane), or True (its work ran inline)
         self.track_cid_outputs = False
         self._cid_last_out: dict[int, Any] = {}
+        # queue markers (reference: ClCommandQueue.cs:99-115): None unless
+        # the cruncher's fine_grained_queue_control set a counter, which it
+        # toggles only under the lane's lock, with no phase in flight
+        self.markers: MarkerCounter | None = None
+        # markers added, by site ("h2d", "launch", "d2h"); a host lane's
+        # queue thread and its caller add at once, so under _site_mu
+        self.markers_by_site: Counter = Counter()
+        self._site_mu = threading.Lock()
         # always-on metric handles, cached here: the lane label is static
         self._m_upload_bytes = REGISTRY.counter(
             "ck_upload_bytes_total", "H2D bytes uploaded", lane=index)
@@ -427,6 +477,36 @@ class Worker:
     def on_stream(self):
         """Context that makes this lane's stream current (no-op on host)."""
         return torch.cuda.stream(self.stream) if self.stream is not None else nullcontext()
+
+    def _add_markers(self, site: str, n: int = 1) -> MarkerCounter | None:
+        """Add ``n`` markers at ``site``; the lane's counter, or None when
+        markers are off."""
+        m = self.markers
+        if m is not None:
+            m.add(n)
+            with self._site_mu:
+                self.markers_by_site[site] += n
+        return m
+
+    def _mark(self, site: str, n: int = 1, stream=None, event=None) -> None:
+        """Add ``n`` markers for work just issued and reach them when it
+        retires: on a GPU lane at ``event`` (else one recorded now on
+        ``stream``, the current stream when None), on a host lane at once."""
+        m = self._add_markers(site, n)
+        if m is None:
+            return
+        if self.stream is None:
+            m.reach(n)
+            return
+        if event is None:
+            event = torch.cuda.Event()
+            event.record(stream if stream is not None else torch.cuda.current_stream(self.device))
+        m.reach_when_ready(event, n)
+
+    def _owe(self, handle: "_Download") -> "_Download":
+        """Add one marker for a deferred download; ``handle`` reaches it."""
+        handle.markers = self._add_markers("d2h")
+        return handle
 
     def issue(self, fn: Callable[[], Any]) -> None:
         """Run ``fn`` on this lane's stream without waiting for its work:
@@ -692,6 +772,7 @@ class Worker:
             nbytes = size_elems * host.element_size()
         if t0:
             self._slow_link("h2d", t0)
+        self._mark("h2d")
         self._m_upload_bytes.inc(nbytes)
         self.claim_upload(arr, offset_elems, size_elems, full)
         self.transfers["h2d", arr.name] += 1
@@ -739,6 +820,7 @@ class Worker:
             staged = (arr, offset_elems, size_elems, host.clone(), buf)
             if t0:
                 self._slow_link("h2d", t0)
+            self._mark("h2d")
             TRACER.record(kind, _tt, lane=self.index, tag=tag)
             return staged
         stream = stream or self.h2d_stream
@@ -757,6 +839,7 @@ class Worker:
             slot.event = done
         if t0:
             self._slow_link("h2d", t0)
+        self._mark("h2d", event=done)
         TRACER.record(kind, _tt, lane=self.index, tag=tag)
         return (arr, offset_elems, size_elems, done, buf)
 
@@ -795,7 +878,7 @@ class Worker:
                 fut = self._host_queue.submit(lambda: self._copy_down(arr, sl))
             else:
                 self._copy_down(arr, sl)
-            return _Download(None, lane=self.index, tag=arr.name, fut=fut)
+            return self._owe(_Download(None, lane=self.index, tag=arr.name, fut=fut))
         ready = torch.cuda.Event()
         ready.record(self.stream)
         return self._d2h(arr, sl, self.d2h_stream, ready, "download-chunk")
@@ -824,11 +907,11 @@ class Worker:
         if t0:
             self._slow_link("d2h", t0)
         if slot is None:
-            return _Download(done, lane=self.index, tag=arr.name, kind=kind)
+            return self._owe(_Download(done, lane=self.index, tag=arr.name, kind=kind))
         handle = _Download(done, slot, dst, host, lane=self.index, tag=arr.name, kind=kind)
         slot.event = done
         slot.pending = handle
-        return handle
+        return self._owe(handle)
 
     def _copy_down(self, arr: ClArray, sl: slice) -> None:
         """A host lane's D2H of one slice, where the lane's work runs."""
@@ -866,7 +949,9 @@ class Worker:
         the launch span.  Launches go on the current stream; ``stream`` is
         the one a GPU lane's graph replays on (the lane's stream when
         None).  With ``trace.device.MARKS`` on, a device-timeline mark
-        (``ck|k=...|c=...|l=...|s=...``) covers the dispatch."""
+        (``ck|k=...|c=...|l=...|s=...``) covers the dispatch.  With markers
+        on, a launch that succeeded adds one marker per launcher call, the
+        repeats' fused ladder one, reached when the last of them retires."""
         _tt = TRACER.t0()
         names = tuple(kernel_names)
         platform = self.device.type
@@ -878,6 +963,7 @@ class Worker:
                 if fn is not None:
                     self._ladder_call(program, names + ((sync_kernel,) if sync_kernel else ()),
                                       fn, (offset, size // step, repeats), params, stream)
+                    self._mark("launch", 1, stream=stream or self.stream)
                     TRACER.record("launch", _tt, cid=compute_id, lane=self.index,
                                   tag=f"{'+'.join(names)} x1")
                     return
@@ -902,8 +988,10 @@ class Worker:
         finally:
             if _dm is not None:  # closed even on a failed dispatch
                 MARKS.end(_dm)
+        dispatched = len(plan) * len(ladder)
+        self._mark("launch", dispatched)
         TRACER.record("launch", _tt, cid=compute_id, lane=self.index,
-                      tag=f"{'+'.join(names)} x{len(plan) * len(ladder)}")
+                      tag=f"{'+'.join(names)} x{dispatched}")
 
     def launch_fused(self, program: KernelProgram, kernel_names: Sequence[str],
                      params: Sequence[ClArray], value_args, offset: int, size: int,
@@ -912,7 +1000,9 @@ class Worker:
         """``iters`` iterations of the kernel sequence over this lane's range
         as one call of ``KernelProgram.fused_launcher`` (the fused window's
         dispatch, ``core/cores.py``; :meth:`_ladder_call`).  A window opens
-        only on hashable values, and its launcher was built when it opened."""
+        only on hashable values, and its launcher was built when it opened.
+        With markers on, one marker, added only once the dispatch
+        succeeded."""
         _tt = TRACER.t0()
         names = tuple(kernel_names)
         fn = program.fused_launcher(names, step, global_size, local_range, global_size,
@@ -924,6 +1014,7 @@ class Worker:
         finally:
             if _dm is not None:
                 MARKS.end(_dm)
+        self._mark("launch", 1, stream=self.stream)
         TRACER.record("launch", _tt, cid=compute_id, lane=self.index,
                       tag=f"fused:{'+'.join(names)} x{iters}")
 
@@ -932,7 +1023,14 @@ class Worker:
                  full: bool) -> None:
         """D2H of this lane's range (or the whole array) into the host
         array, issued on the current stream; :meth:`fence` waits for it
-        (the plain path fences once after its downloads)."""
+        (the plain path fences once after its downloads).  Its marker
+        reaches when the copy has completed."""
+        self._download(arr, offset_elems, size_elems, full)
+        self._mark("d2h")
+
+    def _download(self, arr: ClArray, offset_elems: int, size_elems: int,
+                  full: bool) -> None:
+        """:meth:`download` without its marker."""
         _tt = TRACER.t0()
         t0 = time.perf_counter() if FAULTS.enabled else 0.0
         buf = self._buffers[id(arr)]
@@ -958,28 +1056,39 @@ class Worker:
         GPU lane, ``stream`` moves the copy onto that stream, after the
         event ``after`` (None: in the stream's own order), through a
         staging slot for a pageable array (the pipelined engines' write
-        stage); a host lane has one order and ignores both."""
+        stage); a host lane has one order and ignores both.  With markers
+        on, the download adds one marker and its handle owes it."""
         if self.stream is not None and stream is not None:
             self.transfers["d2h", arr.name] += 1
             sl = slice(0, arr.size) if full else slice(offset_elems, offset_elems + size_elems)
             return self._d2h(arr, sl, stream, after, "download")
         if self.stream is not None:
             with self.on_stream():
-                self.download(arr, offset_elems, size_elems, full)
-                done = torch.cuda.Event()
-                done.record(self.stream)
-            return done
-        if self._host_queue is not None:
-            return self._host_queue.submit(
-                lambda: self.download(arr, offset_elems, size_elems, full))
-        self.download(arr, offset_elems, size_elems, full)
-        return None
+                self._download(arr, offset_elems, size_elems, full)
+                handle = torch.cuda.Event()
+                handle.record(self.stream)
+        elif self._host_queue is not None:
+            handle = self._host_queue.submit(
+                lambda: self._download(arr, offset_elems, size_elems, full))
+        else:
+            self._download(arr, offset_elems, size_elems, full)
+            handle = None
+        m = self._add_markers("d2h")
+        return handle if m is None else _Marked(handle, m)
 
     @staticmethod
     def finish_download(handle) -> None:
         """Block until a :meth:`download_async` or
-        :meth:`download_chunk_async` has landed in host memory."""
-        if isinstance(handle, Future):
+        :meth:`download_chunk_async` has landed in host memory; a handle
+        that owes a marker reaches it then, also when the copy failed."""
+        if isinstance(handle, _Marked):
+            try:
+                Worker.finish_download(handle.handle)
+            finally:
+                markers, handle.markers = handle.markers, None  # reached once
+                if markers is not None:
+                    markers.reach()
+        elif isinstance(handle, Future):
             handle.result()
         elif isinstance(handle, _Download):
             handle.finish()
@@ -1066,3 +1175,6 @@ class Worker:
             self.benchmarks.clear()
             self.transfer_benchmarks.clear()
             self._cid_last_out.clear()
+            if self.markers is not None:
+                self.markers.close()
+                self.markers = None

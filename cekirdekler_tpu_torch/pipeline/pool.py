@@ -19,9 +19,12 @@ Control tasks are the reference's private messages (ClPipeline.cs:3247-3321):
   a time, in order.
 
 Lanes can be added while pools run (reference: addDevice,
-ClPipeline.cs:4333-4390).  ``fine_grained_queue_control`` (the reference's
-throttle on queue markers, ClPipeline.cs:4899-4909) waits for the markers
-of ROADMAP Queue A 4 and is refused.
+ClPipeline.cs:4333-4390).  ``fine_grained_queue_control`` turns on each
+consumer's queue markers and throttles its claims on them: a consumer
+claims no task while its markers remaining reach ``queue_limit`` (the
+reference's ``markersRemaining() < queueLimit``, ClPipeline.cs:4899-4909).
+A marker reaches when its work retires on the lane (``utils/markers.py``),
+so the throttle bounds the device work in flight, not the host's issue.
 """
 
 from __future__ import annotations
@@ -30,12 +33,13 @@ import enum
 import itertools
 import queue
 import threading
+import time
 from dataclasses import dataclass, field, replace
 from typing import Callable, Sequence
 
 from ..arrays.clarray import ClArray, ParameterGroup
 from ..core.cruncher import NumberCruncher
-from ..errors import CekirdeklerError, NotPortedError
+from ..errors import CekirdeklerError
 from ..hardware import Device, Devices
 from ..metrics.registry import REGISTRY
 from ..trace.spans import TRACER
@@ -149,7 +153,9 @@ class ClTaskPool:
 class _Consumer(threading.Thread):
     """One lane's consumer (reference: DevicePoolThread): a cruncher of its
     own, greedy claims from the shared pipe and a queue of tasks pinned to
-    it (selected or broadcast)."""
+    it (selected or broadcast).  With the pool's
+    ``fine_grained_queue_control`` its cruncher counts markers, and
+    :meth:`_throttle` runs before every claim and every task."""
 
     def __init__(self, pool: "ClDevicePool", device: Device, index: int):
         super().__init__(daemon=True, name=f"ck-devpool-{index}")
@@ -157,11 +163,28 @@ class _Consumer(threading.Thread):
         self.index = index
         self.pinned: "queue.Queue[ClTask]" = queue.Queue()
         self.cruncher = NumberCruncher(Devices([device]), pool.kernel_source)
+        if pool.fine_grained_queue_control:
+            self.cruncher.fine_grained_queue_control = True
         self.tasks_done = 0
+        # the deepest marker-observed in-flight depth the throttle saw
+        self.max_inflight_seen = 0
         self._halt = threading.Event()
+
+    def _throttle(self) -> None:
+        """Wait, in 0.5 ms steps, while this lane's markers remaining reach
+        the pool's ``queue_limit``; ends on halt."""
+        if not self.pool.fine_grained_queue_control:
+            return
+        while not self._halt.is_set():
+            depth = self.cruncher.count_markers_remaining()
+            self.max_inflight_seen = max(self.max_inflight_seen, depth)
+            if depth < self.pool.queue_limit:
+                return
+            time.sleep(0.0005)
 
     def run(self) -> None:
         while not self._halt.is_set():
+            self._throttle()
             # claim up to the adaptive depth a wake (the reference's
             # pool-progress rule keeps the tail spread over the lanes)
             batch: list[ClTask] = []
@@ -179,6 +202,7 @@ class _Consumer(threading.Thread):
                     break
             for task in batch:
                 try:
+                    self._throttle()
                     self._execute(task)
                 except Exception as e:  # noqa: BLE001 - surfaced by finish()
                     self.pool._fail(e)
@@ -211,23 +235,23 @@ class ClDevicePool:
     thread that walks the queued task pools, acts on the control tasks and
     hands compute tasks to the shared pipe.  ``backpressure`` bounds the
     pipe (0: 8 slots a lane), so a storm of tasks cannot queue without
-    limit.  ``fine_grained_queue_control`` is refused until queue markers
-    are ported.  A context manager; :meth:`dispose` stops every thread."""
+    limit.  ``fine_grained_queue_control`` throttles each lane's claims on
+    its queue markers, at ``queue_limit`` markers in flight (at least 1);
+    :meth:`max_inflight_depth` is the deepest a lane was seen.  A context
+    manager; :meth:`dispose` stops every thread."""
 
     def __init__(self, devices: Devices, kernel_source,
                  pool_type: PoolType = PoolType.DEVICE_COMPUTE_AT_WILL,
                  max_queues_per_device: int = 4, fine_grained_queue_control: bool = False,
-                 backpressure: int = 0):
+                 queue_limit: int = 8, backpressure: int = 0):
         if pool_type is not PoolType.DEVICE_COMPUTE_AT_WILL:
             raise CekirdeklerError(
                 "only DEVICE_COMPUTE_AT_WILL is implemented (the reference's ROUND_ROBIN is "
                 "unimplemented there too, ClPipeline.cs:3792-3807)")
-        if fine_grained_queue_control:
-            raise NotPortedError(
-                "ClDevicePool(fine_grained_queue_control=True) throttles on queue markers, "
-                "which are not ported to cekirdekler_tpu_torch yet (ROADMAP.md Queue A 4)")
         self.kernel_source = kernel_source
         self.max_queues_per_device = max_queues_per_device
+        self.fine_grained_queue_control = bool(fine_grained_queue_control)
+        self.queue_limit = max(1, int(queue_limit))
         cap = backpressure if backpressure > 0 else 8 * max(1, len(devices))
         self._pipe: "queue.Queue[ClTask]" = queue.Queue(maxsize=cap)
         self._pools: "queue.Queue[ClTaskPool]" = queue.Queue()
@@ -276,6 +300,12 @@ class ClDevicePool:
 
     def tasks_done_per_device(self) -> list[int]:
         return [c.tasks_done for c in self._consumers]
+
+    def max_inflight_depth(self) -> int:
+        """The deepest marker-observed in-flight depth any lane reached:
+        with ``fine_grained_queue_control``, at most ``queue_limit`` plus
+        one task's markers."""
+        return max((c.max_inflight_seen for c in self._consumers), default=0)
 
     # -- accounting ----------------------------------------------------------
     def _dispatch_one(self) -> None:

@@ -21,6 +21,7 @@ balanced iterations in enqueue windows).  :func:`measure_stream_overlap`,
 :func:`overlap_chunk_sweep` and :func:`duplex_ceiling` measure the streamed
 transfers: the overlap they realize against the link's own duplex ceiling,
 and the tuner's chunk count against a sweep (``tools/overlap_sweep.py``).
+:func:`marker_overhead` is the host cost of queue markers per dispatch.
 """
 
 from __future__ import annotations
@@ -62,6 +63,7 @@ __all__ = [
     "measure_stream_overlap",
     "overlap_chunk_sweep",
     "duplex_ceiling",
+    "marker_overhead",
 ]
 
 # One pixel per work item; escape-iteration count written as float.
@@ -809,6 +811,55 @@ def dispatch_floor_sweep(devices: Devices | None = None, ks=(1, 8, 32, 128),
     k_max = max(ks)
     if (False, k_max) in per and (True, k_max) in per:
         out["floor_collapse_at_kmax"] = per[(False, k_max)] / max(per[(True, k_max)], 1e-9)
+    return out
+
+
+def marker_overhead(n: int = 4096, dispatches: int = 200) -> dict:
+    """Per-dispatch host time with queue markers off and on (reference
+    ``workloads.marker_overhead``; the reference's C# puts the cost of a
+    light kernel's markers at 2-3 -> 150-200 µs, ClNumberCruncher.cs:79).
+
+    A light kernel (a saxpy, ``x`` read only at ``[i]``, so partial reads)
+    is called ``dispatches`` times in enqueue mode on the CUDA devices, or
+    on one host lane where there is none; only the dispatch loop is timed,
+    and one barrier closes each loop.  Per toggle: 8 warm calls and a
+    barrier, then the best of 3 loops, per dispatch."""
+    src = """
+    __kernel void light(__global float* x, __global float* y, float a) {
+        int i = get_global_id(0);
+        y[i] = a * x[i] + y[i];
+    }
+    """
+    devs = all_devices().gpus()
+    if len(devs) == 0:
+        devs = all_devices().cpus(1)
+    x = ClArray(np.arange(n, dtype=np.float32), name="mx", partial_read=True, read_only=True)
+    y = ClArray(n, np.float32, name="my", partial_read=True)
+    cr = NumberCruncher(devs, src)
+    out: dict = {"dispatches": dispatches}
+    try:
+        cr.enqueue_mode = True
+        for label, markers in (("markers_off", False), ("markers_on", True)):
+            cr.fine_grained_queue_control = markers
+            for _ in range(8):  # warm: launchers, windows, caches
+                x.next_param(y).compute(cr, 501, "light", n, 256, values=(1.0,))
+            cr.barrier()
+            best = float("inf")
+            for _ in range(3):
+                t0 = time.perf_counter()
+                for _ in range(dispatches):
+                    x.next_param(y).compute(cr, 501, "light", n, 256, values=(1.0,))
+                dt = (time.perf_counter() - t0) / dispatches
+                cr.barrier()
+                best = min(best, dt)
+            out[label + "_us"] = round(best * 1e6, 1)
+            if markers:
+                cr.count_markers_remaining()  # the query path, once
+        out["marker_cost_us"] = round(out["markers_on_us"] - out["markers_off_us"], 1)
+        out["reference_claim_us"] = "light-kernel gap 2-3 -> 150-200 (ClNumberCruncher.cs:79)"
+    finally:
+        cr.enqueue_mode = False
+        cr.dispose()
     return out
 
 

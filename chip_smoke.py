@@ -195,6 +195,28 @@ Phases, each of which raises on failure (the script then exits non-zero):
    populate left an entry and a library under ``<root>/lib``, each child's
    n-body launched on the card; the three first batches' and the steady
    batches' ms printed with the card's name and power limit;
+5j. queue markers and user events: (a) ``fine_grained_queue_control`` on
+   a cruncher over the GPU lane and a host lane, mandelbrot 2048x2048x256
+   (the emitter's escape form) with the launch counts set to 0 before it:
+   the image exact, after each lane's ``drain`` no marker remaining and
+   reached equal to added, and each lane kind's launch markers equal to
+   its route's launches (``registry.launch_counts``: ``cuda`` for the GPU
+   lane); (b) an enqueued mandelbrot call on the GPU lane whose kernel
+   runs at least ``RETIRE_MS``: right after ``compute()`` returns a marker
+   remains, the caller's thread keeps running while the marker thread
+   waits for the device (``RETIRE_POLLS`` polls at least), and after
+   ``barrier()`` and ``drain`` none remains; (c) a ``dispatch_gate``
+   (``utils.events.UserEvent``) on streamAdd at 2^20 (the streaming form)
+   over the GPU lane and a host lane, called from a thread: held
+   ``GATE_HOLD_S`` untriggered the call has not returned, no launch count
+   moved and the output is untouched, after ``trigger()`` it is exact and
+   the markers drain to 0, and in enqueue mode a gated repeat counts
+   ``fused_stats["disengaged"]["dispatch-gate"]``; (d) phase 5f (d)'s pool
+   with ``csrc/mandelbrot.cu`` and ``fine_grained_queue_control=True,
+   queue_limit=POOL_QUEUE_LIMIT``: the image exact, every lane's markers
+   drained, and ``max_inflight_depth()`` at most the limit plus the
+   largest number of markers one task added; (e) ``workloads.marker_overhead()``
+   printed with the card's name and power limit;
 6. transformer: the flagship transformer's forward at the default width
    (vocab 32000, d_model 512, 4 layers, 8 heads of 64, d_ff 2048, bf16,
    ``attention="flash"``, seeded random weights) on ``cuda:0``.  With every
@@ -255,6 +277,7 @@ import json
 import os
 import subprocess
 import sys
+import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
 
@@ -324,6 +347,16 @@ VERIFY_ID = 7401
 # error finding; tests/test_torch_verify.py holds this set against it)
 VERIFY_CLEAN = frozenset({"mandelbrot", "mandelbrot.cu", "streamAdd", "saxpy", "nBody"})
 DEBUG_CALLS = 12
+# phase 5j: (b)'s kernel runs at least this long, so a marker reached at
+# issue cannot pass for one reached when the device retired it; the caller
+# polls the in-flight depth every 0.5 ms meanwhile, at least this often
+# unless the marker thread holds the interpreter lock while it waits
+RETIRE_MS = 50.0
+RETIRE_POLLS = 10
+# (c) holds the gate this long untriggered; (d)'s pool throttles at this depth
+GATE_HOLD_S = 0.2
+POOL_QUEUE_LIMIT = 4
+MARKERS_ID = 7601
 DEBUG_ID = 7402
 CKPT_STEPS = 4
 
@@ -2495,7 +2528,8 @@ def check_device_pipelines(ck, gpus, host, mods, n: int = 1 << 22, gens: int = 1
     return out
 
 
-def check_device_pool(ck, wl, lanes, mods, ref_img: np.ndarray, tiles: int = 64) -> dict:
+def check_device_pool(ck, wl, lanes, mods, ref_img: np.ndarray, tiles: int = 64,
+                      hand: bool = False, **pool_kw) -> dict:
     """Phase (d): ``ClDevicePool`` over the GPU lane and two host lanes,
     ``tiles`` mandelbrot tiles of the square image ``ref_img`` at max_iter
     256 (2048x2048 on the card): tiles 0-7 pinned to lane 0
@@ -2503,8 +2537,13 @@ def check_device_pool(ck, wl, lanes, mods, ref_img: np.ndarray, tiles: int = 64)
     last tile a ``broadcast``.  The image must equal ``mandelbrot_host``,
     the tasks done must sum to the tasks run (the broadcast once a lane),
     the pinned tiles on lane 0, and a GPU lane 0's launches on the escape
-    form of the emitter's CUDA route.  Returns tasks/s and each lane's
-    share."""
+    form of the emitter's CUDA route (with ``hand``, of
+    ``csrc/mandelbrot.cu``).  ``pool_kw`` goes to the pool; with
+    ``fine_grained_queue_control`` each task's markers are counted, and
+    after ``finish`` every lane's markers are drained (phase 5j (d)).
+    Returns tasks/s and each lane's share, and with markers the pool's
+    ``max_inflight_depth()``, the most markers one task added and the
+    markers each lane had remaining."""
     from cekirdekler_tpu_torch.pipeline import ClDevicePool, ClTask, ClTaskPool
 
     reg, graphs, cuda_backend, mandel_op, ew_op = mods
@@ -2512,10 +2551,23 @@ def check_device_pool(ck, wl, lanes, mods, ref_img: np.ndarray, tiles: int = 64)
     tile = W * H // tiles
     vals = (-2.0, -1.25, 2.5 / W, 2.5 / H, W, 256)
     img = ck.ClArray(W * H, np.float32, name="img", read=False, write=True)
+    markers = bool(pool_kw.get("fine_grained_queue_control"))
+    bursts: list[int] = []  # markers each task added on its lane
 
     def task(k: int) -> ClTask:
-        return ClTask(params=[img], kernel_names=["mandelbrot"], compute_id=7500 + k,
-                      global_range=tile, local_range=256, global_offset=k * tile, values=vals)
+        t = ClTask(params=[img], kernel_names=["mandelbrot"], compute_id=7500 + k,
+                   global_range=tile, local_range=256, global_offset=k * tile, values=vals)
+        if markers:
+            run = t.compute
+
+            def counted(cruncher, run=run) -> None:
+                workers = cruncher.cores.workers
+                added = sum(w.markers.added for w in workers)
+                run(cruncher)
+                bursts.append(sum(w.markers.added for w in workers) - added)
+
+            t.compute = counted
+        return t
 
     pool = ClTaskPool([ClTask.device_select_begin(0)])
     for k in range(8):
@@ -2525,28 +2577,39 @@ def check_device_pool(ck, wl, lanes, mods, ref_img: np.ndarray, tiles: int = 64)
         pool.add(task(k))
     pool.add(task(tiles - 1).as_broadcast())
     reset_counts(reg, graphs, cuda_backend, mandel_op, ew_op)
-    with ClDevicePool(lanes, wl.MANDELBROT_SRC) as dp:
+    out: dict = {}
+    source = wl.mandelbrot_cuda_kernel() if hand else wl.MANDELBROT_SRC
+    with ClDevicePool(lanes, source, **pool_kw) as dp:
         t0 = time.perf_counter()
         dp.enqueue_task_pool(pool)
         dp.finish()
         secs = time.perf_counter() - t0
         done = dp.tasks_done_per_device()
+        if markers:
+            out["max_inflight_depth"] = dp.max_inflight_depth()
+            out["burst"] = max(bursts)
+            out["remaining"] = [lane["remaining"] for c in dp._consumers
+                                for lane in lane_markers(c.cruncher)]
     gate_exact(img.host(), ref_img, "device pool image")
     counts = launch_counts(reg, cuda_backend, mandel_op, ew_op)
-    gpu_launches = counts["emitted"].get("mandelbrot", 0)
+    gpu_launches = counts["mandelbrot.cu"] if hand else counts["emitted"].get("mandelbrot", 0)
     if sum(done) != tiles - 1 + len(lanes) or done[0] < 8:
         raise AssertionError(f"device pool: tasks done {done}")
-    if lanes[0].is_gpu and (gpu_launches < done[0] or counts["routes"].get("cuda", 0) != gpu_launches
-                            or counts["routes"].get("torch", 0) < sum(done[1:])):
+    if lanes[0].is_gpu and (gpu_launches < done[0] or (not hand and (
+            counts["routes"].get("cuda", 0) != gpu_launches
+            or counts["routes"].get("torch", 0) < sum(done[1:])))):
         raise AssertionError(f"device pool: tasks done {done}, launches {counts}")
-    if lanes[0].is_gpu:
+    if lanes[0].is_gpu and not hand:
         gate_forms(counts["forms"], {"mandelbrot": "escape"})
     share = [round(d / sum(done), 3) for d in done]
     print(f"device pool, {tiles} mandelbrot tiles of {W}x{H // tiles}x256 over "
-          f"{[d.name for d in lanes]}: {sum(done) / secs:.1f} tasks/s ({secs * 1e3:.1f} ms), "
-          f"tasks done {done}, shares {share}; launches {counts['emitted']}, routes "
+          f"{[d.name for d in lanes]}{' (csrc/mandelbrot.cu)' if hand else ''}"
+          f"{f' with {pool_kw}' if pool_kw else ''}: {sum(done) / secs:.1f} tasks/s "
+          f"({secs * 1e3:.1f} ms), tasks done {done}, shares {share}; launches "
+          f"{counts['emitted']}, mandelbrot.cu {counts['mandelbrot.cu']}, routes "
           f"{counts['routes']}")
-    return {"tasks_per_s": round(sum(done) / secs, 1), "done": done}
+    out.update(tasks_per_s=round(sum(done) / secs, 1), done=done, gpu_launches=gpu_launches)
+    return out
 
 
 def check_pipelines(ck, wl, gpus, mods, ref_img: np.ndarray, card: str) -> dict:
@@ -3361,6 +3424,282 @@ def check_compile_cache(ck, wl, gpus, programs: dict, ref_img: np.ndarray, card:
     return out
 
 
+# -- phase 5j: queue markers and user events -----------------------------------
+
+
+def lane_markers(cr) -> list[dict]:
+    """Each lane's markers of the cruncher ``cr`` after the lane's ``drain``
+    (at most 10 s): added, reached, remaining and the adds by site
+    (``Worker.markers_by_site``)."""
+    out = []
+    for w in cr.cores.workers:
+        m = w.markers
+        m.drain(timeout=10.0)
+        out.append({"lane": w.index, "gpu": w.stream is not None, "added": m.added,
+                    "reached": m.reached, "remaining": m.remaining(),
+                    "sites": dict(w.markers_by_site)})
+    return out
+
+
+def markers_main_path(ck, wl, lanes, ref_img: np.ndarray, reg) -> dict:
+    """Phase 5j (a)'s run: ``run_mandelbrot`` of the square image ``ref_img``
+    (max_iter 256, a warm call and two timed) over ``lanes`` with
+    ``fine_grained_queue_control`` on,
+    the launch counts by route set to 0 just before it and read just
+    after; then each lane's markers after its drain."""
+    W = int(round(ref_img.size ** 0.5))
+    with ck.NumberCruncher(lanes, wl.MANDELBROT_SRC) as cr:
+        cr.fine_grained_queue_control = True
+        reg.reset_launch_counts()
+        r = wl.run_mandelbrot(lanes, W, W, 256, iters=2, warmup=1, keep_image=True,
+                              cruncher=cr)
+        routes = dict(reg.launch_counts)
+        lanes_out = lane_markers(cr)
+        return {"exact": bool(np.array_equal(r.image.ravel(), ref_img)), "routes": routes,
+                "lanes": lanes_out, "remaining": cr.count_markers_remaining(),
+                "reached": cr.count_markers_reached(), "reach_speed": cr.marker_reach_speed(),
+                "mpixels_per_sec": r.mpixels_per_sec, "ranges": r.ranges_per_iter[-1]}
+
+
+def gate_markers_main_path(run: dict) -> None:
+    """Phase 5j (a)'s gates: the image exact, some marker on every GPU lane,
+    none remaining after the drain and reached equal to added on every
+    lane, and each lane kind's launch markers equal to its route's
+    launches (``cuda`` for GPU lanes, the torch lowering's ``torch`` for
+    host lanes)."""
+    if not run["exact"]:
+        raise AssertionError("markers (a): the image differs from mandelbrot_host")
+    if sum(lane["added"] for lane in run["lanes"]) <= 0 or any(
+            lane["gpu"] and lane["added"] <= 0 for lane in run["lanes"]):
+        raise AssertionError(f"markers (a): a lane added no marker: {run['lanes']}")
+    for lane in run["lanes"]:
+        if lane["remaining"] != 0 or lane["reached"] != lane["added"]:
+            raise AssertionError(f"markers (a): lane {lane['lane']} has markers remaining "
+                                 f"after its drain: {lane}")
+    for gpu, route in ((True, "cuda"), (False, "torch")):
+        kind = [lane for lane in run["lanes"] if lane["gpu"] == gpu]
+        marked = sum(lane["sites"].get("launch", 0) for lane in kind)
+        if kind and marked != run["routes"].get(route, 0):
+            raise AssertionError(f"markers (a): the {route} route launched "
+                                 f"{run['routes'].get(route, 0)} times, its lanes marked "
+                                 f"{marked} launches: {run['lanes']}")
+
+
+def retirement_run(cr, issue) -> dict:
+    """Phase 5j (b)'s measure: ``issue()`` enqueues work on ``cr``; the
+    markers remaining right after it returns, the caller's polls (one each
+    0.5 ms, for at most 30 s) until none remains, and the ms from the issue
+    to then."""
+    t0 = time.perf_counter()
+    issue()
+    after_issue = cr.count_markers_remaining()
+    polls = 0
+    deadline = time.perf_counter() + 30.0
+    while cr.count_markers_remaining() > 0 and time.perf_counter() < deadline:
+        polls += 1
+        time.sleep(0.0005)
+    return {"after_issue": after_issue, "polls": polls,
+            "retired_ms": (time.perf_counter() - t0) * 1e3}
+
+
+def gate_real_retirement(run: dict) -> None:
+    """Phase 5j (b)'s gates: a marker remained right after the issue, it
+    reached no sooner than ``RETIRE_MS`` later, the caller polled at least
+    ``RETIRE_POLLS`` times meanwhile, and none remained after the barrier
+    and the drain."""
+    if run["after_issue"] <= 0:
+        raise AssertionError(f"markers (b): no marker remained right after compute() "
+                             f"returned: markers reached at issue ({run})")
+    if run["retired_ms"] < RETIRE_MS:
+        raise AssertionError(f"markers (b): the markers reached {run['retired_ms']:.3f} ms "
+                             f"after the issue, before the work could retire ({run})")
+    if run["polls"] < RETIRE_POLLS:
+        raise AssertionError(f"markers (b): the caller polled {run['polls']} times while the "
+                             f"marker thread waited: it held the interpreter lock ({run})")
+    if run["after_drain"] != 0:
+        raise AssertionError(f"markers (b): markers remaining after barrier() and drain ({run})")
+
+
+def check_real_retirement(ck, wl, gpus) -> dict:
+    """Phase 5j (b) on the GPU lane at 1024x1024: after a call that builds
+    the launchers, an enqueued mandelbrot call at max_iter 65536 times the
+    lane (to its barrier); the measured call's max_iter is scaled so that
+    its kernel runs about three times ``RETIRE_MS``.  Its counts must lie
+    between 1 and max_iter."""
+    W = 1024
+    n = W * W
+    img = ck.ClArray(n, np.float32, name="retire_img", read=False, write=True, fast=True)
+    max_iter = 1 << 16
+    with ck.NumberCruncher(gpus.subset(1), wl.MANDELBROT_SRC) as cr:
+        cr.fine_grained_queue_control = True
+        cr.enqueue_mode = True
+
+        def call(mi: int) -> None:
+            img.compute(cr, MARKERS_ID, "mandelbrot", n, 256,
+                        values=(-2.0, -1.25, 2.5 / W, 2.5 / W, W, mi))
+
+        call(64)  # builds the launchers
+        cr.barrier()
+        t0 = time.perf_counter()
+        call(max_iter)
+        cr.barrier()
+        calibration_ms = (time.perf_counter() - t0) * 1e3
+        max_iter = int(max_iter * max(1.0, 3.0 * RETIRE_MS / max(calibration_ms, 1e-3)))
+        run = retirement_run(cr, lambda: call(max_iter))
+        cr.barrier()
+        lane_markers(cr)
+        run.update(after_drain=cr.count_markers_remaining(), max_iter=max_iter,
+                   calibration_ms=calibration_ms)
+        cr.enqueue_mode = False
+    counts = img.host()
+    if not (counts.min() >= 1.0 and counts.max() == float(max_iter)):
+        raise AssertionError(f"markers (b): escape counts outside [1, {max_iter}]: "
+                             f"{counts.min()} .. {counts.max()}")
+    return run
+
+
+def gated_compute(ck, wl, lanes, reg, n: int = 1 << 20) -> dict:
+    """Phase 5j (c)'s run: streamAdd over ``lanes`` with markers on and a
+    ``dispatch_gate``, called from a thread; after ``GATE_HOLD_S`` untriggered,
+    whether the call still runs, the launches since it started and
+    whether the output moved; after ``trigger()``, the output against
+    ``a + b``, the launches and each lane's markers; then three enqueued
+    calls under the fired gate, flushed, and the fused disengages."""
+    from cekirdekler_tpu_torch.utils.events import UserEvent
+
+    a = ck.ClArray((np.arange(n) % 13).astype(np.float32), name="gate_a", partial_read=True,
+                   read_only=True, fast=True)
+    b = ck.ClArray(np.full(n, 0.5, np.float32), name="gate_b", partial_read=True,
+                   read_only=True, fast=True)
+    c = ck.ClArray(np.zeros(n, np.float32), name="gate_c", read=False, write=True, fast=True)
+    want = a.host() + b.host()
+    gate = UserEvent()
+    errors: list[BaseException] = []
+    out: dict = {}
+    try:
+        with ck.NumberCruncher(lanes, wl.STREAM_SRC) as cr:
+            cr.fine_grained_queue_control = True
+            cr.dispatch_gate = gate
+            reg.reset_launch_counts()
+
+            def run() -> None:
+                try:
+                    a.next_param(b, c).compute(cr, MARKERS_ID + 1, "streamAdd", n, 256)
+                except BaseException as e:  # noqa: BLE001 - raised by the caller
+                    errors.append(e)
+
+            t = threading.Thread(target=run, name="gated-compute", daemon=True)
+            t0 = time.perf_counter()
+            t.start()
+            t.join(timeout=GATE_HOLD_S)
+            out["held_s"] = time.perf_counter() - t0
+            out["held"] = t.is_alive()
+            out["moved"] = sum(reg.launch_counts.values())
+            out["touched"] = bool(np.any(c.host() != 0.0))
+            gate.trigger()
+            t.join(timeout=60.0)
+            if t.is_alive():
+                raise AssertionError("dispatch gate (c): the call did not return after trigger()")
+            if errors:
+                raise errors[0]
+            out["exact"] = bool(np.array_equal(c.host(), want))
+            out["launches"] = sum(reg.launch_counts.values())
+            out["lanes"] = lane_markers(cr)
+            c.host()[:] = 0.0
+            cr.enqueue_mode = True
+            for _ in range(3):
+                a.next_param(b, c).compute(cr, MARKERS_ID + 2, "streamAdd", n, 256)
+            cr.enqueue_mode = False
+            out["exact_enqueue"] = bool(np.array_equal(c.host(), want))
+            out["disengaged"] = dict(cr.fused_stats["disengaged"])
+            out["remaining"] = sum(lane["remaining"] for lane in lane_markers(cr))
+            cr.dispatch_gate = None
+    finally:
+        gate.close()
+    return out
+
+
+def gate_gated_compute(run: dict) -> None:
+    """Phase 5j (c)'s gates: held untriggered the call had not returned,
+    launched nothing and left the output alone; then it was exact, it
+    launched, every lane's markers drained, and the gated enqueue calls
+    were exact and refused a fused window as ``dispatch-gate``."""
+    if not run["held"] or run["moved"] or run["touched"]:
+        raise AssertionError(f"dispatch gate (c): the gate did not hold: after "
+                             f"{run['held_s']:.3f} s untriggered the call had returned "
+                             f"{not run['held']}, launched {run['moved']} times, touched the "
+                             f"output {run['touched']}")
+    if not (run["exact"] and run["exact_enqueue"]) or run["launches"] <= 0:
+        raise AssertionError(f"dispatch gate (c): after trigger() exact {run['exact']}, "
+                             f"enqueued exact {run['exact_enqueue']}, launches {run['launches']}")
+    if run["remaining"] or any(lane["remaining"] for lane in run["lanes"]):
+        raise AssertionError(f"dispatch gate (c): markers remaining after drain: {run}")
+    if run["disengaged"].get("dispatch-gate", 0) < 1:
+        raise AssertionError(f"dispatch gate (c): the gated repeat did not count "
+                             f"dispatch-gate: {run['disengaged']}")
+
+
+def gate_pool_depth(res: dict, limit: int) -> None:
+    """Phase 5j (d)'s gates: every lane's markers drained, and
+    ``max_inflight_depth()`` at most ``limit`` plus the most markers one
+    task added."""
+    if any(res["remaining"]):
+        raise AssertionError(f"pool throttle (d): markers remaining after drain: "
+                             f"{res['remaining']}")
+    if res["max_inflight_depth"] > limit + res["burst"]:
+        raise AssertionError(f"pool throttle (d): in-flight depth {res['max_inflight_depth']} "
+                             f"over queue_limit {limit} plus one task's {res['burst']} markers")
+
+
+def check_markers(ck, wl, gpus, mods, ref_img: np.ndarray, card: str) -> dict:
+    """Phase 5j, (a)-(e) of the docstring; returns what it printed."""
+    reg, graphs, cuda_backend, mandel_op, ew_op = mods
+    t0 = time.perf_counter()
+    out: dict = {}
+    reset_counts(*mods)
+    main = markers_main_path(ck, wl, gpus.subset(1) + ck.all_devices().cpus(1), ref_img, reg)
+    gate_markers_main_path(main)
+    gate_forms(dict(cuda_backend.FORMS.by_key), {"mandelbrot": "escape"})
+    gpu_lane = main["lanes"][0]
+    out["main_path"] = {"launch_markers": gpu_lane["sites"].get("launch", 0),
+                        "routes": main["routes"], "lanes": main["lanes"],
+                        "reach_speed": main["reach_speed"]}
+    print(f"markers (a): mandelbrot 2048x2048x256 on the GPU lane and a host lane, ranges "
+          f"{main['ranges']}: image exact; launches by route {main['routes']}; markers by lane "
+          f"{json.dumps(main['lanes'])}; reach speed {main['reach_speed']:.1f} ops/s")
+    ret = check_real_retirement(ck, wl, gpus)
+    gate_real_retirement(ret)
+    out["retirement"] = ret
+    print(f"markers (b): an enqueued mandelbrot 1024x1024 at max_iter {ret['max_iter']} on the "
+          f"GPU lane: {ret['after_issue']} marker(s) remaining right after compute() returned, "
+          f"none {ret['retired_ms']:.3f} ms after the issue, {ret['polls']} polls by the caller "
+          f"meanwhile, {ret['after_drain']} after barrier() and drain")
+    reset_counts(*mods)
+    gated = gated_compute(ck, wl, gpus.subset(1) + ck.all_devices().cpus(1), reg)
+    gate_gated_compute(gated)
+    gate_forms(dict(cuda_backend.FORMS.by_key), {"streamAdd": "stream"})
+    out["gate"] = {k: gated[k] for k in ("held_s", "launches", "disengaged")}
+    out["gate"]["launch_markers"] = gated["lanes"][0]["sites"].get("launch", 0)
+    print(f"dispatch gate (c): streamAdd 2^20 on the GPU lane and a host lane held "
+          f"{gated['held_s']:.3f} s with 0 launches and the output untouched, exact after "
+          f"trigger() with {gated['launches']} launches ({cuda_backend.FORMS.by_key}); markers "
+          f"{json.dumps(gated['lanes'])}; enqueued under the gate: disengaged "
+          f"{gated['disengaged']}")
+    pool = check_device_pool(ck, wl, gpus.subset(1) + ck.all_devices().cpus(2), mods, ref_img,
+                             hand=True, fine_grained_queue_control=True,
+                             queue_limit=POOL_QUEUE_LIMIT)
+    gate_pool_depth(pool, POOL_QUEUE_LIMIT)
+    out["pool"] = pool
+    print(f"pool throttle (d): queue_limit {POOL_QUEUE_LIMIT}, max_inflight_depth() "
+          f"{pool['max_inflight_depth']}, the most markers one task added {pool['burst']}, "
+          f"{pool['tasks_per_s']} tasks/s")
+    out["overhead"] = wl.marker_overhead()
+    print(f"marker_overhead(): {json.dumps(out['overhead'])} on {card}")
+    out["seconds"] = time.perf_counter() - t0
+    print(f"phase 5j: {out['seconds']:.1f} s")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -3697,6 +4036,12 @@ def main() -> int:
     phase("5i compile cache")
     cache_res = check_compile_cache(ck, wl, gpus, programs, ref_img, card)
 
+    phase("5j markers and user events")
+    markers_res = check_markers(ck, wl, gpus, mods, ref_img, card)
+    rows["emitter:mandelbrot"]["marker_launches"] = markers_res["main_path"]["launch_markers"]
+    rows["emitter:streamAdd"]["marker_launches"] = markers_res["gate"]["launch_markers"]
+    rows["mandelbrot"]["marker_launches"] = markers_res["pool"]["gpu_launches"]
+
     phase("transformer forward")
     rows["flash_attention"]["launches"] = check_transformer(wl, fa_op, card)
 
@@ -3748,7 +4093,8 @@ def main() -> int:
             "ms": rr["ms"], "plain_ms": rr["plain_ms"], "bound_ms": rr["bound_ms"],
             "bound_by": rr["bound_by"], "library_ms": rr["library_ms"],
             **{key: rr[key] for key in ("kernel_route", "fp32_ms", "fp32_bound_ms", "torch_ops_ms",
-                                        "pipeline_launches", "event_ms", "trace_ms")
+                                        "pipeline_launches", "event_ms", "trace_ms",
+                                        "marker_launches")
                if key in rr},
         })
     print(f"mpixels_per_sec: {json.dumps(res)}; streamed against monolithic: "
@@ -3768,6 +4114,7 @@ def main() -> int:
         print(f"  drain decision rows: {json.dumps(row)}")
     print(f"verify gate, checkpoint, debug server: {json.dumps({'verify': verify_res, 'checkpoint': {k: ckpt_res[k] for k in ('leaves', 'bf16_leaves', 'moments', 'max_rel')}, 'debug': {k: debug_res[k] for k in ('lane_series', 'decision_kinds', 'profilez_rows')}})}")
     print(f"compile cache: {json.dumps(cache_res)}")
+    print(f"markers and user events: {json.dumps({k: markers_res[k] for k in ('gate', 'pool', 'overhead', 'seconds')})}")
     print(f"phase seconds: {json.dumps(phase_seconds())}")
     print(card)
     print(json.dumps({"kernels": kernels}))

@@ -18,6 +18,11 @@ Phase 5i's gates: warmup then the first windows on a host lane (and the
 gate failing once warmup builds nothing), and the coldstart trio's gate
 over hand-made trios (refusing a warm child that compiled, an inexact
 trio, a missing library and the rest).
+Phase 5j's gates: the markers on the main path, the gated compute and the
+throttled pool pass on host lanes; each fails on a planted fault (a lost
+reach leaving markers after the drain, markers reached at issue, a gate
+whose wait returns at once, a depth over the pool's bound), and phase
+(b)'s measure runs over a marker that a future retires later.
 """
 
 from __future__ import annotations
@@ -863,3 +868,126 @@ def test_phase_5i_coldstart_gate_on_host_lanes_needs_no_library():
     for mode in ("cold", "populate", "warm"):
         trio[mode]["launches"] = {}
     chip_smoke.gate_coldstart(trio, on_card=False)
+
+
+# -- phase 5j: queue markers and user events, on host lanes and planted faults
+
+
+def _mandel_ref(w: int = 64):
+    from cekirdekler_tpu_torch import workloads as wl
+
+    return wl.mandelbrot_host(w, w, -2.0, -1.25, 2.5 / w, 2.5 / w, 256)
+
+
+def test_phase_5j_markers_gate_passes_on_host_lanes():
+    import cekirdekler_tpu_torch as ck
+    from cekirdekler_tpu_torch import workloads as wl
+    from cekirdekler_tpu_torch.kernel import registry
+
+    run = chip_smoke.markers_main_path(ck, wl, _lanes(2), _mandel_ref(), registry)
+    chip_smoke.gate_markers_main_path(run)
+    assert run["routes"]["torch"] == sum(lane["sites"]["launch"] for lane in run["lanes"]) > 0
+
+
+def test_phase_5j_markers_gate_fails_when_markers_stay_after_the_drain(monkeypatch):
+    """A lost reach leaves markers remaining after the drain: the gate refuses."""
+    import cekirdekler_tpu_torch as ck
+    from cekirdekler_tpu_torch import workloads as wl
+    from cekirdekler_tpu_torch.kernel import registry
+    from cekirdekler_tpu_torch.utils.markers import MarkerCounter
+
+    monkeypatch.setattr(MarkerCounter, "reach", lambda self, n=1: None)
+    monkeypatch.setattr(MarkerCounter, "drain", lambda self, timeout=30.0: None)
+    run = chip_smoke.markers_main_path(ck, wl, _lanes(2), _mandel_ref(), registry)
+    with pytest.raises(AssertionError, match="remaining after its drain"):
+        chip_smoke.gate_markers_main_path(run)
+
+
+def _retirement(hold_s: float) -> dict:
+    """Phase 5j (b)'s measure on a host lane, over an issue that adds one
+    marker retired by a future ``hold_s`` later (the long kernel's stand-in)."""
+    import threading
+    from concurrent.futures import Future
+
+    import cekirdekler_tpu_torch as ck
+
+    with ck.NumberCruncher(_lanes(1), chip_smoke.SAXPY_SRC) as cr:
+        cr.fine_grained_queue_control = True
+        m = cr.cores.workers[0].markers
+        fut = Future()
+
+        def issue():
+            m.add()
+            m.reach_when_ready(fut)
+            threading.Timer(hold_s, fut.set_result, args=(None,)).start()
+
+        run = chip_smoke.retirement_run(cr, issue)
+        m.drain(timeout=10.0)
+        run["after_drain"] = cr.count_markers_remaining()
+    return run
+
+
+def test_phase_5j_retirement_gate_passes_a_marker_its_work_retires():
+    run = _retirement(0.2)
+    chip_smoke.gate_real_retirement(run)
+    assert run["after_issue"] == 1 and run["after_drain"] == 0
+
+
+def test_phase_5j_retirement_gate_fails_on_markers_reached_at_issue(monkeypatch):
+    from cekirdekler_tpu_torch.utils.markers import MarkerCounter
+
+    monkeypatch.setattr(MarkerCounter, "reach_when_ready",
+                        lambda self, handle, n=1: self.reach(n))
+    run = _retirement(0.2)
+    with pytest.raises(AssertionError, match="reached at issue"):
+        chip_smoke.gate_real_retirement(run)
+
+
+def test_phase_5j_retirement_gate_fails_when_markers_stay_after_the_drain():
+    run = dict(_retirement(0.2), after_drain=1)
+    with pytest.raises(AssertionError, match="after barrier"):
+        chip_smoke.gate_real_retirement(run)
+
+
+def test_phase_5j_gate_phase_passes_on_host_lanes():
+    import cekirdekler_tpu_torch as ck
+    from cekirdekler_tpu_torch import workloads as wl
+    from cekirdekler_tpu_torch.kernel import registry
+
+    run = chip_smoke.gated_compute(ck, wl, _lanes(2), registry, n=1 << 12)
+    chip_smoke.gate_gated_compute(run)
+    assert run["held"] and run["moved"] == 0 and run["disengaged"] == {"dispatch-gate": 2}
+
+
+def test_phase_5j_gate_phase_fails_when_the_gate_does_not_hold(monkeypatch):
+    """A gate whose wait returns at once lets the call run untriggered."""
+    import cekirdekler_tpu_torch as ck
+    from cekirdekler_tpu_torch import workloads as wl
+    from cekirdekler_tpu_torch.kernel import registry
+    from cekirdekler_tpu_torch.utils.events import UserEvent
+
+    monkeypatch.setattr(UserEvent, "wait", lambda self, timeout=None: True)
+    run = chip_smoke.gated_compute(ck, wl, _lanes(2), registry, n=1 << 12)
+    with pytest.raises(AssertionError, match="did not hold"):
+        chip_smoke.gate_gated_compute(run)
+
+
+def test_phase_5j_pool_gate_passes_on_host_lanes():
+    import cekirdekler_tpu_torch as ck
+    from cekirdekler_tpu_torch import workloads as wl
+
+    res = chip_smoke.check_device_pool(ck, wl, _lanes(3), _mods(), _mandel_ref(), tiles=16,
+                                       hand=True, fine_grained_queue_control=True,
+                                       queue_limit=chip_smoke.POOL_QUEUE_LIMIT)
+    chip_smoke.gate_pool_depth(res, chip_smoke.POOL_QUEUE_LIMIT)
+    assert res["remaining"] == [0, 0, 0] and res["burst"] >= 2
+
+
+@pytest.mark.parametrize("fault, match", [
+    ({"max_inflight_depth": 4 + 3 + 1}, "over queue_limit"),
+    ({"remaining": [0, 2, 0]}, "remaining after drain"),
+])
+def test_phase_5j_pool_gate_refuses(fault, match):
+    res = dict({"max_inflight_depth": 3, "burst": 3, "remaining": [0, 0, 0]}, **fault)
+    with pytest.raises(AssertionError, match=match):
+        chip_smoke.gate_pool_depth(res, 4)

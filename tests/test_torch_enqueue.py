@@ -28,7 +28,6 @@ from cekirdekler_tpu.core.cruncher import NumberCruncher as RefCruncher
 from cekirdekler_tpu.hardware import platforms as ref_platforms
 from cekirdekler_tpu_torch import workloads as wl
 from cekirdekler_tpu_torch.core import cores as port_cores
-from cekirdekler_tpu_torch.errors import NotPortedError
 
 INC = """
 __kernel void inc(__global float* a) {
@@ -456,18 +455,14 @@ def test_a_failed_host_lane_phase_surfaces_at_the_barrier():
     pytest.param("fine_grained_queue_control", True, id="fine_grained_queue_control-True"),
 ])
 def test_toggles_of_tiers_not_ported_refuse_another_value(name, value):
-    """``fine_grained_queue_control`` (queue markers, Queue A 4) keeps its
-    one value and refuses another.  The fused tier's toggles are ported:
-    each reads its default, takes another value and reads it back, and
-    takes the default again, as the JAX package's do."""
+    """Every tier named here is ported now, queue markers
+    (``fine_grained_queue_control``) included: each toggle reads its
+    default, takes another value and reads it back, and takes the default
+    again, as the JAX package's do."""
     ref = RefCruncher(ref_platforms().cpus().subset(1), INC)
     try:
         with ck.NumberCruncher(ck.all_devices().cpus(1), INC) as cr:
             setattr(cr, name, getattr(cr, name))  # the default is accepted
-            if name == "fine_grained_queue_control":
-                with pytest.raises(NotPortedError, match=name):
-                    setattr(cr, name, value)
-                return
             default = getattr(cr, name)
             assert default == getattr(ref, name)
             for v in (value, default):

@@ -198,3 +198,16 @@ def test_observability_slice_runs_with_jax_blocked():
                           env=_child_env(), capture_output=True, text=True, timeout=240)
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert "SLICE OK" in proc.stdout and "ckprove: clean" in proc.stdout
+
+
+@pytest.mark.parametrize("name", ["utils/markers.py", "utils/events.py"])
+def test_marker_and_event_modules_are_pure_python(name):
+    """Queue markers and user events are among the scanned files and import
+    neither JAX, nor anything of the JAX package, nor torch, nor a native
+    library (``ctypes``): the reference's pure-Python paths."""
+    path = PORT / name
+    assert path in FILES
+    names = _imported_names(path)
+    assert not any(_forbidden(m) for m in names)
+    assert not any(m.split(".")[0] in ("torch", "ctypes") for m in names), names
+    assert _relative_escapes(path) == []

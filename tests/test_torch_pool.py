@@ -4,11 +4,10 @@ host-CPU lanes.
 The scenarios of the reference's ``tests/test_pool.py`` run through both
 packages' ``ClDevicePool`` on the same tasks; results and the counts the
 scenario fixes (pinned lanes, a broadcast on every lane, tasks done) must be
-equal.  Two differences are allowed: ``fine_grained_queue_control`` needs
-queue markers (ROADMAP Queue A 4), so the port refuses it and runs the
-storm without it; and ``DEVICE_ROUND_ROBIN`` is refused by both.  Every
-pool is disposed inside its test, and its producer and consumer threads
-must have ended.
+equal.  ``DEVICE_ROUND_ROBIN`` is refused by both.  The storm runs with
+the marker throttle (``fine_grained_queue_control``) in both packages.
+Every pool is disposed inside its test, and its producer and consumer
+threads must have ended.
 """
 
 from __future__ import annotations
@@ -23,7 +22,6 @@ import cekirdekler_tpu
 import cekirdekler_tpu_torch as ck
 from cekirdekler_tpu.hardware import platforms as ref_platforms
 from cekirdekler_tpu.pipeline import pool as ref_pool
-from cekirdekler_tpu_torch.errors import NotPortedError
 from cekirdekler_tpu_torch.metrics.registry import REGISTRY
 from cekirdekler_tpu_torch.pipeline import pool as port_pool
 
@@ -231,23 +229,44 @@ def test_feed_tags_untagged_tasks_with_the_tenant():
 
 @BOTH
 def test_task_storm_bounded(pkg):
-    """The reference's storm of 40 tasks on 2 lanes.  Its marker throttle
-    (``fine_grained_queue_control``) needs queue markers, ROADMAP Queue A
-    4: the port refuses it, naming the item, and both packages run the
-    storm without it (the reference's markers load its native library,
-    which no test here loads); the pipe's backpressure bounds what is
-    queued."""
+    """The reference's storm of 40 tasks on 2 lanes with its marker
+    throttle (``fine_grained_queue_control``, ``queue_limit=4``), the
+    pipe's backpressure bounding what is queued.  Each lane's marker depth
+    stays within the limit plus one task's markers, the reference's ~3.  A
+    port task adds one upload, one launch and one download marker, or one
+    of each a chunk where the transfer tuner streams it in chunks; every
+    marker a port lane added has reached."""
     mod, CA = PKGS[pkg]
-    if pkg == "port":
-        with pytest.raises(NotPortedError, match="Queue A 4"):
-            mod.ClDevicePool(_lanes(pkg, 2), SRC, fine_grained_queue_control=True)
     arrs = [CA(np.zeros(128, np.float32), name=f"s{i}") for i in range(40)]
     tp = mod.ClTaskPool()
     for i, a in enumerate(arrs):
         a.partial_read = True
         tp.add(_task(mod, a, "addOne", i + 1))
-    done = _run(pkg, 2, [tp], max_queues_per_device=8, backpressure=4)
+    dp = mod.ClDevicePool(_lanes(pkg, 2), SRC, fine_grained_queue_control=True, queue_limit=4,
+                          max_queues_per_device=8, backpressure=4)
+    try:
+        dp.enqueue_task_pool(tp)
+        dp.finish()
+        done = dp.tasks_done_per_device()
+        depth = dp.max_inflight_depth()
+        if pkg == "port":
+            for c in dp._consumers:
+                w = c.cruncher.cores.workers[0]
+                w.markers.drain(timeout=10.0)
+                assert w.markers.remaining() == 0
+                # each array is one task's: its chunk copies, or its one copy
+                per_task = [w.chunk_transfers["h2d", a.name] or 1 for a in arrs
+                            if w.transfers["h2d", a.name]]
+                assert len(per_task) == c.tasks_done
+                assert dict(w.markers_by_site) == (
+                    {site: sum(per_task) for site in ("h2d", "launch", "d2h")}
+                    if per_task else {})
+    finally:
+        dp.dispose()
+        if pkg == "port":
+            _ended(dp)
     assert sum(done) == 40
+    assert 0 <= depth <= 4 + 3, depth
     for a in arrs:
         np.testing.assert_array_equal(a.host(), np.ones(128, np.float32))
 

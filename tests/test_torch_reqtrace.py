@@ -96,9 +96,28 @@ def test_request_chrome_events_are_the_reference_s(seed):
     assert all(e["cat"] == "ck-req" for e in mine if e["ph"] == "X")
 
 
+@pytest.fixture
+def clean_recorders():
+    """Both packages' process-wide recorders emptied and on, restored after:
+    ``reqz_payload`` reports the recorder's state beside the events it is
+    given, and another test file run earlier in the same process may have
+    recorded into either (or turned it off)."""
+    saved = [(r, r.enabled) for r in (rt.REQTRACE, ref.REQTRACE)]
+    for r, _ in saved:
+        r.clear()
+        r.enabled = True
+    yield
+    for r, enabled in saved:
+        r.clear()
+        r.enabled = enabled
+
+
 @pytest.mark.parametrize("seed", SEEDS)
-def test_reqz_payload_is_the_reference_s(seed):
+def test_reqz_payload_is_the_reference_s(seed, clean_recorders):
     evs = events(seed)
+    for recorder in (rt.REQTRACE, ref.REQTRACE):  # the same count recorded in each
+        for t, rid, kind, fields in evs[:7]:
+            recorder.event(rid, kind, **fields)
     assert rt.reqz_payload(evs, n_slow=4, n_recent=7) == \
         ref.reqz_payload(evs, n_slow=4, n_recent=7)
     assert rt.reqz_payload([]) == ref.reqz_payload([])

@@ -3,14 +3,16 @@ state machines, against the invariants each machine declares.
 
 A copy of the reference's ``analysis/model.py`` for the machines whose
 controllers the port has: :class:`DrainMachine` drives the port's
-``obs/drain.py`` (``drain_transition`` x ``apply_quarantine``) and
+``obs/drain.py`` (``drain_transition`` x ``apply_quarantine``),
+:class:`ElasticMachine` the port's ``cluster/elastic.py``
+(``Membership`` under every roster reconciliation) and
 :class:`BalanceMachine` the port's ``core/balance.py``
 (``load_balance`` / ``prior_split``), with the reference's bounds,
 invariants, counterexample traces and reports.  The other machine names
 of :data:`MACHINE_NAMES` raise :class:`~..errors.NotPortedError` naming
-the ROADMAP Queue A item that brings their controllers: ``elastic``
-(cluster tier, A 7), ``serve``, ``resilience`` and ``router`` (serving
-tier, A 8), ``block`` (the block tuner, A 9).  The reference's
+the ROADMAP Queue A item that brings their controllers: ``serve``,
+``resilience`` and ``router`` (serving tier, A 8), ``block`` (the block
+tuner, A 9).  The reference's
 ``tools/ckmodel`` CLI and its purity lint come with A 8.  The text below
 is the reference's.
 
@@ -61,6 +63,7 @@ __all__ = [
     "ModelViolation",
     "MachineBase",
     "DrainMachine",
+    "ElasticMachine",
     "BalanceMachine",
     "MACHINE_NAMES",
     "PORTED_MACHINES",
@@ -84,9 +87,8 @@ MACHINE_NAMES = ("drain", "elastic", "serve", "balance", "resilience",
 #: The machines the port can drive; every other name of
 #: :data:`MACHINE_NAMES` names the ROADMAP Queue A item that ports its
 #: controllers.
-PORTED_MACHINES = ("drain", "balance")
+PORTED_MACHINES = ("drain", "elastic", "balance")
 NOT_PORTED = {
-    "elastic": "Queue A 7 (cluster tier: cluster/elastic.py)",
     "router": "Queue A 8 (serving tier: serve/fabric.py)",
     "serve": "Queue A 8 (serving tier: serve/admission.py, serve/coalescer.py)",
     "resilience": "Queue A 8 (serving tier: serve/resilience.py)",
@@ -547,6 +549,151 @@ class DrainMachine(MachineBase):
 
 
 # ---------------------------------------------------------------------------
+# elastic: leave/join/timeout interleavings × epoch (cluster/elastic.py)
+# ---------------------------------------------------------------------------
+
+class ElasticMachine(MachineBase):
+    """Every roster→roster reconciliation over a small member alphabet
+    (ids chosen to exercise the length-then-lex order), driving a REAL
+    :class:`~..cluster.elastic.Membership` under the decision log's
+    scratch-ring capture — the checked rows are the records the live
+    site emitted, not a re-model."""
+
+    name = "elastic"
+    checks = ("epoch-monotone", "resplit-conservation",
+              "resplit-quantized", "sync-converges",
+              "deterministic-order")
+
+    def __init__(self, member_ids=("p0", "p2", "p10"),
+                 steps=(2, 3), total: int = 12, membership_cls=None):
+        from ..cluster import elastic as E
+
+        self.invariants = E.MODEL_INVARIANTS
+        super().__init__()
+        self.E = E
+        self.member_ids = tuple(member_ids)
+        self.steps = tuple(int(s) for s in steps)
+        self.total = int(total)
+        self.membership_cls = membership_cls or E.Membership
+
+    def _rosters(self):
+        out = []
+
+        def rec(i, cur):
+            if i == len(self.member_ids):
+                if cur:
+                    out.append(tuple(sorted(cur.items())))
+                return
+            rec(i + 1, cur)
+            for s in self.steps:
+                nxt = dict(cur)
+                nxt[self.member_ids[i]] = s
+                rec(i + 1, nxt)
+
+        rec(0, {})
+        return out
+
+    def initial_states(self):
+        return self._rosters()
+
+    def state_doc(self, state):
+        return {"roster": {m: s for m, s in state}}
+
+    def _drive(self, current: dict, target: dict):
+        """establish(current) → sync(target): the captured rows and
+        the post-sync snapshot."""
+        m = self.membership_cls()
+        m.establish(dict(current))
+        mark = _last_seq()
+        m.sync(dict(target), total=self.total)
+        return _harvest(mark), m.snapshot()
+
+    def actions(self, state):
+        current = dict(state)
+        out = []
+        for target_t in self._rosters():
+            target = dict(target_t)
+            if target == current:
+                continue
+            rows, _snap = self._drive(current, target)
+            out.append((f"sync->{target}", rows, target_t))
+        return out
+
+    def check_action(self, state, label, rows, nxt):
+        bad = []
+        current, target = dict(state), dict(nxt)
+        # sync-converges: re-drive (BFS may have harvested rows from a
+        # prior expansion) and compare the realized roster
+        rows2, snap = self._drive(current, target)
+        self._hit("sync-converges")
+        if snap["members"] != target:
+            bad.append((
+                "sync-converges",
+                f"sync({target}) from {current} left the roster at "
+                f"{snap['members']}"))
+        seen_join = False
+        for r in rows:
+            if r["kind"] == "member-join":
+                seen_join = True
+            elif r["kind"] == "member-leave" and seen_join:
+                bad.append((
+                    "sync-converges",
+                    "a departure was recorded AFTER an arrival — the "
+                    "leaves-then-joins order is the re-split safety "
+                    "contract"))
+                break
+        # deterministic-order: the same diff replayed twice must
+        # record the identical transition sequence
+        self._hit("deterministic-order")
+        sig = [(r["kind"], r["inputs"].get("member")) for r in rows]
+        sig2 = [(r["kind"], r["inputs"].get("member")) for r in rows2]
+        if sig != sig2:
+            bad.append((
+                "deterministic-order",
+                f"two drives of the same diff recorded {sig} then "
+                f"{sig2}"))
+        # epoch-monotone: +1 per transition, chained
+        self._hit("epoch-monotone")
+        prev_after = None
+        for r in rows:
+            before = r["inputs"].get("epoch_before")
+            after = r["outputs"].get("epoch_after")
+            if after != (before or 0) + 1:
+                bad.append((
+                    "epoch-monotone",
+                    f"{r['kind']}({r['inputs'].get('member')}) moved "
+                    f"epoch {before} -> {after} (must bump by exactly "
+                    "one)"))
+            if prev_after is not None and before != prev_after:
+                bad.append((
+                    "epoch-monotone",
+                    f"epoch chain broke: record started at {before} "
+                    f"after the previous ended at {prev_after}"))
+            prev_after = after
+        # resplit conservation + quantization on every record that
+        # carried a total
+        self._hit("resplit-conservation")
+        self._hit("resplit-quantized")
+        for r in rows:
+            ranges = r["outputs"].get("ranges")
+            if ranges is None:
+                continue
+            lcm = int(r["outputs"].get("lcm", 1))
+            if sum(ranges) != self.total:
+                bad.append((
+                    "resplit-conservation",
+                    f"{r['kind']} re-split {ranges} sums to "
+                    f"{sum(ranges)}, total is {self.total}"))
+            for i, v in enumerate(ranges):
+                if v < 0 or (i > 0 and v % lcm != 0):
+                    bad.append((
+                        "resplit-quantized",
+                        f"{r['kind']} member {i} share {v} is not a "
+                        f"non-negative LCM({lcm}) multiple"))
+        return bad
+
+
+# ---------------------------------------------------------------------------
 # balance: freeze/jump over rate-consistent trajectories (core/balance.py)
 # ---------------------------------------------------------------------------
 
@@ -859,6 +1006,12 @@ def build_machines(name: str, quick: bool = False,
         return [DrainMachine(hold_barriers=2 + scale,
                              confirm_clear=2 + scale,
                              probe_grace=1 + 2 * scale)]
+    if name == "elastic":
+        if quick:
+            return [ElasticMachine(member_ids=("p0", "p2"))]
+        ids = ("p0", "p2", "p10") if scale == 1 else \
+            ("p0", "p2", "p10", "p3")[:3 + min(scale - 1, 1)]
+        return [ElasticMachine(member_ids=ids, steps=(2, 3, 4))]
     if name == "balance":
         if quick:
             return [BalanceMachine(rate_alphabet=(1.0, 5.0),

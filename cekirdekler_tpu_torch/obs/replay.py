@@ -345,6 +345,34 @@ def _replay_drain(inp: dict, out: dict) -> dict:
     return mism
 
 
+def _replay_member(inp: dict, out: dict) -> dict:
+    """member-leave / member-join: the recorded re-split over the
+    post-change step table must re-execute bit-identically (when the
+    record carried a total — membership transitions with no known
+    workload record only the roster, nothing to re-derive)."""
+    from ..cluster.elastic import member_resplit
+
+    mism: dict = {}
+    steps = inp.get("steps_after") or []
+    total = inp.get("total")
+    if total is not None and steps:
+        got = member_resplit(steps, int(total))
+        for k in ("ranges", "lcm"):
+            ev = out.get(k)
+            ev = list(ev) if isinstance(ev, list) else ev
+            gv = got[k]
+            gv = list(gv) if isinstance(gv, list) else gv
+            if gv != ev:
+                mism[k] = {"expected": ev, "got": gv}
+    rec_epoch = out.get("epoch_after")
+    got_epoch = int(inp.get("epoch_before", 0)) + 1
+    if rec_epoch is not None and rec_epoch != got_epoch:
+        # same label convention as ranges/lcm above: "expected" is the
+        # RECORDED output, "got" the re-derived value
+        mism["epoch_after"] = {"expected": rec_epoch, "got": got_epoch}
+    return mism
+
+
 _REPLAYERS = {
     "load-balance": _replay_load_balance,
     "transfer-choose": _replay_transfer_choose,
@@ -352,11 +380,13 @@ _REPLAYERS = {
     "health-verdict": _replay_health_verdict,
     "drain-apply": _replay_drain,
     "readmit": _replay_drain,
+    "member-leave": _replay_member,
+    "member-join": _replay_member,
     "prior-split": _replay_prior_split,
 }
 
-#: Replayable kinds whose deciding module is not ported yet (serving,
-#: cluster and block-tuner decisions): such a row is counted apart by
+#: Replayable kinds whose deciding module is not ported yet (serving
+#: and block-tuner decisions): such a row is counted apart by
 #: kind, never verified and never a context row.
 NOT_PORTED_KINDS = tuple(k for k in REPLAYABLE_KINDS if k not in _REPLAYERS)
 assert set(_REPLAYERS) | set(NOT_PORTED_KINDS) == set(REPLAYABLE_KINDS)

@@ -17,12 +17,21 @@ attribution.
   kernel records reconciled against the host window, roofline rows, the
   unified host + device Perfetto export (with ``obs/reqtrace.py``'s
   request tracks) and the kernel-profile store (``CK_PROFILE_STORE``).
+- :mod:`.aggregate` — cluster-wide aggregation: per-process clock offsets,
+  :func:`gather_cluster` (spans, metrics and lane health of every process
+  of a DCN job), the merged Perfetto trace and the collectives' alignment
+  margin, over a live :class:`~..cluster.dcn.DistributedAccelerator`.
 
-The reference's cluster aggregation (``trace/aggregate.py``) comes with the
-cluster tier (ROADMAP Queue A 7): its only transport is a live cluster
-accelerator.  Nothing here imports torch at module level.
+Nothing here imports torch at module level.
 """
 
+from .aggregate import (
+    ClusterSnapshot,
+    collective_consistency,
+    estimate_clock_offsets,
+    gather_cluster,
+    merged_chrome_trace,
+)
 from .attribution import AttributionReport, split_fence_benches, union_ms, window_report
 from .ceiling import RepSample, ceiling_report, rep_ceiling
 from .device import (
@@ -43,6 +52,7 @@ from .spans import SPAN_KINDS, TRACER, Span, Tracer, tracing
 
 __all__ = [
     "AttributionReport",
+    "ClusterSnapshot",
     "DEVICE_SPAN_KINDS",
     "DeviceCapture",
     "DeviceWindowReport",
@@ -56,7 +66,11 @@ __all__ = [
     "Tracer",
     "capture_device",
     "ceiling_report",
+    "collective_consistency",
+    "estimate_clock_offsets",
     "from_chrome_trace",
+    "gather_cluster",
+    "merged_chrome_trace",
     "profilez_payload",
     "rep_ceiling",
     "roofline_row",

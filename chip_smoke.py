@@ -217,6 +217,32 @@ Phases, each of which raises on failure (the script then exits non-zero):
    drained, and ``max_inflight_depth()`` at most the limit plus the
    largest number of markers one task added; (e) ``workloads.marker_overhead()``
    printed with the card's name and power limit;
+5k. the cluster tier across processes, mandelbrot 2048x2048x256 (the main
+   path's kernel, the emitter's escape form), each image held bit for bit
+   against one single-process ``compute()`` on the GPU lane: (a) a
+   ``CruncherServer()`` in a child interpreter on the card (``devices=None``)
+   and a ``ClusterAccelerator`` whose mainframe is this process's GPU lane,
+   ``tools/dcn_cluster.WARMUP`` + ``CLUSTER_ITERS`` iterations, each iteration's
+   shares, wall and bytes each way over the socket printed with the
+   Mpixels/s: every image exact, the balancer off the equal split and
+   inside the range, the emitted kernel launched in both processes and
+   none on the torch route; (b), run first while the server child starts
+   (the TCP iterations wait for its end): two ranks of
+   ``tools/dcn_cluster.py`` on the card's GPU lane over gloo
+   (``GLOO_SOCKET_IFNAME=lo``): the balanced
+   calls exact, one exchange of int64 values above 2^31 and float64 values
+   exact, the shares, ``ck_dcn_exchange_bytes_total``, the median
+   ``ck_dcn_exchange_seconds`` by op and ``gather_cluster``'s clock offsets
+   printed, ``merged_chrome_trace`` holding both ranks' spans; (c) the same
+   job's elastic windows (each one shifted frame added into a checkpointed
+   accumulator) preempted after window ``CLUSTER_KILL_AFTER`` of
+   ``CLUSTER_WINDOWS`` (every rank exits 17), a torn newest checkpoint
+   planted, and the job rejoined with rank 1 on two partition lanes of the
+   card through ``resume_elastic``: the image equal to the undisturbed
+   single-process sum, the membership change recorded and replayed.  A
+   member that cannot see the card fails the phase.  One card shows
+   correctness and the exchange's cost, not scaling across cards: the
+   processes share it;
 6. transformer: the flagship transformer's forward at the default width
    (vocab 32000, d_model 512, 4 layers, 8 heads of 64, d_ff 2048, bf16,
    ``attention="flash"``, seeded random weights) on ``cuda:0``.  With every
@@ -275,6 +301,7 @@ from __future__ import annotations
 import itertools
 import json
 import os
+import queue
 import subprocess
 import sys
 import threading
@@ -3700,6 +3727,382 @@ def check_markers(ck, wl, gpus, mods, ref_img: np.ndarray, card: str) -> dict:
     return out
 
 
+# -- phase 5k: the cluster tier across processes on the card ----------------------
+
+#: phase 5k (a) and (b): the timed iterations after the warm-ups
+#: (``tools/dcn_cluster.WARMUP``); (c): the elastic job's windows and the window
+#: after which the job is preempted
+CLUSTER_ITERS = 8
+CLUSTER_WINDOWS, CLUSTER_KILL_AFTER = 6, 3
+CLUSTER_CID = 7500
+#: every wait on a child of phase 5k, in seconds
+CLUSTER_CHILD_S = 120.0
+#: the server child of phase 5k (a): a CruncherServer on the card
+#: (devices=None), its port on a tagged line, served until its stdin closes,
+#: then its launch and build counts on a second tagged line
+SERVER_CHILD = r"""
+import json, sys
+from cekirdekler_tpu_torch.cluster import CruncherServer
+from cekirdekler_tpu_torch.kernel import cuda_backend, registry
+from cekirdekler_tpu_torch.kernel.build import BUILDS
+server = CruncherServer()
+print("CK_SERVER " + json.dumps({"port": server.port, "device": server.devices[0].kind,
+                                  "lanes": len(server.devices)}), flush=True)
+sys.stdin.read()
+server.stop()
+print("CK_SERVER_DONE " + json.dumps({"launches": dict(cuda_backend.LAUNCHES.by_key),
+                                       "routes": dict(registry.launch_counts),
+                                       "builds": dict(BUILDS.by_key)}), flush=True)
+"""
+
+
+def wire_bytes(msg) -> int:
+    """The bytes ``netbuffer.send_message`` puts on the wire for ``msg``
+    (its 9-byte header and the payload), counted without encoding it."""
+    n = 9 + 4 * 4  # the header; the four section counts
+    n += sum(2 + len(k.encode()) + 8 for k in msg.meta)
+    n += sum(4 + len(s.encode()) for s in msg.strings)
+    n += 9 * len(msg.values)
+    return n + sum(30 + np.ascontiguousarray(r.data).nbytes for r in msg.arrays)
+
+
+class WireCount:
+    """While installed, counts the bytes the cluster client sends and
+    receives (``client_mod`` is ``cekirdekler_tpu_torch.cluster.client``)."""
+
+    def __init__(self, client_mod):
+        self.mod = client_mod
+        self.sent = self.received = 0
+
+    def __enter__(self) -> "WireCount":
+        self._send, self._recv = self.mod.send_message, self.mod.recv_message
+
+        def send(sock, msg):
+            self._send(sock, msg)
+            self.sent += wire_bytes(msg)
+
+        def recv(sock):
+            msg = self._recv(sock)
+            self.received += wire_bytes(msg)
+            return msg
+
+        self.mod.send_message, self.mod.recv_message = send, recv
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.mod.send_message, self.mod.recv_message = self._send, self._recv
+
+
+def cluster_env() -> dict:
+    """The environment of phase 5k's children: this one's, without the
+    planes a parent's phase may have armed, and gloo bound to loopback (the
+    jobs are all on this host)."""
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("CK_COMPILE_CACHE", "CK_DECISION_LOG", "CK_FAULTS", "CK_KERNEL_VERIFY")}
+    env["GLOO_SOCKET_IFNAME"] = "lo"
+    return env
+
+
+def tagged_line(lines: "queue.Queue", tag: str, seen: list, timeout: float) -> dict:
+    """The JSON after ``tag`` on the next line of a child that has it; the
+    other lines go to ``seen``.  Raises when the child ends first or the wait
+    passes ``timeout``."""
+    deadline = time.monotonic() + timeout
+    while True:
+        try:
+            line = lines.get(timeout=max(0.01, deadline - time.monotonic()))
+        except queue.Empty:
+            raise AssertionError(f"no {tag.strip()} line within {timeout} s: "
+                                 f"{''.join(seen)[-2000:]}") from None
+        if line is None:
+            raise AssertionError(f"the child ended before its {tag.strip()} line: "
+                                 f"{''.join(seen)[-2000:]}")
+        if line.startswith(tag):
+            return json.loads(line[len(tag):])
+        seen.append(line)
+
+
+def start_child(args: list[str], env: dict) -> tuple:
+    """A child interpreter from the repository root with its output pumped
+    into a queue by a daemon thread (every read of it can then be bounded)."""
+    proc = subprocess.Popen([sys.executable, *args], cwd=os.path.dirname(os.path.abspath(__file__)),
+                            env=env, stdin=subprocess.PIPE, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+    lines: queue.Queue = queue.Queue()
+
+    def pump():
+        for line in proc.stdout:
+            lines.put(line)
+        lines.put(None)
+
+    threading.Thread(target=pump, daemon=True).start()
+    return proc, lines
+
+
+def stop_child(proc) -> None:
+    if proc.poll() is None:
+        proc.kill()
+    proc.wait(timeout=30)
+
+
+def tcp_run(ck, wl, gpus, ref: np.ndarray, W: int, max_iter: int, server: dict, mods) -> dict:
+    """Phase 5k (a)'s iterations: a ClusterAccelerator of the server child and
+    the GPU lane as mainframe, each iteration's image held against ``ref``."""
+    from cekirdekler_tpu_torch.cluster import ClusterAccelerator
+    from cekirdekler_tpu_torch.cluster import client as client_mod
+    from cekirdekler_tpu_torch.tools import dcn_cluster as tool
+
+    cuda_backend = mods[2]
+    n = W * W
+    out = ck.ClArray(n, np.float32, name="cluster_out", read=False, write=True)
+    vals = (-2.0, -1.25, 2.5 / W, 2.5 / W, W, max_iter)
+    run: dict = {"shares": [], "walls_ms": [], "bad": [], "sent": [], "received": [], "n": n}
+    cluster = ClusterAccelerator([("127.0.0.1", server["port"])], local_devices=gpus.subset(1))
+    try:
+        cluster.setup_nodes(wl.MANDELBROT_SRC)
+        reset_counts(*mods)
+        with WireCount(client_mod) as wc:
+            for k in range(tool.WARMUP + CLUSTER_ITERS):
+                out.host()[:] = -1.0  # a pixel no node wrote cannot pass
+                sent, received = wc.sent, wc.received
+                t0 = time.perf_counter()
+                cluster.compute("mandelbrot", [out], CLUSTER_CID, n, 256, values=vals)
+                run["walls_ms"].append((time.perf_counter() - t0) * 1e3)
+                run["shares"].append(cluster.ranges_of(CLUSTER_CID))
+                run["bad"].append(int((out.host() != ref).sum()))
+                run["sent"].append(wc.sent - sent)
+                run["received"].append(wc.received - received)
+        run["nodes"] = len(cluster.clients) + 1
+        run["mainframe_launches"] = cuda_backend.LAUNCHES.by_key.get("mandelbrot", 0)
+        run["mainframe_routes"] = dict(mods[0].launch_counts)
+    finally:
+        cluster.dispose()
+    timed = run["walls_ms"][tool.WARMUP:]
+    run["mpixels_per_sec"] = n * len(timed) / (sum(timed) / 1e3) / 1e6
+    return run
+
+
+def gate_tcp_tier(run: dict, server_done: dict, on_card: bool = True) -> None:
+    """Phase 5k (a)'s gates: every iteration's image exact, no node lost, the
+    shares inside the range and moved off the equal first split, and on the
+    card the emitted kernel launched on both members, none on the torch
+    route."""
+    if any(run["bad"]):
+        raise AssertionError(f"TCP tier: pixels differ from the single-process image by "
+                             f"iteration: {run['bad']}")
+    if run["nodes"] != 2:
+        raise AssertionError(f"TCP tier: the server node was dropped ({run['nodes']} nodes left)")
+    n = run["n"]
+    for shares in run["shares"]:
+        if len(shares) != 2 or sum(shares) != n or min(shares) < 0:
+            raise AssertionError(f"TCP tier: shares {shares} outside the range of {n}")
+    if all(s == run["shares"][0] for s in run["shares"]):
+        raise AssertionError(f"TCP tier: the balancer never left the equal split "
+                             f"{run['shares'][0]}")
+    if not on_card:
+        return
+    if run["mainframe_launches"] <= 0 or run["mainframe_routes"].get("torch", 0):
+        raise AssertionError(f"TCP tier: the mainframe's launches {run['mainframe_launches']}, "
+                             f"routes {run['mainframe_routes']}")
+    if server_done["launches"].get("mandelbrot", 0) <= 0 or \
+            server_done["routes"].get("torch", 0):
+        raise AssertionError(f"TCP tier: the server child's launches {server_done['launches']}, "
+                             f"routes {server_done['routes']}")
+
+
+def gate_dcn_job(job: dict, n: int, digest: str, on_card: bool = True) -> None:
+    """Phase 5k (b)'s gates over the first job's reports (the job ends
+    preempted, every rank with ``EXIT_PREEMPTED``): each rank's image equal
+    to the single-process one, 64-bit values exact, the merged trace
+    holding both ranks' spans, the share tables agreeing, and on the card
+    each rank on the card with the emitted kernel launched and no launch on
+    the torch route."""
+    from cekirdekler_tpu_torch.tools.dcn_cluster import EXIT_PREEMPTED
+
+    if job["rcs"] != [EXIT_PREEMPTED] * len(job["rcs"]) or None in job["reports"]:
+        raise AssertionError(f"DCN job: exit codes {job['rcs']} (want {EXIT_PREEMPTED} each "
+                             f"after window {CLUSTER_KILL_AFTER}): {job['outputs']}")
+    for rep in job["reports"]:
+        pid = rep["pid"]
+        if on_card and rep["device"] == "cpu":
+            raise AssertionError(f"DCN rank {pid} ran on a host lane")
+        if rep["digest"] != digest:
+            raise AssertionError(f"DCN rank {pid}: image digest {rep['digest']}, the single "
+                                 f"process's {digest}")
+        if not all(rep["exchange_exact"].values()):
+            raise AssertionError(f"DCN rank {pid}: 64-bit exchange {rep['exchange_exact']}")
+        g = rep["gather"]
+        if g["trace_blocks"] != list(range(1, len(job["rcs"]) + 1)) or \
+                min(g["spans_by_block"].values()) <= 0:
+            raise AssertionError(f"DCN rank {pid}: the merged trace's blocks {g['trace_blocks']}, "
+                                 f"spans by block {g['spans_by_block']}")
+        if any(sum(s) != n for s in rep["shares"]):
+            raise AssertionError(f"DCN rank {pid}: shares {rep['shares']} outside {n}")
+        if on_card and (rep["launches"].get("mandelbrot", 0) <= 0 or
+                        rep["routes"].get("torch", 0)):
+            raise AssertionError(f"DCN rank {pid}: launches {rep['launches']}, routes "
+                                 f"{rep['routes']}")
+        if rep["elastic"]["last_window"] != CLUSTER_KILL_AFTER:
+            raise AssertionError(f"DCN rank {pid}: preempted after window "
+                                 f"{rep['elastic']['last_window']}")
+    if job["reports"][0]["shares"] != job["reports"][1]["shares"]:
+        raise AssertionError("DCN job: the ranks' share tables differ")
+
+
+def gate_rejoin(job: dict, lanes: list[int], digest: str, on_card: bool = True) -> None:
+    """Phase 5k (c)'s gates over the rejoined job's reports: it resumed from
+    the last window before the preemption with the changed membership
+    recorded and replayed, its image equals the undisturbed one, and on the
+    card every rank ran there with the emitted kernel."""
+    if job["rcs"] != [0] * len(job["rcs"]) or None in job["reports"]:
+        raise AssertionError(f"rejoin: exit codes {job['rcs']}: {job['outputs']}")
+    for rep in job["reports"]:
+        el, pid = rep["elastic"], rep["pid"]
+        if (on_card and rep["device"] == "cpu") or rep["proc_device_counts"] != lanes:
+            raise AssertionError(f"rejoin rank {pid}: device {rep['device']}, lanes "
+                                 f"{rep['proc_device_counts']} (want {lanes})")
+        if el["resumed_from"] != CLUSTER_KILL_AFTER or el["last_window"] != CLUSTER_WINDOWS:
+            raise AssertionError(f"rejoin rank {pid}: resumed from {el['resumed_from']}, ended "
+                                 f"at {el['last_window']}")
+        if el["digest"] != digest:
+            raise AssertionError(f"rejoin rank {pid}: image digest {el['digest']}, the "
+                                 f"undisturbed run's {digest}")
+        if not el["replay_ok"] or not {"member-leave", "member-join", "checkpoint-restore"} \
+                <= set(el["decision_kinds"]):
+            raise AssertionError(f"rejoin rank {pid}: decisions {el['decision_kinds']}, replay "
+                                 f"ok {el['replay_ok']}")
+        if on_card and (rep["launches"].get("mandelbrot", 0) <= 0 or
+                        rep["routes"].get("torch", 0)):
+            raise AssertionError(f"rejoin rank {pid}: launches {rep['launches']}, routes "
+                                 f"{rep['routes']}")
+
+
+def dcn_args(root: str, W: int, max_iter: int, cpu: bool) -> list[str]:
+    """The flags phase 5k's two DCN jobs share (``cpu``: host lanes)."""
+    args = ["--procs", "2", "--width", str(W), "--max-iter", str(max_iter),
+            "--windows", str(CLUSTER_WINDOWS), "--kill-after", str(CLUSTER_KILL_AFTER),
+            "--ckpt-root", root, "--timeout", str(CLUSTER_CHILD_S / 2)]
+    return args + ["--cpu"] if cpu else args
+
+
+def dcn_first(root: str, W: int, max_iter: int, env: dict, cpu: bool = False) -> dict:
+    """Phase 5k (b): two ranks on the card run the balanced calls, the 64-bit
+    exchange, the gather and the first elastic windows, and are preempted."""
+    from cekirdekler_tpu_torch.tools import dcn_cluster as tool
+
+    return tool.run_job(dcn_args(root, W, max_iter, cpu) +
+                        ["--calls", str(CLUSTER_ITERS), "--phase", "first"],
+                        env=env, timeout=CLUSTER_CHILD_S)
+
+
+def dcn_rejoin(root: str, W: int, max_iter: int, env: dict, cpu: bool = False) -> dict:
+    """Phase 5k (c): past a torn newest checkpoint, the preempted job rejoins
+    with rank 1 on two partition lanes of the card and finishes the windows."""
+    from cekirdekler_tpu_torch.tools import dcn_cluster as tool
+
+    torn = os.path.join(root, f"step_{CLUSTER_KILL_AFTER + 1:012d}")
+    os.makedirs(torn, exist_ok=True)
+    with open(os.path.join(torn, "arrays.npz"), "wb") as f:
+        f.write(b"a torn checkpoint")
+    return tool.run_job(dcn_args(root, W, max_iter, cpu) +
+                        ["--lanes", "1,2", "--calls", "0", "--phase", "rejoin"],
+                        env=env, timeout=CLUSTER_CHILD_S)
+
+
+def check_cluster(ck, wl, gpus, mods, ref_img: np.ndarray, card: str, W: int = 2048,
+                  max_iter: int = 256) -> dict:
+    """Phase 5k, (a)-(c) of the docstring; returns what it printed."""
+    import shutil
+    import tempfile
+
+    from cekirdekler_tpu_torch.kernel.build import BUILDS
+    from cekirdekler_tpu_torch.tools import dcn_cluster as tool
+
+    t0 = time.perf_counter()
+    env = cluster_env()
+    seen: list = []
+    out: dict = {}
+    root = tempfile.mkdtemp(prefix="ck_5k_")
+    ckpt = os.path.join(root, "ckpt")
+    proc, lines = start_child(["-c", SERVER_CHILD], env)
+    try:
+        with ThreadPoolExecutor(max_workers=1) as pool:
+            # the server child and the DCN ranks start together; the TCP
+            # iterations wait for the DCN job's end, so no two tiers share
+            # the card while one is measured
+            first_job = pool.submit(dcn_first, ckpt, W, max_iter, env)
+            single = ck.ClArray(W * W, np.float32, read=False, write=True)
+            with ck.NumberCruncher(gpus.subset(1), wl.MANDELBROT_SRC) as cr:
+                single.compute(cr, CLUSTER_CID, "mandelbrot", W * W, 256,
+                               values=(-2.0, -1.25, 2.5 / W, 2.5 / W, W, max_iter))
+            gate_exact(single.host(), ref_img, "phase 5k's single-process compute()")
+            undisturbed = tool.undisturbed_windows(gpus.subset(1), W, max_iter, CLUSTER_WINDOWS)
+            first = first_job.result()
+        server = tagged_line(lines, "CK_SERVER ", seen, CLUSTER_CHILD_S)
+        if server["device"] == "cpu":
+            raise AssertionError(f"the server child took a host lane: {server}")
+        run = tcp_run(ck, wl, gpus, single.host(), W, max_iter, server, mods)
+        proc.stdin.close()
+        done = tagged_line(lines, "CK_SERVER_DONE ", seen, CLUSTER_CHILD_S)
+        if proc.wait(timeout=CLUSTER_CHILD_S) != 0:
+            raise AssertionError(f"the server child exited {proc.returncode}")
+        rejoin = dcn_rejoin(ckpt, W, max_iter, env)
+    finally:
+        stop_child(proc)
+        shutil.rmtree(root, ignore_errors=True)
+    gate_tcp_tier(run, done)
+    for k, (s, w) in enumerate(zip(run["shares"], run["walls_ms"])):
+        print(f"cluster (a) TCP iteration {k}{' (warm-up)' if k < tool.WARMUP else ''}: "
+              f"shares [server, mainframe] {s}, wall {w:.3f} ms, {run['sent'][k]} B sent, "
+              f"{run['received'][k]} B received, image exact")
+    print(f"cluster (a) TCP tier, mandelbrot {W}x{W}x{max_iter}, a server child on {server['device']}"
+          f" and the GPU lane as mainframe: {run['mpixels_per_sec']:.1f} Mpixels/s over "
+          f"{CLUSTER_ITERS} iterations; launches mainframe {run['mainframe_launches']}, server "
+          f"{done['launches'].get('mandelbrot', 0)}; builds parent {dict(BUILDS.by_key)}, "
+          f"server {done['builds']}; on {card}")
+    out["tcp"] = {k: run[k] for k in ("shares", "walls_ms", "sent", "received",
+                                      "mpixels_per_sec", "mainframe_launches")}
+    out["tcp"]["server_launches"] = done["launches"].get("mandelbrot", 0)
+    gate_dcn_job(first, W * W, tool.digest(single.host()))
+    gate_rejoin(rejoin, [1, 2], tool.digest(undisturbed))
+    for rep in first["reports"]:
+        ex = rep["exchange"]
+        print(f"cluster (b) DCN rank {rep['pid']} on {rep['device']}: shares by call "
+              f"{rep['shares']}, walls {[round(w, 3) for w in rep['walls_ms']]} ms, "
+              f"{rep['mpixels_per_sec']:.1f} Mpixels/s; ck_dcn_exchange_bytes_total "
+              f"{ {op: v['bytes'] for op, v in ex.items()} }, median ck_dcn_exchange_seconds "
+              f"{ {op: v['median_s'] for op, v in ex.items()} } over "
+              f"{ {op: v['count'] for op, v in ex.items()} } calls; gather_cluster offsets "
+              f"{rep['gather']['offsets']}, alignment margin {rep['gather']['margin_s']:.6f} s, "
+              f"merged trace blocks {rep['gather']['trace_blocks']} with spans "
+              f"{rep['gather']['spans_by_block']}; 64-bit exchange {rep['exchange_exact']}; "
+              f"launches {rep['launches'].get('mandelbrot', 0)}, builds {rep['builds']}")
+    for rep in rejoin["reports"]:
+        el = rep["elastic"]
+        print(f"cluster (c) rejoin rank {rep['pid']} with {rep['lanes']} lane(s): resumed from "
+              f"window {el['resumed_from']} (member steps {el['member_steps_before']} -> "
+              f"{el['member_steps']}, epoch {el['epoch']}), windows' shares {el['shares']}, "
+              f"image equal to the undisturbed run's, decisions {el['decision_kinds']} replayed "
+              f"ok; launches {rep['launches'].get('mandelbrot', 0)}, builds {rep['builds']}")
+    print(f"cluster (b)/(c) job seconds: first {first['seconds']:.1f}, rejoin "
+          f"{rejoin['seconds']:.1f}")
+    out["dcn"] = [{k: rep[k] for k in ("pid", "shares", "walls_ms", "mpixels_per_sec",
+                                        "exchange", "launches")} | {
+        "offsets": rep["gather"]["offsets"], "margin_s": rep["gather"]["margin_s"]}
+        for rep in first["reports"]]
+    out["rejoin"] = [{"pid": rep["pid"], "lanes": rep["lanes"], "shares": rep["elastic"]["shares"],
+                      "launches": rep["launches"]} for rep in rejoin["reports"]]
+    out["launches"] = {"tcp_mainframe": run["mainframe_launches"],
+                       "tcp_server": out["tcp"]["server_launches"],
+                       **{f"dcn_rank{r['pid']}": r["launches"].get("mandelbrot", 0)
+                          for r in first["reports"]},
+                       **{f"rejoin_rank{r['pid']}": r["launches"].get("mandelbrot", 0)
+                          for r in rejoin["reports"]}}
+    out["seconds"] = time.perf_counter() - t0
+    print(f"phase 5k: {out['seconds']:.1f} s")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -4042,6 +4445,10 @@ def main() -> int:
     rows["emitter:streamAdd"]["marker_launches"] = markers_res["gate"]["launch_markers"]
     rows["mandelbrot"]["marker_launches"] = markers_res["pool"]["gpu_launches"]
 
+    phase("5k cluster tier across processes")
+    cluster_res = check_cluster(ck, wl, gpus, mods, ref_img, card)
+    rows["emitter:mandelbrot"]["cluster_launches"] = cluster_res["launches"]
+
     phase("transformer forward")
     rows["flash_attention"]["launches"] = check_transformer(wl, fa_op, card)
 
@@ -4094,7 +4501,7 @@ def main() -> int:
             "bound_by": rr["bound_by"], "library_ms": rr["library_ms"],
             **{key: rr[key] for key in ("kernel_route", "fp32_ms", "fp32_bound_ms", "torch_ops_ms",
                                         "pipeline_launches", "event_ms", "trace_ms",
-                                        "marker_launches")
+                                        "marker_launches", "cluster_launches")
                if key in rr},
         })
     print(f"mpixels_per_sec: {json.dumps(res)}; streamed against monolithic: "
@@ -4115,6 +4522,7 @@ def main() -> int:
     print(f"verify gate, checkpoint, debug server: {json.dumps({'verify': verify_res, 'checkpoint': {k: ckpt_res[k] for k in ('leaves', 'bf16_leaves', 'moments', 'max_rel')}, 'debug': {k: debug_res[k] for k in ('lane_series', 'decision_kinds', 'profilez_rows')}})}")
     print(f"compile cache: {json.dumps(cache_res)}")
     print(f"markers and user events: {json.dumps({k: markers_res[k] for k in ('gate', 'pool', 'overhead', 'seconds')})}")
+    print(f"cluster tier: {json.dumps(cluster_res)}")
     print(f"phase seconds: {json.dumps(phase_seconds())}")
     print(card)
     print(json.dumps({"kernels": kernels}))

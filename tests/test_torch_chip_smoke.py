@@ -23,6 +23,13 @@ throttled pool pass on host lanes; each fails on a planted fault (a lost
 reach leaving markers after the drain, markers reached at issue, a gate
 whose wait returns at once, a depth over the pool's bound), and phase
 (b)'s measure runs over a marker that a future retires later.
+Phase 5k's gates: the TCP tier's run on host lanes (a server in this
+process, the mainframe a host lane) and the two DCN jobs on host lanes
+pass; hand-made runs fail them (a pixel no node wrote, a dropped node, a
+balancer that never moved, a lost rank, a merged trace without a rank's
+spans, a 64-bit value that did not cross, a rejoined image off the
+undisturbed one), the server child refuses to start without a card, and
+``wire_bytes`` counts what ``send_message`` frames.
 """
 
 from __future__ import annotations
@@ -991,3 +998,150 @@ def test_phase_5j_pool_gate_refuses(fault, match):
     res = dict({"max_inflight_depth": 3, "burst": 3, "remaining": [0, 0, 0]}, **fault)
     with pytest.raises(AssertionError, match=match):
         chip_smoke.gate_pool_depth(res, 4)
+
+
+# -- phase 5k: the cluster tier, on host lanes and over hand-made runs ---------------
+
+def test_phase_5k_wire_bytes_counts_the_frame():
+    from cekirdekler_tpu_torch.cluster.netbuffer import ArrayRecord, Command, Message
+
+    for msg in (Message(Command.CONTROL),
+                Message(Command.COMPUTE, meta={"compute_id": 3, "size_1": 9}, strings=["ü", "k"],
+                        values=[1, 2.5], arrays=[ArrayRecord(1, np.arange(7, dtype=np.int64)),
+                                                 ArrayRecord(2, np.zeros(0, np.float32))])):
+        assert chip_smoke.wire_bytes(msg) == 9 + len(msg.encode())
+
+
+@pytest.fixture(scope="module")
+def tcp_run_on_host_lanes():
+    """Phase 5k (a)'s run at 128x128x16, the server in this process; its node
+    is made slower by a modelled 40 ms a request (the frame's halves cost the
+    same, so only the node's overhead can move the balancer, and on host
+    lanes that is noise)."""
+    import time
+
+    import cekirdekler_tpu_torch as ck
+    from cekirdekler_tpu_torch import workloads as wl
+    from cekirdekler_tpu_torch.cluster import CruncherServer
+    from cekirdekler_tpu_torch.cluster import server as server_mod
+
+    W, it = 128, 16
+    ref = wl.mandelbrot_host(W, W, -2.0, -1.25, 2.5 / W, 2.5 / W, it)
+    real = server_mod._ClientSession._compute
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(server_mod._ClientSession, "_compute",
+                   lambda self, msg: (time.sleep(0.04), real(self, msg))[1])
+        server = CruncherServer(devices=ck.cpus(1))
+        try:
+            return chip_smoke.tcp_run(ck, wl, ck.cpus(1), ref, W, it, {"port": server.port},
+                                      _mods())
+        finally:
+            server.stop()
+
+
+def test_phase_5k_tcp_gate_passes_on_host_lanes(tcp_run_on_host_lanes):
+    run = tcp_run_on_host_lanes
+    chip_smoke.gate_tcp_tier(run, {"launches": {}, "routes": {}}, on_card=False)
+    from cekirdekler_tpu_torch.tools.dcn_cluster import WARMUP
+
+    assert len(run["shares"]) == WARMUP + chip_smoke.CLUSTER_ITERS
+    # the server's slice comes back, 4 bytes a pixel, inside one reply
+    assert all(4 * sh[0] < r < 4 * sh[0] + 200
+               for r, sh in zip(run["received"], run["shares"]))
+    assert all(0 < s < 400 for s in run["sent"])  # a write-only image: no payload goes out
+
+
+@pytest.mark.parametrize("fault, match", [
+    ({"bad": [0, 3] + [0] * 8}, "pixels differ"),
+    ({"nodes": 1}, "dropped"),
+    ({"shares": [[8192, 8192]] * 10}, "never left the equal split"),
+    ({"shares": [[8192, 8192], [16384, 1]] + [[8192, 8192]] * 8}, "outside the range"),
+])
+def test_phase_5k_tcp_gate_refuses(tcp_run_on_host_lanes, fault, match):
+    run = dict(tcp_run_on_host_lanes, **fault)
+    with pytest.raises(AssertionError, match=match):
+        chip_smoke.gate_tcp_tier(run, {"launches": {}, "routes": {}}, on_card=False)
+
+
+def test_phase_5k_tcp_gate_refuses_the_torch_route_on_the_card(tcp_run_on_host_lanes):
+    with pytest.raises(AssertionError, match="mainframe's launches"):
+        chip_smoke.gate_tcp_tier(tcp_run_on_host_lanes, {"launches": {}, "routes": {}})
+
+
+@pytest.fixture(scope="module")
+def dcn_jobs_on_host_lanes(tmp_path_factory):
+    from cekirdekler_tpu_torch import cpus
+    from cekirdekler_tpu_torch.tools import dcn_cluster as tool
+    from cekirdekler_tpu_torch.workloads import mandelbrot_host
+
+    W, it = 64, 32
+    root = str(tmp_path_factory.mktemp("ck_5k") / "ckpt")
+    env = chip_smoke.cluster_env()
+    first = chip_smoke.dcn_first(root, W, it, env, cpu=True)
+    rejoin = chip_smoke.dcn_rejoin(root, W, it, env, cpu=True)
+    single = tool.digest(mandelbrot_host(W, W, -2.0, -1.25, 2.5 / W, 2.5 / W, it))
+    undisturbed = tool.digest(tool.undisturbed_windows(cpus(1), W, it, chip_smoke.CLUSTER_WINDOWS))
+    return first, rejoin, single, undisturbed, W * W
+
+
+def test_phase_5k_dcn_gates_pass_on_host_lanes(dcn_jobs_on_host_lanes):
+    first, rejoin, single, undisturbed, n = dcn_jobs_on_host_lanes
+    chip_smoke.gate_dcn_job(first, n, single, on_card=False)
+    chip_smoke.gate_rejoin(rejoin, [1, 2], undisturbed, on_card=False)
+    assert [r["elastic"]["resumed_from"] for r in rejoin["reports"]] == [3, 3]
+
+
+def _broken(job: dict, rank: int, **fields) -> dict:
+    reports = [dict(r) for r in job["reports"]]
+    for key, value in fields.items():
+        if key in ("gather", "elastic"):
+            reports[rank][key] = dict(reports[rank][key], **value)
+        else:
+            reports[rank][key] = value
+    return dict(job, reports=reports)
+
+
+@pytest.mark.parametrize("fault, match", [
+    (lambda j: dict(j, rcs=[17, None], reports=[j["reports"][0], None]), "exit codes"),
+    (lambda j: _broken(j, 1, digest="0" * 16), "image digest"),
+    (lambda j: _broken(j, 0, exchange_exact={"int64": False, "float64": True,
+                                             "broadcast0": True}), "64-bit"),
+    (lambda j: _broken(j, 1, gather={"trace_blocks": [1]}), "merged trace"),
+    (lambda j: _broken(j, 0, gather={"spans_by_block": {"1": 4, "2": 0}}), "merged trace"),
+    (lambda j: _broken(j, 1, shares=[[1, 2]]), "outside"),
+    (lambda j: _broken(j, 0, device="cpu"), "host lane"),
+])
+def test_phase_5k_dcn_gate_refuses(dcn_jobs_on_host_lanes, fault, match):
+    first, _, single, _, n = dcn_jobs_on_host_lanes
+    on_card = match == "host lane"
+    with pytest.raises(AssertionError, match=match):
+        chip_smoke.gate_dcn_job(fault(first), n, single, on_card=on_card)
+
+
+@pytest.mark.parametrize("fault, match", [
+    (lambda j: dict(j, rcs=[0, 1]), "exit codes"),
+    (lambda j: _broken(j, 1, elastic={"digest": "0" * 16}), "undisturbed"),
+    (lambda j: _broken(j, 0, elastic={"resumed_from": 4}), "resumed from"),
+    (lambda j: _broken(j, 0, elastic={"decision_kinds": ["checkpoint-restore"]}), "decisions"),
+    (lambda j: _broken(j, 1, proc_device_counts=[1, 1]), "lanes"),
+])
+def test_phase_5k_rejoin_gate_refuses(dcn_jobs_on_host_lanes, fault, match):
+    _, rejoin, _, undisturbed, _ = dcn_jobs_on_host_lanes
+    with pytest.raises(AssertionError, match=match):
+        chip_smoke.gate_rejoin(fault(rejoin), [1, 2], undisturbed, on_card=False)
+
+
+def test_phase_5k_server_child_refuses_without_a_card():
+    import torch
+
+    if torch.cuda.is_available():
+        pytest.skip("the refusal needs a machine without a card")
+    proc, lines = chip_smoke.start_child(["-c", chip_smoke.SERVER_CHILD], chip_smoke.cluster_env())
+    seen: list = []
+    try:
+        with pytest.raises(AssertionError, match="ended before"):
+            chip_smoke.tagged_line(lines, "CK_SERVER ", seen, 120)
+        assert "DeviceSelectionError" in "".join(seen)
+    finally:
+        chip_smoke.stop_child(proc)
+    assert proc.returncode != 0

@@ -17,7 +17,9 @@
   fixture's rows are of a kind whose module is not ported: counted under
   ``not_ported``, none verified.
 - **``ckreplay``.**  The port's CLI gives the reference's exit codes, and
-  exits 1 where a row was not replayed.
+  exits 1 where a row was not replayed; on a recorded membership log
+  (``member-leave``/``member-join``, a ``checkpoint-restore``) and on a
+  tampered copy of it, it gives the reference's verdict.
 - **Disabled is one branch.**  With the log disabled, a ``compute()``
   never reaches a recording call.
 """
@@ -123,7 +125,7 @@ def test_the_record_format_is_the_reference_s():
     assert decisions.DecisionRecord._fields == ref_decisions.DecisionRecord._fields
     assert set(replay.NOT_PORTED_KINDS) == set(ref_decisions.REPLAYABLE_KINDS) - {
         "load-balance", "prior-split", "transfer-choose", "transfer-observe",
-        "health-verdict", "drain-apply", "readmit"}
+        "health-verdict", "drain-apply", "readmit", "member-leave", "member-join"}
 
 
 @pytest.mark.parametrize("lanes", [2, 3])
@@ -334,3 +336,43 @@ def test_ckreplay_verifies_a_drained_log(monkeypatch, tmp_path, capsys):
     assert ref_ckreplay.main(["verify", str(path)]) == 0
     out = capsys.readouterr().out
     assert "NOT VERIFIED" not in out
+
+
+def _membership_log(tmp_path) -> list[dict]:
+    """A port job's membership log: a roster established, a member lost, a
+    rejoin resized, and a window resumed."""
+    from cekirdekler_tpu_torch.cluster.elastic import Membership, resume_window, save_window
+
+    DECISIONS.clear()
+    m = Membership()
+    m.establish({"p0": 128, "p1": 128, "p2": 64})
+    m.leave("p2", total=4096)
+    m.sync({"p0": 128, "p1": 256, "p3": 64}, total=5000)
+    m.join("p10", 64)  # no total: the roster alone is recorded
+    save_window(str(tmp_path / "ckpt"), 2, {"y": np.ones(4, np.float32)}, member_steps=[128, 256])
+    resume_window(str(tmp_path / "ckpt"))
+    return [r.to_row() for r in DECISIONS.snapshot()]
+
+
+def test_ckreplay_verify_gives_the_reference_s_verdict_on_a_membership_log(tmp_path, capsys):
+    rows = _membership_log(tmp_path)
+    kinds = Counter(r["kind"] for r in rows)
+    assert kinds["member-leave"] == 2 and kinds["member-join"] == 3
+    assert kinds["checkpoint-restore"] == 1
+    tampered = [dict(r) for r in rows]
+    i = next(k for k, r in enumerate(tampered) if r["kind"] == "member-join" and "ranges" in
+             r["outputs"])
+    tampered[i] = dict(tampered[i], outputs=dict(tampered[i]["outputs"], lcm=7))
+    for name, log in (("members.jsonl", rows), ("tampered.jsonl", tampered)):
+        path = tmp_path / name
+        path.write_text("".join(json.dumps(r) + "\n" for r in log))
+        mine, ref = replay.verify_records(log), ref_replay.verify_records(log)
+        assert mine["not_ported"] == {}
+        for key in ("ok", "records", "replayed", "skipped", "divergent", "per_kind"):
+            assert mine[key] == ref[key], key
+        assert mine["ok"] is (name == "members.jsonl")
+        if not mine["ok"]:
+            assert mine["first_divergence"]["seq"] == ref["first_divergence"]["seq"] == \
+                tampered[i]["seq"]
+        assert ckreplay.main(["verify", str(path)]) == ref_ckreplay.main(["verify", str(path)])
+    assert "NOT VERIFIED" not in capsys.readouterr().out

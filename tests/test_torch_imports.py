@@ -211,3 +211,55 @@ def test_marker_and_event_modules_are_pure_python(name):
     assert not any(_forbidden(m) for m in names)
     assert not any(m.split(".")[0] in ("torch", "ctypes") for m in names), names
     assert _relative_escapes(path) == []
+
+
+CLUSTER_SLICE = ("cluster", "cluster.netbuffer", "cluster.balancer", "cluster.server",
+                 "cluster.client", "cluster.accelerator", "cluster.elastic", "cluster.dcn",
+                 "trace.aggregate", "tools.dcn_cluster")
+
+
+@pytest.mark.parametrize("name", CLUSTER_SLICE)
+def test_cluster_slice_modules_are_scanned(name):
+    """The cluster tier, trace aggregation and the DCN tool are among the
+    scanned files and import no JAX and nothing of the JAX package (their
+    own copies of the reference's jax-free modules included)."""
+    parts = name.split(".")
+    path = PORT.joinpath(*parts[:-1], parts[-1] + ".py")
+    if not path.is_file():
+        path = PORT.joinpath(*parts, "__init__.py")
+    assert path in FILES
+    assert not any(_forbidden(m) for m in _imported_names(path))
+    assert _relative_escapes(path) == []
+
+
+_CLUSTER_CHILD = r"""
+import importlib, sys
+
+class Block:
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in ("jax", "jaxlib", "cekirdekler_tpu"):
+            raise ImportError(f"blocked import of {name}")
+        return None
+
+sys.meta_path.insert(0, Block())
+for name in sys.argv[1:]:
+    importlib.import_module("cekirdekler_tpu_torch." + name)
+import numpy as np
+from cekirdekler_tpu_torch.analysis import model
+from cekirdekler_tpu_torch.cluster import ClusterLoadBalancer, Command, Message
+from cekirdekler_tpu_torch.cluster.netbuffer import ArrayRecord
+assert model.check_machine("elastic", quick=True)["violations"] == []
+msg = Message(Command.COMPUTE, meta={"a": 1}, arrays=[ArrayRecord(1, np.arange(3.0))])
+assert Message.decode(msg.command, msg.encode()).meta == {"a": 1}
+assert ClusterLoadBalancer([64, 128]).equal_split(1024)[1] == 0
+leaked = sorted(k for k in sys.modules if k.split(".")[0] in ("jax", "jaxlib", "cekirdekler_tpu"))
+assert not leaked, leaked
+print("CLUSTER OK")
+"""
+
+
+def test_cluster_slice_runs_with_jax_blocked():
+    proc = subprocess.run([sys.executable, "-c", _CLUSTER_CHILD, *CLUSTER_SLICE], cwd=ROOT,
+                          env=_child_env(), capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert "CLUSTER OK" in proc.stdout

@@ -1,10 +1,10 @@
-"""The port's bounded model checker (``analysis/model.py``), drain and
-balance machines only, against the reference's.
+"""The port's bounded model checker (``analysis/model.py``), drain,
+elastic and balance machines, against the reference's.
 
 At the ``quick`` bounds and at tier-1 bounds (``CK_MODEL_DEPTH=1``) both
-packages' ``DrainMachine`` and ``BalanceMachine`` explore the same state
-and transition counts, exercise every declared invariant the same number
-of times, and find no violation.  The reference's deliberately broken
+packages' ``DrainMachine``, ``ElasticMachine`` and ``BalanceMachine``
+explore the same state and transition counts, exercise every declared
+invariant the same number of times, and find no violation.  The reference's deliberately broken
 fixture seams (one per declared invariant) give a counterexample in the
 port, and the counterexample bridge replays it (``obs.replay``): a broken
 drain trace diverges, a real balance trace replays clean.  The other
@@ -20,6 +20,7 @@ import pytest
 
 from cekirdekler_tpu.analysis import model as RM
 from cekirdekler_tpu_torch.analysis import model as M
+from cekirdekler_tpu_torch.cluster import elastic as E
 from cekirdekler_tpu_torch.core import balance as B
 from cekirdekler_tpu_torch.errors import NotPortedError
 from cekirdekler_tpu_torch.obs import drain as D
@@ -77,15 +78,18 @@ def test_the_vocabulary_and_declared_invariants_are_the_reference_s():
     from cekirdekler_tpu.core import balance as RB
     from cekirdekler_tpu.obs import drain as RD
 
+    from cekirdekler_tpu.cluster import elastic as RE
+
     assert D.MODEL_INVARIANTS == RD.MODEL_INVARIANTS
     assert B.MODEL_INVARIANTS == RB.MODEL_INVARIANTS
+    assert E.MODEL_INVARIANTS == RE.MODEL_INVARIANTS
     assert set(M.DrainMachine.checks) == {r[0] for r in D.MODEL_INVARIANTS}
     assert set(M.BalanceMachine.checks) == {r[0] for r in B.MODEL_INVARIANTS}
+    assert set(M.ElasticMachine.checks) == {r[0] for r in E.MODEL_INVARIANTS}
 
 
-@pytest.mark.parametrize("name, item", [("elastic", "A 7"), ("serve", "A 8"),
-                                        ("resilience", "A 8"), ("router", "A 8"),
-                                        ("block", "A 9")])
+@pytest.mark.parametrize("name, item", [("serve", "A 8"), ("resilience", "A 8"),
+                                        ("router", "A 8"), ("block", "A 9")])
 def test_other_machines_name_their_queue_item(name, item):
     with pytest.raises(NotPortedError, match=item):
         M.build_machines(name)
@@ -215,6 +219,64 @@ def _balance_machine(alphabet=(1.0, 5.0), **kw):
     return M.BalanceMachine(rate_alphabet=alphabet, lane_counts=(2,), horizon=24, **kw)
 
 
+class _DoubleEpoch(E.Membership):
+    def _transition(self, kind, member, step, total):
+        out = super()._transition(kind, member, step, total)
+        with self._mu:
+            self.epoch += 1  # a skipped number between records
+        return out
+
+
+class _NoJoins(E.Membership):
+    def sync(self, present, total=None):
+        return super().sync({k: v for k, v in present.items() if k in self.members}, total)
+
+
+class _FlakyOrder(E.Membership):
+    """Keeps the roster outcome and the leaves-before-joins order, but flips
+    the order within each phase on alternate drives."""
+
+    FLIP = [False]
+
+    def sync(self, present, total=None):
+        _FlakyOrder.FLIP[0] = not _FlakyOrder.FLIP[0]
+        rev = _FlakyOrder.FLIP[0]
+        with self._mu:
+            current = dict(self.members)
+        resized = sorted(m for m in present if m in current and present[m] != current[m])
+        out = [self.leave(m, total)
+               for m in sorted(set(current) - set(present), reverse=rev) + resized]
+        return out + [self.join(m, present[m], total)
+                      for m in sorted(set(present) - set(current), reverse=rev) + resized]
+
+
+def _elastic_machine(**kw):
+    return M.ElasticMachine(member_ids=("p0", "p2"), steps=(2, 3), **kw)
+
+
+def _lossy_resplit(steps, total, real=E.member_resplit):
+    out = real(steps, total)
+    if len(out["ranges"]) >= 2 and out["ranges"][0] >= out["lcm"]:
+        out = dict(out, ranges=[out["ranges"][0] - out["lcm"], *out["ranges"][1:]])
+    return out
+
+
+def _unquantized_resplit(steps, total, real=E.member_resplit):
+    out = real(steps, total)
+    if len(out["ranges"]) >= 2 and out["ranges"][0] >= 1:
+        out = dict(out, ranges=[out["ranges"][0] - 1, *out["ranges"][1:-1],
+                                out["ranges"][-1] + 1])
+    return out
+
+
+def _patched_resplit(fn):
+    """A machine over the real Membership whose re-split is ``fn``."""
+    def factory(monkeypatch):
+        monkeypatch.setattr(E, "member_resplit", fn)
+        return _elastic_machine()
+    return factory
+
+
 BROKEN_FIXTURES = {
     "availability-floor": lambda: _drain_machine(transition=_no_floor),
     "share-conservation": lambda: _drain_machine(masker=_leaky_masker),
@@ -229,17 +291,31 @@ BROKEN_FIXTURES = {
     "converges": lambda: _balance_machine(balance=_oscillator),
     "prior-seeded-jump-within-one-step":
         lambda: _balance_machine(alphabet=(1.0, 100.0), seeder=_equal_seeder),
+    "epoch-monotone": lambda: _elastic_machine(membership_cls=_DoubleEpoch),
+    "sync-converges": lambda: _elastic_machine(membership_cls=_NoJoins),
+    # needs two departures at once for the order within a phase to vary
+    "deterministic-order": lambda: M.ElasticMachine(
+        member_ids=("p0", "p2", "p10"), steps=(2, 3), membership_cls=_FlakyOrder),
+}
+
+#: the elastic invariants broken through the re-split, not the membership class
+PATCHED_FIXTURES = {
+    "resplit-conservation": _patched_resplit(_lossy_resplit),
+    "resplit-quantized": _patched_resplit(_unquantized_resplit),
 }
 
 
 def test_fixture_table_covers_every_declared_invariant():
-    declared = {r[0] for r in D.MODEL_INVARIANTS} | {r[0] for r in B.MODEL_INVARIANTS}
-    assert set(BROKEN_FIXTURES) == declared
+    declared = {r[0] for r in D.MODEL_INVARIANTS} | {r[0] for r in B.MODEL_INVARIANTS} | {
+        r[0] for r in E.MODEL_INVARIANTS}
+    assert set(BROKEN_FIXTURES) | set(PATCHED_FIXTURES) == declared
 
 
-@pytest.mark.parametrize("inv_id", sorted(BROKEN_FIXTURES))
-def test_broken_fixture_produces_counterexample(inv_id):
-    report = BROKEN_FIXTURES[inv_id]().explore()
+@pytest.mark.parametrize("inv_id", sorted(BROKEN_FIXTURES) + sorted(PATCHED_FIXTURES))
+def test_broken_fixture_produces_counterexample(inv_id, monkeypatch):
+    machine = BROKEN_FIXTURES[inv_id]() if inv_id in BROKEN_FIXTURES else \
+        PATCHED_FIXTURES[inv_id](monkeypatch)
+    report = machine.explore()
     hit = [v for v in report["violations"] if v.invariant == inv_id]
     assert hit, f"{inv_id}: no violation; got {[v.invariant for v in report['violations']]}"
     v = hit[0]
@@ -288,3 +364,32 @@ def test_violation_fingerprints_match_the_reference_s():
                           transition=ref_no_floor).explore()
     assert [(v.invariant, v.fingerprint, len(v.trace)) for v in mine["violations"]] == \
         [(v.invariant, v.fingerprint, len(v.trace)) for v in ref["violations"]]
+
+
+def test_a_broken_membership_is_caught_as_the_reference_catches_it():
+    """The double-epoch membership gives the same counterexamples in both
+    packages.  Each record of its trace is consistent alone (the skipped
+    epoch falls between records), so both packages' replays pass it."""
+    from cekirdekler_tpu.cluster import elastic as RE
+
+    class RefDoubleEpoch(RE.Membership):
+        def _transition(self, kind, member, step, total):
+            out = super()._transition(kind, member, step, total)
+            with self._mu:
+                self.epoch += 1
+            return out
+
+    mine = _elastic_machine(membership_cls=_DoubleEpoch).explore()
+    ref = RM.ElasticMachine(member_ids=("p0", "p2"), steps=(2, 3),
+                            membership_cls=RefDoubleEpoch).explore()
+    assert mine["violations"] and \
+        [(v.invariant, v.fingerprint, len(v.trace)) for v in mine["violations"]] == \
+        [(v.invariant, v.fingerprint, len(v.trace)) for v in ref["violations"]]
+    assert (mine["states_explored"], mine["transitions"]) == \
+        (ref["states_explored"], ref["transitions"])
+    v = next(x for x in mine["violations"] if x.invariant == "epoch-monotone")
+    from cekirdekler_tpu.obs.replay import verify_records as ref_verify_records
+
+    verdict = verify_counterexample(v)
+    assert verdict["ok"] is True and verdict["replayed"] == len(v.trace) > 0
+    assert ref_verify_records(v.trace)["ok"] is True

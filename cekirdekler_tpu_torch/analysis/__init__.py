@@ -25,9 +25,12 @@ Consumers in the port:
   sources (ratcheted baseline, ``--json``, ``--explain``,
   ``// ckprove: ok`` source suppressions).
 
-The reference's serve admission is the third consumer; it comes with the
-serving tier (ROADMAP Queue A 8).  :mod:`.model` (the bounded model
-checker of the drain and balance machines) is deliberately NOT imported
+- ``ServeFrontend.submit`` (``serve/frontend.py``) refuses a job whose
+  kernels the verifier refutes under ``CK_KERNEL_VERIFY=strict`` with the
+  named ``kernel-unsafe`` admission rejection.
+
+:mod:`.model` (the bounded model checker of the drain, elastic, balance,
+serving, resilience and router machines) is deliberately NOT imported
 here: it imports the live controllers it drives.
 """
 

@@ -5,16 +5,19 @@ A copy of the reference's ``analysis/model.py`` for the machines whose
 controllers the port has: :class:`DrainMachine` drives the port's
 ``obs/drain.py`` (``drain_transition`` x ``apply_quarantine``),
 :class:`ElasticMachine` the port's ``cluster/elastic.py``
-(``Membership`` under every roster reconciliation) and
+(``Membership`` under every roster reconciliation),
 :class:`BalanceMachine` the port's ``core/balance.py``
-(``load_balance`` / ``prior_split``), with the reference's bounds,
-invariants, counterexample traces and reports.  The other machine names
-of :data:`MACHINE_NAMES` raise :class:`~..errors.NotPortedError` naming
-the ROADMAP Queue A item that brings their controllers: ``serve``,
-``resilience`` and ``router`` (serving tier, A 8), ``block`` (the block
-tuner, A 9).  The reference's
-``tools/ckmodel`` CLI and its purity lint come with A 8.  The text below
-is the reference's.
+(``load_balance`` / ``prior_split``), the ``serve`` machines
+(:class:`AdmissionMachine`, :class:`CoalesceMachine`) the port's
+``serve/admission.py`` and ``serve/coalescer.py``, the ``resilience``
+machines (:class:`BreakerMachine`, :class:`ShedMachine`,
+:class:`RetryMachine`) its ``serve/resilience.py`` and
+:class:`RouterMachine` a real ``serve/fabric.ShardRouter``, with the
+reference's bounds, invariants, counterexample traces and reports.  The
+``block`` machine name raises :class:`~..errors.NotPortedError` naming
+the ROADMAP Queue A item that brings its controller (the block tuner,
+A 9).  The reference's ``tools/ckmodel`` CLI and its purity lint are
+Queue A 12.  The text below is the reference's.
 
 Design rules:
 
@@ -64,7 +67,13 @@ __all__ = [
     "MachineBase",
     "DrainMachine",
     "ElasticMachine",
+    "RouterMachine",
+    "AdmissionMachine",
+    "CoalesceMachine",
     "BalanceMachine",
+    "BreakerMachine",
+    "ShedMachine",
+    "RetryMachine",
     "MACHINE_NAMES",
     "PORTED_MACHINES",
     "build_machines",
@@ -87,11 +96,9 @@ MACHINE_NAMES = ("drain", "elastic", "serve", "balance", "resilience",
 #: The machines the port can drive; every other name of
 #: :data:`MACHINE_NAMES` names the ROADMAP Queue A item that ports its
 #: controllers.
-PORTED_MACHINES = ("drain", "elastic", "balance")
+PORTED_MACHINES = ("drain", "elastic", "serve", "balance", "resilience",
+                   "router")
 NOT_PORTED = {
-    "router": "Queue A 8 (serving tier: serve/fabric.py)",
-    "serve": "Queue A 8 (serving tier: serve/admission.py, serve/coalescer.py)",
-    "resilience": "Queue A 8 (serving tier: serve/resilience.py)",
     "block": "Queue A 9 (the attention stack: core/blocktuner.py)",
 }
 
@@ -694,6 +701,541 @@ class ElasticMachine(MachineBase):
 
 
 # ---------------------------------------------------------------------------
+# router: roster × health-view interleavings (serve/fabric.py)
+# ---------------------------------------------------------------------------
+
+class RouterMachine(MachineBase):
+    """Every (roster subset × unhealthy subset) over a small member
+    alphabet, driving a REAL :class:`~..serve.fabric.ShardRouter` over
+    a real :class:`~..cluster.elastic.Membership` for a fixed key set
+    at every transition — the checked rows are the ``route`` records
+    the live site emitted, not a re-model.
+
+    ``route`` is the injectable placement seam (the pure
+    ``route_decision`` by default) so the test suite's deliberately-
+    broken fixtures produce counterexamples for every declared
+    invariant: a flip-flopping fn breaks placement-deterministic, a
+    modulo (non-consistent) hash breaks minimal-reshuffle, a fixed
+    off-roster target breaks routes-to-members, a silent diverter
+    breaks diversion-named."""
+
+    name = "router"
+    checks = ("placement-deterministic", "minimal-reshuffle",
+              "routes-to-members", "diversion-named")
+
+    #: the fixed (tenant, key) probe set — few enough that every edge
+    #: stays cheap, spread enough that a 3-member ring places them on
+    #: more than one owner
+    KEYS = (("tA", "k1"), ("tA", "k2"), ("tB", "k1"), ("tB", "k3"),
+            ("tC", "k4"))
+
+    def __init__(self, member_ids=("p0", "p2", "p10"), route=None,
+                 keys=None):
+        from ..serve import fabric as F
+
+        self.invariants = F.MODEL_INVARIANTS
+        super().__init__()
+        self.F = F
+        self.member_ids = tuple(member_ids)
+        self.route_fn = route  # None = ShardRouter's real pure default
+        if keys is not None:
+            self.KEYS = tuple(keys)
+
+    def initial_states(self):
+        # every non-empty roster, all-healthy (empty rosters and sick
+        # shards are reached through leave/mark edges)
+        ids = self.member_ids
+        out = []
+        for mask in range(1, 1 << len(ids)):
+            roster = tuple(
+                ids[i] for i in range(len(ids)) if mask >> i & 1)
+            out.append((roster, ()))
+        return out
+
+    def state_doc(self, state):
+        return {"roster": list(state[0]), "unhealthy": list(state[1])}
+
+    def _drive(self, roster, unhealthy):
+        """Route every probe key through a real router at this
+        roster/health view; returns ``(outs, rows)`` — the verdicts by
+        key and the harvested ``route`` records."""
+        from ..cluster.elastic import Membership
+
+        m = Membership()
+        m.establish({mm: 1 for mm in roster})
+        router = self.F.ShardRouter(m, route=self.route_fn)
+        for u in unhealthy:
+            router.mark(u)
+        mark = _last_seq()
+        outs = {}
+        for tenant, key in self.KEYS:
+            outs[(tenant, key)] = router.route(tenant, key)
+        return outs, _harvest(mark)
+
+    def actions(self, state):
+        roster, unhealthy = state
+        rset, uset = set(roster), set(unhealthy)
+        edges = []
+        for m in self.member_ids:
+            if m in rset:
+                edges.append((
+                    f"leave:{m}",
+                    (tuple(x for x in roster if x != m),
+                     tuple(x for x in unhealthy if x != m))))
+                if m not in uset:
+                    edges.append((
+                        f"mark:{m}",
+                        (roster, tuple(sorted(uset | {m})))))
+            else:
+                edges.append((f"join:{m}",
+                              (tuple(sorted(rset | {m})), unhealthy)))
+            if m in uset:
+                edges.append((
+                    f"clear:{m}",
+                    (roster, tuple(x for x in unhealthy if x != m))))
+        out = []
+        for label, nxt in edges:
+            _outs, rows = self._drive(*nxt)
+            out.append((label, rows, nxt))
+        return out
+
+    def check_action(self, state, label, rows, nxt):
+        bad = []
+        F = self.F
+        route_fn = self.route_fn or F.route_decision
+        outs2, rows2 = self._drive(*nxt)
+        # placement-deterministic: the same (roster, health view)
+        # driven twice records bit-identical verdicts, and every
+        # recorded output re-derives from its recorded inputs (the
+        # ckreplay contract, checked in the explorer)
+        self._hit("placement-deterministic")
+        sig = [(r["inputs"]["tenant"], r["inputs"]["key"],
+                r["outputs"]) for r in rows]
+        sig2 = [(r["inputs"]["tenant"], r["inputs"]["key"],
+                 r["outputs"]) for r in rows2]
+        if sig != sig2:
+            bad.append((
+                "placement-deterministic",
+                f"two drives of {nxt} recorded different placements"))
+        for r in rows:
+            inp, outp = r["inputs"], r["outputs"]
+            re = route_fn(inp["tenant"], inp["key"],
+                          list(inp["members"]),
+                          tuple(inp["unhealthy"]),
+                          int(inp["epoch"]))
+            if dict(re) != dict(outp):
+                bad.append((
+                    "placement-deterministic",
+                    f"route({inp['tenant']},{inp['key']}) recorded "
+                    f"{outp} but re-derives to {re}"))
+        # routes-to-members: never a non-member target; a refusal only
+        # with no healthy member, and then with the named reason
+        self._hit("routes-to-members")
+        for r in rows:
+            inp, o = r["inputs"], r["outputs"]
+            members = set(inp["members"])
+            healthy = members - set(inp["unhealthy"])
+            shard = o.get("shard")
+            if shard is None:
+                if o.get("reason") != F.REJECT_SHARD:
+                    bad.append((
+                        "routes-to-members",
+                        f"refusal without the named {F.REJECT_SHARD} "
+                        f"reason (got {o.get('reason')!r})"))
+                if healthy:
+                    bad.append((
+                        "routes-to-members",
+                        f"refused while healthy members {sorted(healthy)} "
+                        "existed"))
+            elif shard not in members:
+                bad.append((
+                    "routes-to-members",
+                    f"routed to {shard!r}, not in the epoch's roster "
+                    f"{sorted(members)}"))
+        # diversion-named: off-owner placement is flagged with hops,
+        # and a healthy owner is never diverted away from
+        self._hit("diversion-named")
+        for r in rows:
+            inp, o = r["inputs"], r["outputs"]
+            if o.get("shard") is None:
+                continue
+            if o["shard"] != o.get("owner"):
+                if not o.get("diverted") or int(o.get("hops") or 0) < 1:
+                    bad.append((
+                        "diversion-named",
+                        f"route landed on {o['shard']} away from owner "
+                        f"{o.get('owner')} without the diverted flag / "
+                        "hop count — a silent diversion"))
+                if o.get("owner") not in set(inp["unhealthy"]):
+                    bad.append((
+                        "diversion-named",
+                        f"diverted away from HEALTHY owner "
+                        f"{o.get('owner')}"))
+            elif o.get("diverted"):
+                bad.append((
+                    "diversion-named",
+                    "owner placement flagged as diverted"))
+        # minimal-reshuffle on membership edges: a key's ring OWNER
+        # (health-blind) may move only when the departed member owned
+        # it (leave) or the joiner captured it (join)
+        kind, _, member = label.partition(":")
+        if kind in ("leave", "join"):
+            self._hit("minimal-reshuffle")
+            before, _r = self._drive(*state)
+            for k in self.KEYS:
+                ob = before[k].get("owner")
+                oa = outs2[k].get("owner")
+                if ob == oa:
+                    continue
+                if kind == "leave" and ob != member:
+                    bad.append((
+                        "minimal-reshuffle",
+                        f"leave({member}) moved key {k} owned by "
+                        f"{ob} (to {oa}) — only the departed member's "
+                        "keys may move"))
+                if kind == "join" and oa != member:
+                    bad.append((
+                        "minimal-reshuffle",
+                        f"join({member}) moved key {k} from {ob} to "
+                        f"{oa} — only keys the joiner captures may "
+                        "move"))
+        return bad
+
+
+# ---------------------------------------------------------------------------
+# serve: admission (tenants × queue × health) — serve/admission.py
+# ---------------------------------------------------------------------------
+
+class AdmissionMachine(MachineBase):
+    """Product of per-tenant in-flight counts × queue depth × health /
+    breaker / brownout flips, driving
+    :func:`~..serve.admission.admit_decision` at every submit with the
+    frontend's own accounting (admit → in-flight+1 and queue+1;
+    dispatch → queue−1; complete → in-flight−1)."""
+
+    name = "serve/admission"
+    checks = ("quota-exact", "queue-bounded", "reject-order",
+              "retry-hint", "admit-iff")
+
+    EST_BATCH = (0.0, 0.1)  # 0.0 exercises the retry-after floor
+
+    def __init__(self, tenants=("a", "b", "c"), quota: int = 3,
+                 max_queue_depth: int = 4, decide=None):
+        from ..serve import admission as A
+
+        self.invariants = A.MODEL_INVARIANTS
+        super().__init__()
+        self.A = A
+        self.tenants = tuple(tenants)
+        self.quota = int(quota)
+        self.shed_quota = A.brownout_share(quota)
+        self.max_queue_depth = int(max_queue_depth)
+        self.decide = decide or A.admit_decision
+
+    def initial_states(self):
+        return [(tuple(0 for _ in self.tenants), 0, True, False, False)]
+
+    def state_doc(self, state):
+        inflight, queue, healthy, breaker, brownout = state
+        return {
+            "inflight": {t: n for t, n in zip(self.tenants, inflight)},
+            "queue_depth": queue,
+            "healthy": healthy,
+            "breaker_open": breaker,
+            "brownout": brownout,
+        }
+
+    def _submit(self, state, ti: int, est: float, unsafe: bool):
+        inflight, queue, healthy, breaker, brownout = state
+        dec = self.decide(
+            tenant_inflight=inflight[ti], quota=self.quota,
+            queue_depth=queue, max_queue_depth=self.max_queue_depth,
+            healthy=healthy, est_batch_s=est, kernel_unsafe=unsafe,
+            kernel_finding="scatter-write" if unsafe else None,
+            breaker_open=breaker, breaker_retry_after_s=0.25,
+            brownout=brownout, shed_quota=self.shed_quota, priority=1)
+        row = {"kind": "admission", "inputs": {
+            "tenant": self.tenants[ti],
+            "tenant_inflight": inflight[ti],
+            "quota": self.quota,
+            "queue_depth": queue,
+            "max_queue_depth": self.max_queue_depth,
+            "healthy": healthy,
+            "est_batch_s": est,
+            "kernel_unsafe": unsafe,
+            "kernel_finding": "scatter-write" if unsafe else None,
+            "breaker_open": breaker,
+            "breaker_retry_after_s": 0.25,
+            "brownout": brownout,
+            "shed_quota": self.shed_quota,
+            "priority": 1,
+        }, "outputs": dict(dec)}
+        if dec.get("admit"):
+            inflight = tuple(
+                n + 1 if i == ti else n for i, n in enumerate(inflight))
+            queue += 1
+        return dec, row, (inflight, queue, healthy, breaker, brownout)
+
+    def actions(self, state):
+        inflight, queue, healthy, breaker, brownout = state
+        out = []
+        for ti in range(len(self.tenants)):
+            for est in self.EST_BATCH:
+                dec, row, nxt = self._submit(state, ti, est, False)
+                out.append((f"submit({self.tenants[ti]},est={est})",
+                            [row], nxt))
+        # a kernel-verifier-refuted job (strict gate at the frontend)
+        dec, row, nxt = self._submit(state, 0, 0.1, True)
+        out.append(("submit(a,unsafe)", [row], nxt))
+        if queue > 0:
+            out.append(("dispatch", [],
+                        (inflight, queue - 1, healthy, breaker,
+                         brownout)))
+        for ti, n in enumerate(inflight):
+            if n > 0:
+                nf = tuple(v - 1 if i == ti else v
+                           for i, v in enumerate(inflight))
+                out.append((f"complete({self.tenants[ti]})", [],
+                            (nf, queue, healthy, breaker, brownout)))
+        out.append(("health-flip", [],
+                    (inflight, queue, not healthy, breaker, brownout)))
+        out.append(("breaker-flip", [],
+                    (inflight, queue, healthy, not breaker, brownout)))
+        out.append(("brownout-flip", [],
+                    (inflight, queue, healthy, breaker, not brownout)))
+        return out
+
+    def check_state(self, state):
+        inflight, queue, _healthy, _breaker, _brownout = state
+        bad = []
+        self._hit("quota-exact")
+        for t, n in zip(self.tenants, inflight):
+            if n > self.quota:
+                bad.append((
+                    "quota-exact",
+                    f"tenant {t} reached {n} in-flight with quota "
+                    f"{self.quota}"))
+        self._hit("queue-bounded")
+        if queue > self.max_queue_depth:
+            bad.append((
+                "queue-bounded",
+                f"queue depth {queue} exceeds the bound "
+                f"{self.max_queue_depth}"))
+        return bad
+
+    def check_action(self, state, label, rows, nxt):
+        if not rows:
+            return []
+        bad = []
+        inp, out = rows[0]["inputs"], rows[0]["outputs"]
+        unsafe, healthy = inp["kernel_unsafe"], inp["healthy"]
+        queue_full = inp["queue_depth"] >= inp["max_queue_depth"]
+        over_quota = inp["tenant_inflight"] >= inp["quota"]
+        shed = (inp["brownout"]
+                and inp["tenant_inflight"] >= inp["shed_quota"])
+        expected = (
+            self.A.REJECT_KERNEL if unsafe else
+            self.A.REJECT_HEALTH if not healthy else
+            self.A.REJECT_BREAKER if inp["breaker_open"] else
+            self.A.REJECT_QUEUE if queue_full else
+            self.A.REJECT_BROWNOUT if shed else
+            self.A.REJECT_QUOTA if over_quota else None)
+        self._hit("admit-iff")
+        if out.get("admit") != (expected is None):
+            bad.append((
+                "admit-iff",
+                f"{label}: admit={out.get('admit')} but the gates say "
+                f"{'admit' if expected is None else 'reject'}"))
+        self._hit("reject-order")
+        if out.get("reason") != expected:
+            bad.append((
+                "reject-order",
+                f"{label}: reason {out.get('reason')!r}, first failing "
+                f"gate is {expected!r}"))
+        self._hit("retry-hint")
+        retry = out.get("retry_after_s")
+        if out.get("admit"):
+            if retry is not None:
+                bad.append(("retry-hint",
+                            f"{label}: admitted with retry hint {retry}"))
+        elif out.get("reason") == self.A.REJECT_KERNEL:
+            if retry != 0.0:
+                bad.append((
+                    "retry-hint",
+                    f"{label}: kernel-unsafe retry hint {retry}, must "
+                    "be exactly 0.0"))
+        elif retry is None or retry < self.A._RETRY_FLOOR_S:
+            bad.append((
+                "retry-hint",
+                f"{label}: rejection carries retry hint {retry} below "
+                f"the floor {self.A._RETRY_FLOOR_S}"))
+        return bad
+
+
+# ---------------------------------------------------------------------------
+# serve: coalesce (groups × deadlines × starvation) — serve/coalescer.py
+# ---------------------------------------------------------------------------
+
+class CoalesceMachine(MachineBase):
+    """Every arrival/desertion/deadline interleaving over a small
+    group alphabet, with the dispatcher's own starvation bookkeeping
+    (``ServeFrontend._dispatch_cycle``: picked → streak 0, unpicked
+    pending → +1, empty group leaves the table), checked against the
+    capacity-aware starvation bound."""
+
+    name = "serve/coalesce"
+    checks = ("promoted-are-starved", "plan-complete",
+              "plan-deterministic", "bounded-starvation")
+
+    #: fixed per-key ages/deadlines: the EDF and age tie-breaks are
+    #: exercised without making time part of the state
+    AGES = {"ga": 3.0, "gb": 2.0, "gc": 1.0}
+    DEADLINES = {"ga": 2.5, "gb": 0.5, "gc": 1.5}
+
+    def __init__(self, keys=("ga", "gb", "gc"), max_picks: int = 1,
+                 starve_cap_extra: int = 2, plan=None):
+        from ..serve import coalescer as C
+
+        self.invariants = C.MODEL_INVARIANTS
+        super().__init__()
+        self.C = C
+        self.keys = tuple(keys)
+        self.max_picks = int(max_picks)
+        self.plan = plan or C.plan_coalesce
+        # one CLI machine runs several CoalesceMachine configs —
+        # per-instance names keep their reports from colliding in
+        # check_machine's sub_machines map
+        self.name = f"serve/coalesce(mp={self.max_picks})"
+        # the declared capacity-aware bound (see MODEL_INVARIANTS)
+        g = len(self.keys)
+        self.bound = (C.STARVE_ROUNDS if self.max_picks >= g - 1
+                      else C.STARVE_ROUNDS + (g - 1))
+        # explore a little past the bound so a broken planner shows a
+        # growing streak instead of an unbounded frontier
+        self.starve_cap = self.bound + int(starve_cap_extra)
+        # round_idx only matters modulo the streak size; lcm(1..g)
+        self.round_mod = 1
+        for k in range(1, g + 1):
+            self.round_mod = self.round_mod * k // math.gcd(
+                self.round_mod, k)
+
+    def initial_states(self):
+        # (per-group starved or None when absent, round)
+        return [(tuple(0 for _ in self.keys), 0)]
+
+    def canon(self, state):
+        starved, rnd = state
+        return starved, rnd % self.round_mod
+
+    def state_doc(self, state):
+        starved, rnd = state
+        return {
+            "groups": {k: ("absent" if s is None else {"starved": s})
+                       for k, s in zip(self.keys, starved)},
+            "round": rnd % self.round_mod,
+            "max_picks": self.max_picks,
+        }
+
+    def _summary(self, starved, deadlines: bool):
+        rows = []
+        for k, s in zip(self.keys, starved):
+            if s is None:
+                continue
+            rows.append({
+                "key": k, "pending": 1,
+                "deadline_in_s": self.DEADLINES[k] if deadlines else None,
+                "oldest_age_s": self.AGES[k],
+                "starved_rounds": s,
+            })
+        rows.sort(key=lambda r: r["key"])
+        return rows
+
+    def actions(self, state):
+        starved, rnd = state
+        rnd = rnd % self.round_mod
+        out = []
+        n = len(self.keys)
+        for mask in range(1, 1 << n):
+            # presence pattern this cycle: arrivals start at streak 0,
+            # deserters leave the table (streak forgotten — the
+            # frontend's empty-group rule)
+            present = tuple(
+                (starved[i] if starved[i] is not None else 0)
+                if mask & (1 << i) else None
+                for i in range(n))
+            for deadlines in (False, True):
+                summary = self._summary(present, deadlines)
+                plan = self.plan(summary, rnd, self.max_picks)
+                row = {"kind": "coalesce", "inputs": {
+                    "groups": summary, "round": rnd,
+                    "max_picks": self.max_picks,
+                }, "outputs": dict(plan)}
+                picked = set(plan.get("picked") or ())
+                nxt = tuple(
+                    None if present[i] is None else
+                    (0 if self.keys[i] in picked
+                     else min(present[i] + 1, self.starve_cap + 1))
+                    for i in range(n))
+                out.append((
+                    f"cycle(mask={mask:03b},edf={deadlines})",
+                    [row], (nxt, (rnd + 1) % self.round_mod)))
+        return out
+
+    def check_state(self, state):
+        starved, _rnd = state
+        bad = []
+        self._hit("bounded-starvation")
+        for k, s in zip(self.keys, starved):
+            if s is not None and s > self.bound:
+                bad.append((
+                    "bounded-starvation",
+                    f"group {k} starved {s} consecutive cycles "
+                    f"(bound {self.bound} at max_picks="
+                    f"{self.max_picks} over {len(self.keys)} groups)"))
+        return bad
+
+    def check_action(self, state, label, rows, nxt):
+        bad = []
+        inp, out = rows[0]["inputs"], rows[0]["outputs"]
+        pending_keys = {r["key"] for r in inp["groups"]}
+        order = list(out.get("order") or ())
+        picked = list(out.get("picked") or ())
+        promoted = list(out.get("promoted") or ())
+        self._hit("plan-complete")
+        if sorted(order) != sorted(pending_keys):
+            bad.append((
+                "plan-complete",
+                f"{label}: order {order} is not a permutation of the "
+                f"pending groups {sorted(pending_keys)}"))
+        want = order[:self.max_picks] if self.max_picks > 0 else order
+        if picked != want:
+            bad.append((
+                "plan-complete",
+                f"{label}: picked {picked} is not the max_picks prefix "
+                f"{want}"))
+        self._hit("promoted-are-starved")
+        streak = {r["key"] for r in inp["groups"]
+                  if r["starved_rounds"] >= self.C.STARVE_ROUNDS}
+        extra = [k for k in promoted if k not in streak]
+        if extra:
+            bad.append((
+                "promoted-are-starved",
+                f"{label}: promoted {extra} without a "
+                f"{self.C.STARVE_ROUNDS}-round starve streak"))
+        self._hit("plan-deterministic")
+        again = self.plan(
+            [dict(r) for r in inp["groups"]], inp["round"],
+            inp["max_picks"])
+        if again != out:
+            bad.append((
+                "plan-deterministic",
+                f"{label}: replanning the same snapshot changed the "
+                "plan"))
+        return bad
+
+
+
+# ---------------------------------------------------------------------------
 # balance: freeze/jump over rate-consistent trajectories (core/balance.py)
 # ---------------------------------------------------------------------------
 
@@ -980,6 +1522,461 @@ class BalanceMachine(MachineBase):
 
 
 # ---------------------------------------------------------------------------
+# resilience: breaker × shed × retry (serve/resilience.py)
+# ---------------------------------------------------------------------------
+
+class BreakerMachine(MachineBase):
+    """Every outcome/admit/tick interleaving of the circuit breaker
+    (:func:`~..serve.resilience.breaker_transition` ×
+    :func:`~..serve.resilience.breaker_admit`) over integer ticks
+    (``now`` is an input to the pure functions, so the model clock is
+    exact).  The model carries its own GROUND-TRUTH consecutive-failure
+    counter, independent of the implementation's ``failures`` field —
+    a broken transition cannot hide its own evidence."""
+
+    name = "resilience/breaker"
+    checks = ("breaker-half-open-one-probe", "breaker-opens-on-threshold",
+              "breaker-honest-hint", "breaker-open-times-out",
+              "breaker-recovers-on-ok")
+
+    def __init__(self, threshold: int = 2, open_ticks: int = 3,
+                 transition=None, admit=None):
+        from ..serve import resilience as R
+
+        self.invariants = R.BREAKER_INVARIANTS
+        super().__init__()
+        self.R = R
+        self.threshold = int(threshold)
+        self.open_ticks = int(open_ticks)
+        self.transition = transition or R.breaker_transition
+        self.admit = admit or R.breaker_admit
+
+    def initial_states(self):
+        # (real breaker state dict as a tuple, tick, ground consecutive
+        # failures) — canon replaces the absolute clock with the age
+        return [(self._freeze(self.R.breaker_init()), 0, 0)]
+
+    @staticmethod
+    def _freeze(st: dict) -> tuple:
+        return (st["state"], int(st["failures"]),
+                bool(st["probe_inflight"]),
+                None if st["opened_t"] is None else float(st["opened_t"]))
+
+    @staticmethod
+    def _thaw(frozen: tuple) -> dict:
+        return {"state": frozen[0], "failures": frozen[1],
+                "probe_inflight": frozen[2], "opened_t": frozen[3]}
+
+    def canon(self, state):
+        frozen, tick, ground = state
+        st, fails, probe, opened_t = frozen
+        age = None
+        if opened_t is not None:
+            age = min(int(tick - opened_t), self.open_ticks + 1)
+        return (st, min(fails, self.threshold), probe, age,
+                min(ground, self.threshold))
+
+    def state_doc(self, state):
+        frozen, tick, ground = state
+        return {"breaker": self._thaw(frozen), "tick": tick,
+                "ground_consecutive_failures": ground,
+                "threshold": self.threshold,
+                "open_ticks": self.open_ticks}
+
+    def _row(self, op: str, st: dict, out: dict, now: float,
+             event: str | None = None) -> dict:
+        inputs = {"key": "model", "state": dict(st), "now": float(now),
+                  "threshold": self.threshold,
+                  "open_s": float(self.open_ticks), "op": op}
+        if event is not None:
+            inputs["event"] = event
+        outputs = {"state": dict(out["state"]),
+                   "action": out.get("action")}
+        if op == "admit":
+            outputs.update({"allow": out["allow"], "probe": out["probe"],
+                            "retry_after_s": out["retry_after_s"]})
+        return {"kind": "breaker", "inputs": inputs, "outputs": outputs}
+
+    def actions(self, state):
+        frozen, tick, ground = state
+        st = self._thaw(frozen)
+        out = []
+        for event in ("success", "failure"):
+            res = self.transition(st, event, float(tick), self.threshold,
+                                  float(self.open_ticks))
+            if st["state"] == self.R.BREAKER_CLOSED:
+                g2 = 0 if event == "success" else ground + 1
+            elif st["state"] == self.R.BREAKER_HALF_OPEN:
+                g2 = 0 if event == "success" else self.threshold
+            else:
+                g2 = ground  # stale outcome against an open breaker
+            out.append((
+                f"outcome-{event}",
+                [self._row("transition", st, res, tick, event)],
+                (self._freeze(res["state"]), tick + 1, g2)))
+        adm = self.admit(st, float(tick), float(self.open_ticks))
+        out.append((
+            "admit",
+            [self._row("admit", st, adm, tick)],
+            (self._freeze(adm["state"]), tick + 1, ground)))
+        return out
+
+    def check_action(self, state, label, rows, nxt):
+        frozen, tick, ground = state
+        st = self._thaw(frozen)
+        inp, out = rows[0]["inputs"], rows[0]["outputs"]
+        bad = []
+        if inp["op"] == "admit":
+            self._hit("breaker-half-open-one-probe")
+            if st["state"] == self.R.BREAKER_HALF_OPEN \
+                    and st["probe_inflight"] and out["allow"]:
+                bad.append((
+                    "breaker-half-open-one-probe",
+                    "half-open admitted a SECOND probe while one was "
+                    "in flight"))
+            self._hit("breaker-honest-hint")
+            if not out["allow"]:
+                hint = out["retry_after_s"]
+                remaining = None
+                if st["state"] == self.R.BREAKER_OPEN \
+                        and st["opened_t"] is not None:
+                    remaining = (float(self.open_ticks)
+                                 - (tick - st["opened_t"]))
+                if hint is None or hint <= 0.0 \
+                        or hint > float(self.open_ticks):
+                    bad.append((
+                        "breaker-honest-hint",
+                        f"refused admit carries hint {hint!r}, outside "
+                        f"(0, open_s={self.open_ticks}]"))
+                elif remaining is not None and remaining > 0.005 \
+                        and abs(hint - remaining) > 1e-9:
+                    bad.append((
+                        "breaker-honest-hint",
+                        f"open breaker hinted {hint}, the remaining "
+                        f"window is {remaining}"))
+        else:
+            self._hit("breaker-opens-on-threshold")
+            opened = out["action"] == "opened"
+            if st["state"] == self.R.BREAKER_CLOSED:
+                consec = (ground + 1 if inp["event"] == "failure" else 0)
+                if opened and consec < self.threshold:
+                    bad.append((
+                        "breaker-opens-on-threshold",
+                        f"opened after only {consec} consecutive "
+                        f"failure(s) (threshold {self.threshold})"))
+                if not opened and consec >= self.threshold:
+                    bad.append((
+                        "breaker-opens-on-threshold",
+                        f"{consec} consecutive failures reached the "
+                        f"threshold ({self.threshold}) but the breaker "
+                        "stayed closed"))
+        return bad
+
+    def check_liveness(self, state):
+        frozen, tick, ground = state
+        st = self._thaw(frozen)
+        bad = []
+        if st["state"] == self.R.BREAKER_OPEN:
+            # open-times-out: keep admitting; within open_ticks + 1
+            # admits one must be granted as the probe
+            self._hit("breaker-open-times-out")
+            cur, t = dict(st), float(tick)
+            extra, granted = [], False
+            for _ in range(self.open_ticks + 1):
+                adm = self.admit(cur, t, float(self.open_ticks))
+                extra.append(self._row("admit", cur, adm, t))
+                cur, t = dict(adm["state"]), t + 1
+                if adm["allow"]:
+                    granted = adm["probe"]
+                    break
+            if not granted:
+                bad.append((
+                    "breaker-open-times-out",
+                    f"open breaker granted no probe within "
+                    f"{self.open_ticks + 1} admits of opening", extra))
+        if st["state"] != self.R.BREAKER_CLOSED:
+            # recovers-on-ok, at EXACTLY the declared bound (slack here
+            # would let a one-extra-step regression slip past the
+            # MODEL_INVARIANTS statement — the drain-machine rule): an
+            # all-success schedule delivers the in-flight probe's
+            # success when one exists, else admits; worst reachable
+            # chain = open_ticks denied admits + the probe admit + its
+            # success = open_ticks + 2 steps, exactly the bound.
+            self._hit("breaker-recovers-on-ok")
+            bound = self.open_ticks + 2
+            cur, t = dict(st), float(tick)
+            extra = []
+            for _ in range(bound):
+                if cur["state"] == self.R.BREAKER_CLOSED:
+                    break
+                if cur["state"] == self.R.BREAKER_HALF_OPEN \
+                        and cur["probe_inflight"]:
+                    res = self.transition(
+                        cur, "success", t, self.threshold,
+                        float(self.open_ticks))
+                    extra.append(self._row(
+                        "transition", cur, res, t, "success"))
+                    cur, t = dict(res["state"]), t + 1
+                    continue
+                adm = self.admit(cur, t, float(self.open_ticks))
+                extra.append(self._row("admit", cur, adm, t))
+                cur, t = dict(adm["state"]), t + 1
+            if cur["state"] != self.R.BREAKER_CLOSED:
+                bad.append((
+                    "breaker-recovers-on-ok",
+                    f"breaker still {cur['state']} after {bound} "
+                    "all-success steps (the declared bound: open_s + "
+                    "2; permanent open under all-ok inputs)", extra))
+        return bad
+
+
+class ShedMachine(MachineBase):
+    """Every pressure-signal sequence through
+    :func:`~..serve.resilience.brownout_transition` (queue depth ×
+    open breakers × drained lanes per evaluation), plus the
+    ``admit_decision`` brownout gate at every active state over
+    in-flight × priority — the starvation floor is checked where the
+    shed actually happens."""
+
+    name = "resilience/shed"
+    checks = ("shed-pressure-gated", "shed-quota-floor",
+              "shed-named-hint", "shed-releases")
+
+    QUEUE_LEVELS = (0, 2, 4)  # clear, at clear-mark, at watermark
+    WATERMARK = 4
+    CLEAR_MARK = 2
+
+    def __init__(self, engage_streak: int = 2, quota: int = 2,
+                 transition=None, decide=None):
+        from ..serve import admission as A
+        from ..serve import resilience as R
+
+        self.invariants = R.SHED_INVARIANTS
+        super().__init__()
+        self.R, self.A = R, A
+        self.engage_streak = int(engage_streak)
+        self.quota = int(quota)
+        self.transition = transition or R.brownout_transition
+        self.decide = decide or A.admit_decision
+
+    def initial_states(self):
+        return [(False, 0)]
+
+    def canon(self, state):
+        active, streak = state
+        return (bool(active), min(int(streak), self.engage_streak))
+
+    def state_doc(self, state):
+        return {"active": state[0], "streak": state[1],
+                "engage_streak": self.engage_streak}
+
+    def actions(self, state):
+        active, streak = state
+        out = []
+        for qd in self.QUEUE_LEVELS:
+            for ob in (0, 1):
+                for dl in (0, 1):
+                    res = self.transition(
+                        {"active": active, "streak": streak}, qd,
+                        self.WATERMARK, self.CLEAR_MARK, ob, dl,
+                        engage_streak=self.engage_streak)
+                    row = {"kind": "shed", "inputs": {
+                        "state": {"active": active, "streak": streak},
+                        "queue_depth": qd,
+                        "watermark": self.WATERMARK,
+                        "clear_mark": self.CLEAR_MARK,
+                        "open_breakers": ob, "drained_lanes": dl,
+                        "engage_streak": self.engage_streak,
+                    }, "outputs": dict(res)}
+                    out.append((
+                        f"eval(qd={qd},ob={ob},dl={dl})", [row],
+                        (bool(res["active"]), int(res["streak"]))))
+        return out
+
+    def check_action(self, state, label, rows, nxt):
+        active, streak = state
+        inp, out = rows[0]["inputs"], rows[0]["outputs"]
+        bad = []
+        self._hit("shed-pressure-gated")
+        pressured = bool(
+            inp["queue_depth"] >= inp["watermark"]
+            or ((inp["open_breakers"] > 0 or inp["drained_lanes"] > 0)
+                and inp["queue_depth"] >= inp["clear_mark"]))
+        if out["changed"] and out["active"]:
+            if not pressured or streak < self.engage_streak - 1:
+                bad.append((
+                    "shed-pressure-gated",
+                    f"brownout engaged at streak {streak} under "
+                    f"{'un' if not pressured else ''}pressured inputs "
+                    f"({label}) — the {self.engage_streak}-evaluation "
+                    "hysteresis was skipped"))
+        return bad
+
+    def check_state(self, state):
+        active, streak = state
+        bad = []
+        if not active:
+            return bad
+        # the shed gate itself, at every active state: in-flight ×
+        # priority over a clear-other-gates admit
+        self._hit("shed-quota-floor")
+        self._hit("shed-named-hint")
+        shed_quota = self.A.brownout_share(self.quota)
+        for inflight in (0, 1, self.quota):
+            for priority in (0, 1):
+                dec = self.decide(
+                    tenant_inflight=inflight, quota=self.quota,
+                    queue_depth=0, max_queue_depth=64, healthy=True,
+                    est_batch_s=0.01, brownout=True,
+                    shed_quota=shed_quota, priority=priority)
+                if inflight == 0 and not dec["admit"]:
+                    bad.append((
+                        "shed-quota-floor",
+                        f"brownout shed a tenant with ZERO requests in "
+                        f"flight (priority {priority}) — the "
+                        "starvation floor is broken"))
+                if not dec["admit"]:
+                    if dec["reason"] != self.A.REJECT_BROWNOUT:
+                        bad.append((
+                            "shed-named-hint",
+                            f"brownout rejection named {dec['reason']!r}"
+                            f", expected {self.A.REJECT_BROWNOUT!r}"))
+                    if (dec["retry_after_s"] or 0.0) < 0.005:
+                        bad.append((
+                            "shed-named-hint",
+                            f"brownout rejection hint "
+                            f"{dec['retry_after_s']!r} is below the "
+                            "anti-busy-loop floor"))
+        return bad
+
+    def check_liveness(self, state):
+        active, streak = state
+        if not active:
+            return []
+        self._hit("shed-releases")
+        cur = {"active": True, "streak": int(streak)}
+        extra = []
+        for _ in range(self.engage_streak):
+            res = self.transition(
+                cur, 0, self.WATERMARK, self.CLEAR_MARK, 0, 0,
+                engage_streak=self.engage_streak)
+            extra.append({"kind": "shed", "inputs": {
+                "state": dict(cur), "queue_depth": 0,
+                "watermark": self.WATERMARK,
+                "clear_mark": self.CLEAR_MARK,
+                "open_breakers": 0, "drained_lanes": 0,
+                "engage_streak": self.engage_streak,
+            }, "outputs": dict(res)})
+            cur = {"active": res["active"], "streak": res["streak"]}
+            if not cur["active"]:
+                return []
+        return [(
+            "shed-releases",
+            f"brownout still active after {self.engage_streak} "
+            "all-clear evaluations (sticky degraded mode)", extra)]
+
+
+class RetryMachine(MachineBase):
+    """Every (attempt × budget × deadline × jitter) point of
+    :func:`~..serve.resilience.retry_decision`, with the budget's
+    spend/refill accounting driven alongside — proves retries can
+    never outrun the budget or the backoff bounds."""
+
+    name = "resilience/retry"
+    checks = ("retry-budget-bounded", "retry-backoff-bounded")
+
+    JITTER = (0.0, 0.999)
+    DEADLINES = (None, 0.001, 10.0)
+    BASE_S = 0.01
+    CAP_S = 0.04
+
+    def __init__(self, max_attempts: int = 2, budget_cap: int = 2,
+                 decide=None):
+        from ..serve import resilience as R
+
+        self.invariants = R.RETRY_INVARIANTS
+        super().__init__()
+        self.R = R
+        self.max_attempts = int(max_attempts)
+        self.budget_cap = int(budget_cap)
+        self.decide = decide or R.retry_decision
+
+    def initial_states(self):
+        return [(0, self.budget_cap)]
+
+    def state_doc(self, state):
+        return {"attempt": state[0], "tokens": state[1],
+                "max_attempts": self.max_attempts}
+
+    def actions(self, state):
+        attempt, tokens = state
+        out = []
+        for u in self.JITTER:
+            for dl in self.DEADLINES:
+                rd = self.decide(attempt, self.max_attempts,
+                                 float(tokens), dl, self.BASE_S,
+                                 self.CAP_S, u)
+                row = {"kind": "retry", "inputs": {
+                    "attempt": attempt,
+                    "max_attempts": self.max_attempts,
+                    "tokens": float(tokens),
+                    "deadline_left_s": dl,
+                    "base_s": self.BASE_S, "cap_s": self.CAP_S,
+                    "jitter_u": u,
+                }, "outputs": dict(rd)}
+                nxt = ((min(attempt + 1, self.max_attempts + 1),
+                        max(0, tokens - 1))
+                       if rd["retry"] else (attempt, tokens))
+                out.append((f"retry?(u={u},dl={dl})", [row], nxt))
+        out.append(("refill", [],
+                    (attempt, min(self.budget_cap, tokens + 1))))
+        if attempt > 0:
+            out.append(("fresh-request", [], (0, tokens)))
+        return out
+
+    def check_action(self, state, label, rows, nxt):
+        if not rows:
+            return []
+        attempt, tokens = state
+        inp, out = rows[0]["inputs"], rows[0]["outputs"]
+        bad = []
+        self._hit("retry-budget-bounded")
+        if out["retry"]:
+            if inp["tokens"] < 1.0:
+                bad.append((
+                    "retry-budget-bounded",
+                    f"retry granted with {inp['tokens']} budget "
+                    "tokens — the budget cannot bound a storm"))
+            if inp["attempt"] >= inp["max_attempts"]:
+                bad.append((
+                    "retry-budget-bounded",
+                    f"retry granted at attempt {inp['attempt']} with "
+                    f"max_attempts {inp['max_attempts']}"))
+        elif out.get("reason") not in (
+                "attempts-exhausted", "budget-exhausted", "deadline"):
+            bad.append((
+                "retry-budget-bounded",
+                f"refused retry names no reason ({out.get('reason')!r})"))
+        self._hit("retry-backoff-bounded")
+        if out["retry"]:
+            delay = out["delay_s"]
+            if delay is None or delay < 0.0 \
+                    or delay > 1.5 * inp["cap_s"] + 1e-12:
+                bad.append((
+                    "retry-backoff-bounded",
+                    f"granted delay {delay!r} outside "
+                    f"[0, 1.5*cap={1.5 * inp['cap_s']}]"))
+            dl = inp["deadline_left_s"]
+            if dl is not None and delay is not None and delay >= dl:
+                bad.append((
+                    "retry-backoff-bounded",
+                    f"granted delay {delay} overshoots the remaining "
+                    f"deadline {dl}"))
+        return bad
+
+
+
+# ---------------------------------------------------------------------------
 # assembly, reports, and the counterexample bridge
 # ---------------------------------------------------------------------------
 
@@ -996,8 +1993,8 @@ def build_machines(name: str, quick: bool = False,
     """The sub-machine list for one machine name, at tier-1 bounds
     scaled by ``CK_MODEL_DEPTH`` (or ``scale``).  ``quick`` is the
     reference's bench-epilogue profile: the same machines under the
-    smallest honest bounds, sub-second.  The reference's other machine
-    names raise :class:`NotPortedError`."""
+    smallest honest bounds, sub-second.  The reference's ``block``
+    machine raises :class:`NotPortedError`."""
     scale = _depth_scale() if scale is None else max(1, int(scale))
     if name == "drain":
         if quick:
@@ -1028,6 +2025,34 @@ def build_machines(name: str, quick: bool = False,
                                horizon=32 * scale),
                 BalanceMachine(rate_alphabet=tri, lane_counts=(3,),
                                horizon=32 * scale)]
+    if name == "serve":
+        if quick:
+            return [AdmissionMachine(tenants=("a", "b"), quota=2,
+                                     max_queue_depth=2),
+                    CoalesceMachine(keys=("ga", "gb"))]
+        return [
+            AdmissionMachine(quota=2 + scale,
+                             max_queue_depth=4 + scale),
+            CoalesceMachine(max_picks=1,
+                            starve_cap_extra=1 + scale),
+            CoalesceMachine(max_picks=2),
+        ]
+    if name == "resilience":
+        if quick:
+            return [BreakerMachine(threshold=2, open_ticks=2),
+                    ShedMachine(engage_streak=1),
+                    RetryMachine(max_attempts=1, budget_cap=1)]
+        return [BreakerMachine(threshold=2 + (scale - 1),
+                               open_ticks=2 + scale),
+                ShedMachine(engage_streak=1 + scale),
+                RetryMachine(max_attempts=1 + scale,
+                             budget_cap=1 + scale)]
+    if name == "router":
+        if quick:
+            return [RouterMachine(member_ids=("p0", "p2"))]
+        ids = ("p0", "p2", "p10") if scale == 1 else \
+            ("p0", "p2", "p10", "p3")[:3 + min(scale - 1, 1)]
+        return [RouterMachine(member_ids=ids)]
     if name in NOT_PORTED:
         raise NotPortedError(
             f"model machine {name!r} drives controllers the port does not "

@@ -1,11 +1,10 @@
 """Cluster compute client: drives one remote server node.
 
 A copy of the reference's ``cluster/client.py`` kept in the port (which
-never imports the JAX package).  One difference: a serving-tier rejection
-reply (``meta["reject"]``) raises :class:`~..errors.ClusterError` naming its
-reason, tenant and retry-after hint, since the typed ``ServeRejected`` comes
-with the serving tier (ROADMAP Queue A 8).  The text below is the
-reference's.
+never imports the JAX package): a serving-tier rejection reply
+(``meta["reject"]``) raises the port's typed
+:class:`~..serve.admission.ServeRejected`, as the reference's client does.
+The text below is the reference's.
 
 Analogue of ``ClCruncherClient`` (ClCruncherClient.cs):
 ``setup`` ships the kernel source (:121-155); ``compute`` marshals the
@@ -53,7 +52,7 @@ import time
 import numpy as np
 
 from ..arrays.clarray import ClArray
-from ..errors import CekirdeklerError, ClusterError, ClusterRetryExhausted
+from ..errors import CekirdeklerError, ClusterRetryExhausted
 from .netbuffer import (
     FLAG_PARTIAL,
     FLAG_READ,
@@ -177,14 +176,16 @@ class CruncherClient:
         if reply.command == Command.ANSWER_ERROR:
             if reply.meta.get("reject") and len(reply.strings) >= 3:
                 # a serving-tier rejection (circuit-open / brownout /
-                # shard-unavailable / ...): named reason, tenant and
+                # shard-unavailable / ...): re-raise the SAME typed
+                # error a local caller gets, named reason and
                 # retry-after hint intact (never retried here — an
                 # application reply is deterministic, not transport)
-                raise ClusterError(
-                    f"remote rejection {reply.strings[1]!r} for tenant "
-                    f"{reply.strings[2]!r} (retry after "
-                    f"{reply.meta.get('retry_after_us', 0) / 1e6} s): "
-                    f"{reply.strings[0]}")
+                from ..serve.admission import ServeRejected
+
+                raise ServeRejected(
+                    str(reply.strings[2]),
+                    str(reply.strings[1]),
+                    reply.meta.get("retry_after_us", 0) / 1e6)
             raise CekirdeklerError(
                 f"remote error: {reply.strings and reply.strings[0]}")
         return reply

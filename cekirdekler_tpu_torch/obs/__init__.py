@@ -15,10 +15,10 @@ is ported.
   (``DrainController``, ``apply_quarantine``, ``Cores.drain``).
 - :mod:`.reqtrace` — request-lifecycle tracing (``REQTRACE``) and its pure
   folds (``fold_phases``, ``tail_anatomy``); its producers are the serving
-  tier (ROADMAP Queue A 8).
+  tier's frontend and fabric (``serve/``).
 - :mod:`.debugserver` — the stdlib HTTP debug endpoints over a ``Cores``
   (``/metrics``, ``/statusz``, ``/tracez``, ``/healthz``, ``/flightz``,
-  ``/profilez``, ``/decisionz``, ``/reqz``), started by
+  ``/profilez``, ``/decisionz``, ``/servez``, ``/reqz``), started by
   ``Cores.serve_debug`` or ``CK_DEBUG_PORT`` (``DEBUG_PORT_ENV``).
 
 Copies of the reference's modules.  Nothing here imports torch at module

@@ -1,8 +1,8 @@
 """Debug HTTP endpoints: what is this process doing RIGHT NOW?
 
 A copy of the reference's ``obs/debugserver.py`` over the port's planes,
-with the reference's endpoints and lock discipline; ``/servez`` replies
-501 until the serving tier is ported.  The server binds ``127.0.0.1``
+with the reference's endpoints and lock discipline, ``/servez`` serving
+the port's ``serve.frontend.servez_payload``.  The server binds ``127.0.0.1``
 unless the caller names another host.  The text below is the
 reference's.
 
@@ -40,8 +40,11 @@ Endpoints (all GET, all JSON unless noted):
   the latest split's per-lane causality table per compute id (the live
   ``explain``; ``tools/ckreplay.py explain`` renders the same thing
   from a spilled log).
-- ``/servez`` — the serving tier's page.  The serving tier is not ported
-  (ROADMAP Queue A 8): the endpoint replies 501 with a body naming it.
+- ``/servez`` — the serving tier (``serve/frontend.py``): every live
+  frontend's queue depth, signature-group table (pending + starvation
+  streaks), per-tenant accounting, admission configuration, and the
+  windowed (last-N) latency snapshot next to the cumulative tenant
+  stats.
 - ``/reqz`` — request-lifecycle tracing (``obs/reqtrace.py``): recent
   requests, the slowest-N with per-phase breakdowns, per-tenant phase
   percentiles, and the p50/p95/p99 tail anatomy with its coverage
@@ -332,12 +335,12 @@ class DebugServer:
         self._reply(h, 200, _json_bytes(decisionz_payload(recent=recent)))
 
     def _servez(self, h, q) -> None:
-        # the serving tier (serve/frontend.py) is not ported: a named
-        # absence, never an empty 200 a scraper would read as "no load"
-        self._reply(h, 501, _json_bytes({
-            "error": "not ported: /servez reads the serving tier (serve/), "
-                     "ROADMAP Queue A 8",
-        }))
+        # servez_payload copies each frontend's small state under its
+        # own lock (stats()) — the same snapshot discipline as every
+        # other endpoint; no submit is blocked for longer than the copy
+        from ..serve.frontend import servez_payload
+
+        self._reply(h, 200, _json_bytes(servez_payload()))
 
     def _reqz(self, h, q) -> None:
         # reqz_payload folds ONE recorder snapshot (the flight-ring

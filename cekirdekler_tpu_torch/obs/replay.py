@@ -373,6 +373,138 @@ def _replay_member(inp: dict, out: dict) -> dict:
     return mism
 
 
+def _replay_admission(inp: dict, out: dict) -> dict:
+    from ..serve.admission import admit_decision
+
+    got = admit_decision(
+        tenant_inflight=int(inp["tenant_inflight"]),
+        quota=int(inp["quota"]),
+        queue_depth=int(inp["queue_depth"]),
+        max_queue_depth=int(inp["max_queue_depth"]),
+        healthy=bool(inp["healthy"]),
+        est_batch_s=float(inp["est_batch_s"]),
+        # kernel-verifier inputs arrived with the ckprove gate, the
+        # breaker/brownout inputs with the resilience layer; older
+        # logs lack them — replay with the pre-gate defaults
+        kernel_unsafe=bool(inp.get("kernel_unsafe", False)),
+        kernel_finding=inp.get("kernel_finding"),
+        breaker_open=bool(inp.get("breaker_open", False)),
+        breaker_retry_after_s=inp.get("breaker_retry_after_s"),
+        brownout=bool(inp.get("brownout", False)),
+        shed_quota=inp.get("shed_quota"),
+        priority=int(inp.get("priority", 1)),
+    )
+    mism: dict = {}
+    for k in ("admit", "reason", "retry_after_s"):
+        if got.get(k) != out.get(k):
+            mism[k] = {"expected": out.get(k), "got": got.get(k)}
+    return mism
+
+
+def _replay_coalesce(inp: dict, out: dict) -> dict:
+    from ..serve.coalescer import plan_coalesce
+
+    got = plan_coalesce(
+        list(inp.get("groups") or ()), int(inp.get("round", 0)),
+        int(inp.get("max_picks") or 0),
+    )
+    mism: dict = {}
+    for k in ("order", "picked", "promoted"):
+        gv, ev = list(got.get(k) or ()), list(out.get(k) or ())
+        if gv != ev:
+            mism[k] = {"expected": ev, "got": gv}
+    return mism
+
+
+def _replay_breaker(inp: dict, out: dict) -> dict:
+    """breaker: one circuit-breaker transition or admit
+    (serve/resilience.py) — both pure, dispatched on the recorded
+    ``op``."""
+    from ..serve.resilience import breaker_admit, breaker_transition
+
+    if inp.get("op") == "admit":
+        got = breaker_admit(
+            inp.get("state") or {}, float(inp["now"]),
+            float(inp["open_s"]))
+        keys = ("state", "action", "allow", "probe", "retry_after_s")
+    else:
+        got = breaker_transition(
+            inp.get("state") or {}, str(inp["event"]),
+            float(inp["now"]), int(inp["threshold"]),
+            float(inp["open_s"]))
+        keys = ("state", "action")
+    mism: dict = {}
+    for k in keys:
+        if got.get(k) != out.get(k):
+            mism[k] = {"expected": out.get(k), "got": got.get(k)}
+    return mism
+
+
+def _replay_shed(inp: dict, out: dict) -> dict:
+    from ..serve.resilience import brownout_transition
+
+    got = brownout_transition(
+        inp.get("state") or {}, int(inp["queue_depth"]),
+        int(inp["watermark"]), int(inp["clear_mark"]),
+        int(inp["open_breakers"]), int(inp["drained_lanes"]),
+        engage_streak=int(inp.get("engage_streak", 2)))
+    mism: dict = {}
+    for k in ("active", "streak", "pressure", "changed"):
+        if got.get(k) != out.get(k):
+            mism[k] = {"expected": out.get(k), "got": got[k]}
+    return mism
+
+
+def _replay_retry(inp: dict, out: dict) -> dict:
+    from ..serve.resilience import retry_decision
+
+    got = retry_decision(
+        int(inp["attempt"]), int(inp["max_attempts"]),
+        float(inp["tokens"]),
+        (None if inp.get("deadline_left_s") is None
+         else float(inp["deadline_left_s"])),
+        float(inp["base_s"]), float(inp["cap_s"]),
+        float(inp["jitter_u"]))
+    mism: dict = {}
+    for k in ("retry", "delay_s", "reason"):
+        if got.get(k) != out.get(k):
+            mism[k] = {"expected": out.get(k), "got": got.get(k)}
+    return mism
+
+
+def _replay_containment(inp: dict, out: dict) -> dict:
+    from ..serve.resilience import containment_plan
+
+    got = containment_plan(int(inp["k"]), leaf=int(inp.get("leaf", 1)))
+    mism: dict = {}
+    for k in ("mode", "parts"):
+        gv = got.get(k)
+        ev = out.get(k)
+        gv = list(gv) if isinstance(gv, (list, tuple)) else gv
+        ev = list(ev) if isinstance(ev, (list, tuple)) else ev
+        if gv != ev:
+            mism[k] = {"expected": ev, "got": gv}
+    return mism
+
+
+def _replay_route(inp: dict, out: dict) -> dict:
+    """route: one shard-placement verdict (serve/fabric.py) — the
+    pure consistent-hash + diversion walk re-executed from the
+    recorded roster, health view, and epoch."""
+    from ..serve.fabric import route_decision
+
+    got = route_decision(
+        str(inp.get("tenant", "")), str(inp.get("key", "")),
+        list(inp.get("members") or ()),
+        tuple(inp.get("unhealthy") or ()),
+        int(inp.get("epoch", 0)))
+    mism: dict = {}
+    for k in ("shard", "owner", "diverted", "hops", "reason", "epoch"):
+        if got.get(k) != out.get(k):
+            mism[k] = {"expected": out.get(k), "got": got.get(k)}
+    return mism
+
+
 _REPLAYERS = {
     "load-balance": _replay_load_balance,
     "transfer-choose": _replay_transfer_choose,
@@ -383,11 +515,18 @@ _REPLAYERS = {
     "member-leave": _replay_member,
     "member-join": _replay_member,
     "prior-split": _replay_prior_split,
+    "admission": _replay_admission,
+    "coalesce": _replay_coalesce,
+    "breaker": _replay_breaker,
+    "shed": _replay_shed,
+    "retry": _replay_retry,
+    "containment": _replay_containment,
+    "route": _replay_route,
 }
 
-#: Replayable kinds whose deciding module is not ported yet (serving
-#: and block-tuner decisions): such a row is counted apart by
-#: kind, never verified and never a context row.
+#: Replayable kinds whose deciding module is not ported yet (the block
+#: tuner's decisions): such a row is counted apart by kind, never
+#: verified and never a context row.
 NOT_PORTED_KINDS = tuple(k for k in REPLAYABLE_KINDS if k not in _REPLAYERS)
 assert set(_REPLAYERS) | set(NOT_PORTED_KINDS) == set(REPLAYABLE_KINDS)
 

@@ -1,12 +1,11 @@
 """Request-lifecycle tracing: tail-latency anatomy per request.
 
 A copy of the reference's ``obs/reqtrace.py`` with its names, vocabulary
-and arithmetic.  Nothing in the port produces request events yet: the
-producers are the serving tier's frontend and fabric (ROADMAP Queue A
-8).  Until then :data:`REQTRACE` stays empty unless a caller records
-into it, and the pure functions below fold events from any source (a
-reference run's events off the wire included).  The text below is the
-reference's.
+and arithmetic.  Its producers are the port's serving tier: the frontend
+(``serve/frontend.py``) and the fabric (``serve/fabric.py``) stamp every
+request's phases, and the pure functions below fold events from any
+source (a reference run's events off the wire included).  The text below
+is the reference's.
 
 Every serving-tier request is stamped with a fabric-unique ``rid`` at
 submit and records phase-transition events through its whole life into

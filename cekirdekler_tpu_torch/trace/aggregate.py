@@ -4,8 +4,8 @@ A copy of the reference's ``trace/aggregate.py`` kept in the port (which
 never imports the JAX package); its transport is the port's
 :meth:`~..cluster.dcn.DistributedAccelerator._allgather`, gloo on host
 bytes.  The ``serving`` payload is shipped and merged as the reference's
-is; its fabric reader comes with the serving tier.  The text below is the
-reference's.
+is, and the port's ``serve.fabric.merge_shard_serving`` reads it.  The
+text below is the reference's.
 
 The tracer and the metrics registry are process-local; a
 ``DistributedAccelerator`` job runs N processes whose spans could never

@@ -178,8 +178,9 @@ Phases, each of which raises on failure (the script then exits non-zero):
    them: every endpoint answers 200 and parses (``/metrics`` names the
    lanes' ``ck_*`` series, ``/statusz`` the lanes and their shares,
    ``/profilez`` the emitted mandelbrot's row of the capture,
-   ``/decisionz`` the calls' decision rows), ``/servez`` answers 501, and
-   after ``close`` the port no longer answers;
+   ``/decisionz`` the calls' decision rows; ``/servez`` the serving
+   tier's payload, ``frontends`` and ``count``), and after ``close`` the
+   port no longer answers;
 5i. the compile cache: (a) on a fresh cruncher on the GPU lane,
    ``Cores.warmup`` of the emitted mandelbrot at 2048x2048x256 and then its
    first enqueue-mode windows (``run_mandelbrot``, ``readback="final"``,
@@ -243,6 +244,26 @@ Phases, each of which raises on failure (the script then exits non-zero):
    member that cannot see the card fails the phase.  One card shows
    correctness and the exchange's cost, not scaling across cards: the
    processes share it;
+5l. the serving tier on the GPU lane (``serve/``, through
+   ``tools/loadgen.py``), each part with the counts set to 0 just before it
+   and read just after: (a) the closed loop, 32 clients of 4 tenants over 4
+   signatures, 8 requests a client, the emitted ``lg_inc`` at n = 2^22 f32
+   a signature (16 MB), every array exact, p50 and p99 ms, the coalesce
+   ratio and the fused windows printed; (b) the same in the open loop at
+   200 requests/s a client, every rejection named; (c) the main path's
+   shape through a ``ServeFrontend``: mandelbrot 2048x2048x256 at local
+   range 256, 8 clients x 4 requests over 4 images, each equal to the plain
+   version's image bit for bit, launched on the escape form; (d) chaos: a
+   seeded ``serve-dispatch`` plan, no hang, no unnamed failure, every array
+   exact; (e) two in-process ``ServeFabric`` shards, each its own ``Cores``
+   on the card, a seeded member kill mid-run: the re-routed requests exact,
+   the two shards' dispatch cycles overlapping in time, and the ``route``
+   decisions (with every other replayable row of the run) verifying with
+   no divergence; (f) ``/servez`` scraped during (a) shows the live
+   frontend's queue depth and tenant table.  The phase's launches (the
+   emitted ``lg_inc`` and mandelbrot) are printed and ``lg_inc`` gets its
+   row in the kernels line, held against its plain version at 2^22 in
+   phase 3;
 6. transformer: the flagship transformer's forward at the default width
    (vocab 32000, d_model 512, 4 layers, 8 heads of 64, d_ff 2048, bf16,
    ``attention="flash"``, seeded random weights) on ``cuda:0``.  With every
@@ -3244,9 +3265,8 @@ def gate_debug_server(run: dict, lanes: int, on_card: bool) -> dict:
     """The debug-server gates on one :func:`debug_server_run`."""
     st, bodies = run["statuses"], run["bodies"]
     for ep, codes in st.items():
-        want = 501 if ep == "/servez" else 200
-        if not codes or any(c != want for c in codes):
-            raise AssertionError(f"debug server: {ep} answered {sorted(set(codes))}, want {want}")
+        if not codes or any(c != 200 for c in codes):
+            raise AssertionError(f"debug server: {ep} answered {sorted(set(codes))}, want 200")
     docs = {ep: json.loads(b) for ep, b in bodies.items() if ep != "/metrics"}
     metrics = bodies["/metrics"].decode()
     lane_series = sorted({line.split("{")[0] for line in metrics.splitlines()
@@ -3272,8 +3292,10 @@ def gate_debug_server(run: dict, lanes: int, on_card: bool) -> dict:
         raise AssertionError(f"debug server: /profilez holds neither a row nor an absence: {prof}")
     if not mine:
         raise AssertionError("debug server: /decisionz holds none of the calls' decision rows")
-    if "A 8" not in docs["/servez"].get("error", ""):
-        raise AssertionError(f"debug server: /servez body {docs['/servez']}")
+    servez = docs["/servez"]
+    if not isinstance(servez.get("frontends"), list) or servez.get("count") != len(
+            servez["frontends"]):
+        raise AssertionError(f"debug server: /servez body {servez}")
     if docs["/healthz"].get("healthy") is not True:
         raise AssertionError(f"debug server: /healthz {docs['/healthz']}")
     if run["answered_after_close"]:
@@ -4103,6 +4125,330 @@ def check_cluster(ck, wl, gpus, mods, ref_img: np.ndarray, card: str, W: int = 2
     return out
 
 
+# -- phase 5l: the serving tier --------------------------------------------------
+
+#: (a)'s closed loop: clients, tenants, signatures, requests a client, and the
+#: lg_inc range (f32, 16 MB a signature) at the main path's local range
+SERVE_CLIENTS, SERVE_TENANTS, SERVE_SIGS, SERVE_REQUESTS = 32, 4, 4, 8
+SERVE_N, SERVE_LOCAL = 1 << 22, 256
+#: (b)'s open loop: requests a second, each client
+SERVE_RATE = 200.0
+#: (c): clients x requests of mandelbrot 2048x2048x256 over this many images
+SERVE_MANDEL_CLIENTS, SERVE_MANDEL_REQUESTS, SERVE_MANDEL_IMAGES = 8, 4, 4
+SERVE_MANDEL_ID = 7700
+#: (e)'s fabric: shards and requests a client; its gather window keeps requests
+#: queued long enough for the member kill to catch some
+SERVE_FABRIC, SERVE_FABRIC_REQUESTS, SERVE_FABRIC_GATHER_S = 2, 8, 0.02
+
+
+def serve_counts(mods) -> dict:
+    """The launch counters a 5l part reads: emitted launches by kernel and by
+    (kernel, form), the routes, the CUDA graphs' captures and replays."""
+    registry, graphs, cuda_backend = mods[0], mods[1], mods[2]
+    return {"launches": dict(cuda_backend.LAUNCHES.by_key),
+            "forms": {f"{k}/{f}": v for (k, f), v in cuda_backend.FORMS.by_key.items()},
+            "routes": dict(registry.launch_counts), "graphs": dict(graphs.GRAPHS.by_key)}
+
+
+def serve_mandelbrot(ck, wl, lanes, W: int, max_iter: int) -> dict:
+    """Phase 5l (c): mandelbrot WxWxmax_iter through a ``ServeFrontend`` on
+    ``lanes``, ``SERVE_MANDEL_CLIENTS`` closed-loop clients of
+    ``SERVE_MANDEL_REQUESTS`` requests each over ``SERVE_MANDEL_IMAGES``
+    output arrays (two clients an image: their requests coalesce)."""
+    import threading
+
+    from cekirdekler_tpu_torch.serve import ServeFrontend, ServeJob
+
+    n = W * W
+    vals = (-2.0, -1.25, 2.5 / W, 2.5 / W, W, max_iter)
+    outs = [ck.ClArray(n, np.float32, name=f"serve_img{k}", read=False, write=True)
+            for k in range(SERVE_MANDEL_IMAGES)]
+    jobs = [ServeJob(params=[o], kernels=["mandelbrot"], compute_id=SERVE_MANDEL_ID + k,
+                     global_range=n, local_range=256, values=vals)
+            for k, o in enumerate(outs)]
+    res: list = []
+    errs: list = []
+    mu = threading.Lock()
+    with ck.NumberCruncher(lanes, wl.MANDELBROT_SRC) as cr:
+        fe = ServeFrontend(cr, gather_window_s=0.002, name="serve-mandelbrot")
+
+        def client(ci: int) -> None:
+            for _ in range(SERVE_MANDEL_REQUESTS):
+                try:
+                    r = fe.submit(f"t{ci % 2}", jobs[ci % SERVE_MANDEL_IMAGES]).result(60.0)
+                    with mu:
+                        res.append(r)
+                except Exception as e:  # noqa: BLE001 - the gate names it
+                    with mu:
+                        errs.append(f"{type(e).__name__}: {e}")
+
+        threads = [threading.Thread(target=client, args=(ci,), daemon=True)
+                   for ci in range(SERVE_MANDEL_CLIENTS)]
+        t0 = time.perf_counter()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=120.0)
+        wall = time.perf_counter() - t0
+        stuck = sum(t.is_alive() for t in threads)
+        fe.close()
+    return {"images": [o.host().copy() for o in outs], "completed": len(res), "errors": errs,
+            "hangs": stuck, "wall_s": wall,
+            "batch_requests": sorted({r["batch_requests"] for r in res}),
+            "fused": sum(1 for r in res if r["fused"]),
+            "latencies_ms": sorted(r["latency_s"] * 1e3 for r in res)}
+
+
+def servez_scrape(url: str, name: str, done) -> dict:
+    """Phase 5l (f): ``/servez`` fetched until ``done`` is set; keeps the
+    last answer whose row for frontend ``name`` had work queued or in
+    flight, else the last answer that has the row."""
+    seen: dict = {"scrapes": 0, "statuses": set(), "row": None, "busy": False}
+    while not done.is_set():
+        code, body = fetch(url + "/servez", timeout=5.0)
+        seen["scrapes"] += 1
+        seen["statuses"].add(code)
+        if code == 200:
+            rows = [f for f in json.loads(body)["frontends"] if f["name"] == name]
+            if rows:
+                row = rows[0]
+                busy = row["queue_depth"] > 0 or any(
+                    t["inflight"] > 0 for t in row["tenants"].values())
+                if busy or not seen["busy"]:
+                    seen["row"], seen["busy"] = row, busy or seen["busy"]
+        time.sleep(0.005)
+    seen["statuses"] = sorted(seen["statuses"])
+    return seen
+
+
+def serving_run(ck, wl, lanes, mods, dev, n: int = SERVE_N, W: int = 2048,
+                max_iter: int = 256, local: int = SERVE_LOCAL,
+                requests: int = SERVE_REQUESTS) -> dict:
+    """Phase 5l (a)-(f) on ``lanes``; every part's result with the counts it
+    read (set to 0 just before it).  ``dev`` is where the plain mandelbrot
+    image is computed."""
+    import threading
+
+    import torch
+
+    from cekirdekler_tpu_torch.kernel import lang
+    from cekirdekler_tpu_torch.kernel.codegen import build_kernel_fn
+    from cekirdekler_tpu_torch.obs.debugserver import serve_debug
+    from cekirdekler_tpu_torch.obs.decisions import DECISIONS
+    from cekirdekler_tpu_torch.obs.replay import verify_records
+    from cekirdekler_tpu_torch.tools import loadgen as lg
+
+    def reset() -> None:
+        reset_counts(*mods)
+
+    out: dict = {"lanes": [d.kind for d in lanes], "n": n}
+    common = dict(clients=SERVE_CLIENTS, tenants=SERVE_TENANTS, signatures=SERVE_SIGS,
+                  n=n, local_range=local)
+    # (a) closed loop, with (f)'s scraper on /servez meanwhile
+    srv = serve_debug(None, 0)
+    done = threading.Event()
+    box: list = []
+    scraper = threading.Thread(
+        target=lambda: box.append(servez_scrape(srv.url, "loadgen-closed", done)),
+        daemon=True)
+    reset()
+    scraper.start()
+    try:
+        out["closed"] = lg.run_loadgen(lanes, requests_per_client=requests, mode="closed",
+                                       **common)
+    finally:
+        done.set()
+        scraper.join(timeout=30)
+        srv.close()
+    out["closed"]["counts"] = serve_counts(mods)
+    out["servez"] = box[0] if box else None
+    # (b) open loop at SERVE_RATE a client
+    reset()
+    out["open"] = lg.run_loadgen(lanes, requests_per_client=requests, mode="open",
+                                 rate_rps=SERVE_RATE * SERVE_CLIENTS, **common)
+    out["open"]["counts"] = serve_counts(mods)
+    # (c) the main path's mandelbrot through a frontend, against its plain image
+    kdef = lang.parse_kernels(wl.MANDELBROT_SRC)[0]
+    pfn, _ = build_kernel_fn(kdef, W * W, 256, W * W)
+    plain = torch.zeros(W * W, device=dev)
+    pfn(0, (plain,), (-2.0, -1.25, 2.5 / W, 2.5 / W, W, max_iter))
+    out["plain_image"] = plain.cpu().numpy()
+    reset()
+    out["mandelbrot"] = serve_mandelbrot(ck, wl, lanes, W, max_iter)
+    out["mandelbrot"]["counts"] = serve_counts(mods)
+    # (d) chaos under the seeded serve-dispatch plan (a control run beside it)
+    reset()
+    out["chaos"] = lg.run_chaos(lanes, requests_per_client=max(1, requests // 2),
+                                plan=lg.SERVE_CHAOS_PLAN, goodput_floor=0.0, **common)
+    out["chaos"]["counts"] = serve_counts(mods)
+    # (e) two shards on the lanes and a seeded member kill; every replayable
+    # row the run records is verified
+    DECISIONS.clear()
+    log: list = []
+    reset()
+    out["fabric"] = lg.run_fabric(lanes, fabric=SERVE_FABRIC,
+                                  requests_per_client=SERVE_FABRIC_REQUESTS, kill=True,
+                                  gather_window_s=SERVE_FABRIC_GATHER_S, cycle_log=log,
+                                  **common)
+    out["fabric"]["counts"] = serve_counts(mods)
+    rows = [r.to_row() for r in DECISIONS.snapshot()]
+    out["fabric"]["overlaps"] = lg.overlapping_cycles(log)
+    out["fabric"]["cycles"] = len(log)
+    out["fabric"]["replay"] = verify_records(rows)
+    out["fabric"]["route_rows"] = sum(1 for r in rows if r["kind"] == "route")
+    out["fabric"]["replay_route"] = verify_records([r for r in rows if r["kind"] == "route"])
+    return out
+
+
+def _serve_brief(r: dict) -> dict:
+    return {k: r[k] for k in ("completed", "failed", "hangs", "unnamed_failures", "rejected",
+                              "checked") if k in r}
+
+
+def gate_serving(run: dict, on_card: bool = True) -> dict:
+    """The phase 5l gates over one :func:`serving_run`; returns its summary."""
+    names = {"unhealthy", "queue-depth", "tenant-quota", "kernel-unsafe", "circuit-open",
+             "brownout", "shard-unavailable"}
+    for part in ("closed", "open"):
+        r = run[part]
+        if not r["checked"] or r["hangs"] or r["failed"] or r["unnamed_failures"]:
+            raise AssertionError(f"serving ({part}): {_serve_brief(r)}")
+        if r["completed"] + r["retries_exhausted"] != r["requests_target"]:
+            raise AssertionError(f"serving ({part}): requests lost: {_serve_brief(r)}")
+        if sum(r["reject_reasons"].values()) != r["rejected"] or \
+                not set(r["reject_reasons"]) <= names:
+            raise AssertionError(f"serving ({part}): unnamed rejections {r['reject_reasons']}")
+    if not run["closed"]["coalesced"]:
+        raise AssertionError(f"serving (a): no coalescing: {run['closed']['ladder_launches']} "
+                             f"ladder launches for {run['closed']['completed']} requests")
+    m = run["mandelbrot"]
+    want = SERVE_MANDEL_CLIENTS * SERVE_MANDEL_REQUESTS
+    if m["errors"] or m["hangs"] or m["completed"] != want:
+        raise AssertionError(f"serving (c): {m['completed']} of {want} completed, "
+                             f"{m['hangs']} hung, errors {m['errors'][:3]}")
+    for k, img in enumerate(m["images"]):
+        if not np.array_equal(img, run["plain_image"]):
+            bad = int((img != run["plain_image"]).sum())
+            raise AssertionError(f"serving (c): image {k} differs from the plain version's "
+                                 f"at {bad} pixels")
+    c = run["chaos"]
+    if c["fired"] <= 0 or c["hangs"] or c["unnamed_failures"] or \
+            not (c["chaos"]["checked"] and c["control"]["checked"]):
+        raise AssertionError(f"serving (d): fired {c['fired']}, chaos {_serve_brief(c['chaos'])}, "
+                             f"control {_serve_brief(c['control'])}")
+    f = run["fabric"]
+    if not f["checked"] or f["hangs"] or f["unnamed_failures"] or f["reroutes"] <= 0:
+        raise AssertionError(f"serving (e): {_serve_brief(f)}, reroutes {f['reroutes']}, "
+                             f"causes {f['failure_causes']}")
+    if on_card and f["overlaps"] <= 0:
+        # on the card a cycle's flush alone moves tens of MB, so shards fed
+        # by one burst of clients overlap; a host lane's tiny cycles need not
+        raise AssertionError(f"serving (e): no two shards' cycles overlapped in "
+                             f"{f['cycles']} cycles")
+    if f["route_rows"] <= 0 or not f["replay_route"]["ok"] or \
+            f["replay_route"]["divergent"] or not f["replay"]["ok"]:
+        raise AssertionError(f"serving (e): replay {f['replay']['first_divergence']}, "
+                             f"route rows {f['route_rows']}")
+    s = run["servez"]
+    if not s or s["statuses"] != [200] or not s["row"] or \
+            set(s["row"]["tenants"]) != {f"t{k}" for k in range(SERVE_TENANTS)} or \
+            "queue_depth" not in s["row"]:
+        raise AssertionError(f"serving (f): /servez {s}")
+    counts = {part: run[part]["counts"] for part in ("closed", "open", "chaos", "fabric")}
+    counts["mandelbrot"] = m["counts"]
+    if on_card:
+        for part, cn in counts.items():
+            kern = "mandelbrot" if part == "mandelbrot" else "lg_inc"
+            if cn["launches"].get(kern, 0) <= 0 or cn["routes"].get("torch", 0):
+                raise AssertionError(f"serving ({part}): {kern} launches {cn['launches']}, "
+                                     f"routes {cn['routes']}")
+            forms = {k for k, v in cn["forms"].items() if v and k.startswith(kern + "/")}
+            ok = {f"{kern}/escape"} if kern == "mandelbrot" else {"lg_inc/stream", "lg_inc/item"}
+            if not forms or not forms <= ok:
+                raise AssertionError(f"serving ({part}): {kern} forms {cn['forms']}")
+    lat = m["latencies_ms"]
+    return {"closed": {k: run["closed"][k] for k in (
+                "p50_ms", "p99_ms", "goodput_rps", "coalesce_ratio", "fused_windows",
+                "ladder_launches", "completed", "wall_s", "p99_queue_frac",
+                "p99_device_frac")},
+            "open": {k: run["open"][k] for k in (
+                "p50_ms", "p99_ms", "goodput_rps", "coalesce_ratio", "fused_windows",
+                "completed", "rejected", "reject_reasons", "wall_s", "p99_queue_frac",
+                "p99_device_frac")},
+            "mandelbrot": {k: m[k] for k in ("completed", "fused", "batch_requests", "wall_s")}
+            | {"p50_ms": lat[len(lat) // 2], "p99_ms": lat[-1]},
+            "chaos": {"fired": c["fired"], "failed": c["failed"],
+                      "failure_causes": c["failure_causes"], "goodput_frac": c["goodput_frac"],
+                      "chaos_p99_ms": c["chaos_p99_ms"]},
+            "fabric": {k: f[k] for k in ("killed", "killed_at_completed", "reroutes",
+                                         "completed", "failed", "overlaps", "cycles",
+                                         "route_rows", "p50_ms", "p99_ms", "fused_windows")}
+            | {"replayed": f["replay"]["replayed"]},
+            "servez": {"scrapes": s["scrapes"], "busy": s["busy"],
+                       "queue_depth": s["row"]["queue_depth"],
+                       "tenants": sorted(s["row"]["tenants"])},
+            "launches": {part: {"lg_inc": cn["launches"].get("lg_inc", 0),
+                                "mandelbrot": cn["launches"].get("mandelbrot", 0),
+                                "forms": cn["forms"], "graphs": cn["graphs"]}
+                         for part, cn in counts.items()}}
+
+
+def check_serving(ck, wl, gpus, mods, card: str) -> dict:
+    """Phase 5l on the card's GPU lane; returns its summary."""
+    import torch
+
+    t0 = time.perf_counter()
+    run = serving_run(ck, wl, gpus.subset(1), mods, torch.device("cuda", 0))
+    res = gate_serving(run, on_card=True)
+    res["seconds"] = time.perf_counter() - t0
+    for label, part in (("a", "closed"), ("b", "open")):
+        r = res[part]
+        print(f"serving ({label}) {part} loop, {SERVE_CLIENTS} clients x {SERVE_REQUESTS} "
+              f"requests, lg_inc at 2^22 f32 a signature: p50 {r['p50_ms']:.3f} ms, p99 "
+              f"{r['p99_ms']:.3f} ms, goodput {r['goodput_rps']:.1f} requests/s, coalesce "
+              f"ratio {r['coalesce_ratio']}, fused windows {r['fused_windows']}, the p99 "
+              f"request's queue / device shares {r['p99_queue_frac']} / {r['p99_device_frac']}, "
+              f"every array exact; on {card}")
+    print(f"serving (c) mandelbrot 2048x2048x256 through a ServeFrontend: "
+          f"{json.dumps(res['mandelbrot'])}; every image equal to the plain version's")
+    print(f"serving (d) chaos ({json.dumps(res['chaos'])}): no hang, no unnamed failure, "
+          f"every array exact")
+    print(f"serving (e) fabric of {SERVE_FABRIC} shards on the card: {json.dumps(res['fabric'])}")
+    print(f"serving (f) /servez during (a): {json.dumps(res['servez'])}")
+    print(f"serving launches by part: {json.dumps(res['launches'])}")
+    print(f"phase 5l: {res['seconds']:.1f} s")
+    return res
+
+
+def check_lg_inc(cuda_backend, emitted, dev, n: int = SERVE_N) -> dict:
+    """The load generator's ``lg_inc`` (+1.0f an element) at phase 5l's
+    shape against its plain version, bit for bit, on the streaming form;
+    its kernels-line row."""
+    import torch
+
+    a = torch.arange(n, dtype=torch.float32, device=dev) % 97
+    on_k, on_p = a.clone(), a.clone()
+    kfn, pfn = emitted("lg_inc", n)
+    cuda_backend.FORMS.reset()
+    kfn(0, (on_k,), ())
+    pfn(0, (on_p,), ())
+    torch.cuda.synchronize()
+    gate_forms(dict(cuda_backend.FORMS.by_key), {"lg_inc": "stream"})
+    err = float((on_k - on_p).abs().max())
+    if not torch.equal(on_k, on_p) or not torch.equal(on_k, a + 1.0):
+        raise AssertionError(f"emitted lg_inc at {n} vs plain: max abs err {err}")
+    ms, event_ms = kernel_ms(lambda: kfn(0, (on_k,), ()), "ck_kernel", 20)
+    scratch = a.clone()
+    r = dict(max_abs_err=err, ms=ms, event_ms=event_ms,
+             plain_ms=cuda_ms(lambda: pfn(0, (on_p,), ()), 5),
+             library_ms=profiled_ms(lambda: scratch.add_(1.0), 20)["total"],
+             bound_ms=8.0 * n / HBM_BYTES_PER_S * 1e3, bound_by="bytes", n=n)
+    print(f"emitted lg_inc n={n} (streaming form): kernel {ms:.4f} ms (CUDA events "
+          f"{event_ms:.4f} ms), library (add_) {r['library_ms']:.4f} ms, plain "
+          f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms (bytes), bit-exact")
+    return r
+
+
 def main() -> int:
     import torch
 
@@ -4125,6 +4471,7 @@ def main() -> int:
     from cekirdekler_tpu_torch.ops import mandelbrot as mandel_op
     from cekirdekler_tpu_torch.ops import nbody as nbody_op
     from cekirdekler_tpu_torch.tools import trace_window
+    from cekirdekler_tpu_torch.tools.loadgen import LOADGEN_SRC
 
     watch_drains()
     dev = torch.device("cuda", 0)
@@ -4152,6 +4499,7 @@ def main() -> int:
         "nBody": lang.parse_kernels(wl.NBODY_SRC)[0],
         "streamAdd": lang.parse_kernels(wl.STREAM_SRC)[0],
         "saxpy": lang.parse_kernels(SAXPY_SRC)[0],
+        "lg_inc": lang.parse_kernels(LOADGEN_SRC)[0],
     }
     jobs = {"mandelbrot.cu": (mandel_op.SOURCE.read_text(), "mandelbrot"),
             "flash_attention.cu": (fa_op.SOURCE.read_text(), "flash_attention"),
@@ -4300,6 +4648,7 @@ def main() -> int:
           f"{bound:.4f} ms ({bound_by}), ops.nbody.nbody_accels (several PyTorch calls) "
           f"{torch_ops_ms:.4f} ms, plain {nbody_plain_ms:.4f} ms, bit-exact")
     del pos, v_k, v_p
+    rows["emitter:lg_inc"] = check_lg_inc(cuda_backend, emitted, dev)
     rows["elementwise"] = check_elementwise(ew_op)
     rows["flash_attention"] = check_flash(fa_op, dev)
     rows["flash_attention_bwd_dq"], rows["flash_attention_bwd_dkv"] = check_flash_bwd(fa_op, dev)
@@ -4449,6 +4798,13 @@ def main() -> int:
     cluster_res = check_cluster(ck, wl, gpus, mods, ref_img, card)
     rows["emitter:mandelbrot"]["cluster_launches"] = cluster_res["launches"]
 
+    phase("5l serving tier")
+    serve_res = check_serving(ck, wl, gpus, mods, card)
+    rows["emitter:mandelbrot"]["serve_launches"] = \
+        serve_res["launches"]["mandelbrot"]["mandelbrot"]
+    rows["emitter:lg_inc"]["launches"] = sum(
+        p["lg_inc"] for part, p in serve_res["launches"].items() if part != "mandelbrot")
+
     phase("transformer forward")
     rows["flash_attention"]["launches"] = check_transformer(wl, fa_op, card)
 
@@ -4469,6 +4825,7 @@ def main() -> int:
         "emitter:saxpy": ("cuda", EMITTER_SOURCE, EMITTER_REPLACES),
         "emitter:mandelbrot": ("cuda", EMITTER_SOURCE, EMITTER_REPLACES),
         "emitter:nBody": ("cuda", EMITTER_SOURCE, EMITTER_REPLACES),
+        "emitter:lg_inc": ("cuda", EMITTER_SOURCE, EMITTER_REPLACES),
         "mandelbrot": ("cuda", "cekirdekler_tpu_torch/csrc/mandelbrot.cu",
                        "cekirdekler_tpu/ops/mandelbrot.py:81"),
         "elementwise": ("cuda", "cekirdekler_tpu_torch/csrc/elementwise.cu",
@@ -4501,7 +4858,8 @@ def main() -> int:
             "bound_by": rr["bound_by"], "library_ms": rr["library_ms"],
             **{key: rr[key] for key in ("kernel_route", "fp32_ms", "fp32_bound_ms", "torch_ops_ms",
                                         "pipeline_launches", "event_ms", "trace_ms",
-                                        "marker_launches", "cluster_launches")
+                                        "marker_launches", "cluster_launches",
+                                        "serve_launches")
                if key in rr},
         })
     print(f"mpixels_per_sec: {json.dumps(res)}; streamed against monolithic: "
@@ -4523,6 +4881,7 @@ def main() -> int:
     print(f"compile cache: {json.dumps(cache_res)}")
     print(f"markers and user events: {json.dumps({k: markers_res[k] for k in ('gate', 'pool', 'overhead', 'seconds')})}")
     print(f"cluster tier: {json.dumps(cluster_res)}")
+    print(f"serving tier: {json.dumps(serve_res)}")
     print(f"phase seconds: {json.dumps(phase_seconds())}")
     print(card)
     print(json.dumps({"kernels": kernels}))

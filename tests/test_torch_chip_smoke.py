@@ -13,7 +13,8 @@ reads back) and a modelled lost update (a move without the flush).
 Phase 5h's gates run on host lanes too: the planted stencil (and its gate
 failing once the halo is gone), a checkpoint resume at a small width, and
 the debug server scraped during a workload (and its gate failing on a
-/servez that answers or a port that still answers after close).
+/servez that does not serve the serving tier's payload or a port that
+still answers after close).
 Phase 5i's gates: warmup then the first windows on a host lane (and the
 gate failing once warmup builds nothing), and the coldstart trio's gate
 over hand-made trios (refusing a warm child that compiled, an inexact
@@ -30,6 +31,13 @@ balancer that never moved, a lost rank, a merged trace without a rank's
 spans, a 64-bit value that did not cross, a rejoined image off the
 undisturbed one), the server child refuses to start without a card, and
 ``wire_bytes`` counts what ``send_message`` frames.
+Phase 5l's gates: the serving tier's six parts on host lanes at a small
+size pass (closed and open loops, mandelbrot through a frontend against
+the plain image, the chaos plan, the two-shard fabric with its member kill
+and replay, the /servez scrape); hand-made runs fail them (an inexact
+image, a rejection without a named reason, a fabric that re-routed
+nothing or whose shards never overlapped, a diverging route row, a
+/servez without the live frontend).
 """
 
 from __future__ import annotations
@@ -783,9 +791,13 @@ def test_phase_5h_debug_server_gates_pass_on_host_lanes(_clean_planes):
     res = chip_smoke.gate_debug_server(run, 2, on_card=False)
     assert res["decision_rows"] > 0 and "load-balance" in res["decision_kinds"]
     assert run["answered_after_close"] is False
-    broken = dict(run, statuses=dict(run["statuses"], **{"/servez": [200]}))
+    assert res["servez"]["count"] == len(res["servez"]["frontends"])
+    broken = dict(run, statuses=dict(run["statuses"], **{"/servez": [501]}))
     with pytest.raises(AssertionError, match="/servez"):
         chip_smoke.gate_debug_server(broken, 2, on_card=False)
+    no_payload = dict(run, bodies=dict(run["bodies"], **{"/servez": b'{"error": "x"}'}))
+    with pytest.raises(AssertionError, match="/servez"):
+        chip_smoke.gate_debug_server(no_payload, 2, on_card=False)
     with pytest.raises(AssertionError, match="after close"):
         chip_smoke.gate_debug_server(dict(run, answered_after_close=True), 2, on_card=False)
 
@@ -1145,3 +1157,83 @@ def test_phase_5k_server_child_refuses_without_a_card():
     finally:
         chip_smoke.stop_child(proc)
     assert proc.returncode != 0
+
+
+# -- phase 5l: the serving tier, on host lanes and over hand-made runs ------------
+
+
+@pytest.fixture(scope="module")
+def serving_on_host_lanes():
+    import torch
+
+    import cekirdekler_tpu_torch as ck
+    from cekirdekler_tpu_torch import workloads as wl
+    from cekirdekler_tpu_torch.kernel import build, cuda_backend, graphs, registry
+    from cekirdekler_tpu_torch.ops import elementwise as ew_op
+    from cekirdekler_tpu_torch.ops import mandelbrot as mandel_op
+
+    assert build is not None
+    mods = (registry, graphs, cuda_backend, mandel_op, ew_op)
+    return chip_smoke.serving_run(ck, wl, ck.all_devices().cpus(2), mods, torch.device("cpu"),
+                                  n=4096, W=64, max_iter=32, local=64, requests=4)
+
+
+def test_phase_5l_serving_gates_pass_on_host_lanes(serving_on_host_lanes):
+    run = serving_on_host_lanes
+    res = chip_smoke.gate_serving(run, on_card=False)
+    want = chip_smoke.SERVE_CLIENTS * 4
+    assert res["closed"]["completed"] == want and res["open"]["completed"] == want
+    assert res["mandelbrot"]["completed"] == \
+        chip_smoke.SERVE_MANDEL_CLIENTS * chip_smoke.SERVE_MANDEL_REQUESTS
+    assert res["fabric"]["reroutes"] > 0 and res["fabric"]["route_rows"] > 0
+    assert res["servez"]["tenants"] == [f"t{k}" for k in range(chip_smoke.SERVE_TENANTS)]
+    assert set(res["launches"]) == {"closed", "open", "mandelbrot", "chaos", "fabric"}
+
+
+def _tampered(run: dict, part: str, **fields) -> dict:
+    import copy
+
+    out = copy.deepcopy(run)
+    out[part].update(fields)
+    return out
+
+
+@pytest.mark.parametrize("fault, match", [
+    (lambda r: _tampered(r, "closed", checked=False), r"\(closed\)"),
+    (lambda r: _tampered(r, "open", reject_reasons={"mystery": 1}, rejected=1),
+     "unnamed rejections"),
+    (lambda r: _tampered(r, "open", completed=r["open"]["completed"] - 1), "lost"),
+    (lambda r: _tampered(r, "closed", coalesced=False), "no coalescing"),
+    (lambda r: _tampered(r, "mandelbrot", errors=["CekirdeklerError: x"]), r"\(c\)"),
+    (lambda r: _tampered(r, "chaos", unnamed_failures=1), r"\(d\)"),
+    (lambda r: _tampered(r, "fabric", reroutes=0), r"\(e\)"),
+    (lambda r: _tampered(r, "fabric", replay_route={"ok": False, "divergent": 1}), "replay"),
+    (lambda r: dict(r, servez={"statuses": [200], "row": None, "scrapes": 3, "busy": False}),
+     "servez"),
+])
+def test_phase_5l_serving_gate_refuses(serving_on_host_lanes, fault, match):
+    with pytest.raises(AssertionError, match=match):
+        chip_smoke.gate_serving(fault(serving_on_host_lanes), on_card=False)
+
+
+def test_phase_5l_card_gate_wants_the_shards_overlapping(serving_on_host_lanes):
+    with pytest.raises(AssertionError, match="overlapped"):
+        chip_smoke.gate_serving(_tampered(serving_on_host_lanes, "fabric", overlaps=0),
+                                on_card=True)
+
+
+def test_phase_5l_gate_refuses_an_image_off_the_plain_one(serving_on_host_lanes):
+    import copy
+
+    run = copy.deepcopy(serving_on_host_lanes)
+    run["mandelbrot"]["images"][2][17] += 1.0
+    with pytest.raises(AssertionError, match="image 2 differs"):
+        chip_smoke.gate_serving(run, on_card=False)
+
+
+def test_phase_5l_card_gate_wants_the_kernels_launched(serving_on_host_lanes):
+    """On host lanes nothing launched on the card: the card's gate refuses
+    the same run by its launch counts."""
+    with pytest.raises(AssertionError, match="launches"):
+        chip_smoke.gate_serving(_tampered(serving_on_host_lanes, "fabric", overlaps=1),
+                                on_card=True)

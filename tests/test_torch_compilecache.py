@@ -23,6 +23,10 @@ on the CPU, held against the JAX package's.
   and ``.verify()`` of the JAX package report the port's entries, none
   corrupt.
 - **The tools**: ``ckcache`` and a ``coldstart`` trio on host lanes.
+- **The serving tier's warmups**: ``ServeFrontend.warmup`` warms the live
+  key and leaves the job's arrays alone; a member joining a
+  ``ServeFabric`` warms from the cache's kept mix with no fresh compile,
+  and its first live batch builds nothing.
 
 No test asserts a time.
 """
@@ -148,6 +152,78 @@ def _reference_batch(kernel: str, iters: int) -> np.ndarray:
             _fused_batch(cr, x, 7300, iters, kernel)
             return np.asarray(x).copy()
         finally:
+            cr.dispose()
+
+
+# -- the serving tier's warmups: the frontend's and the fabric's on join --------------
+
+
+def _serve_job(name: str, cid: int):
+    from cekirdekler_tpu_torch.serve import ServeJob
+
+    a = ck.ClArray(np.zeros(N, np.float32), name=name)
+    a.partial_read = True
+    return a, ServeJob(params=[a], kernels=["inc"], compute_id=cid, global_range=N,
+                       local_range=LR)
+
+
+def test_frontend_warmup_matches_live_key_and_never_mutates(unarmed):
+    from cekirdekler_tpu_torch.serve import ServeFrontend
+
+    cr = ck.NumberCruncher(ck.all_devices().cpus(1), SRC)
+    fe = ServeFrontend(cr, autostart=False, name="warmkeys")
+    try:
+        a, job = _serve_job("wk", 7302)
+        out = fe.warmup([job])
+        assert out["warmed"] == 1 and out["kinds"] == {"cpu": 1}
+        assert np.all(np.asarray(a) == 0.0)  # scratch buffers only
+        prog = cr.cores.program
+        before = _counts(prog)
+        futs = [fe.submit("t0", job) for _ in range(8)]
+        fe.step()
+        for f in futs:
+            assert f.result(timeout=30)["fused"] is True
+        np.testing.assert_array_equal(np.asarray(a), 8.0)
+        assert _counts(prog) == before
+    finally:
+        fe.close()
+        cr.dispose()
+
+
+def test_fabric_add_member_zero_fresh_compiles_when_cache_holds_mix(cache_root):
+    """Live traffic keeps the fleet's signature mix (the engage-time
+    recorder), so a joining member's warmup is all disk hits and its first
+    live batch builds nothing."""
+    from cekirdekler_tpu_torch.serve import ServeFabric
+
+    crunchers = {m: ck.NumberCruncher(ck.all_devices().cpus(1), SRC) for m in ("m0", "m1")}
+    fab = ServeFabric(crunchers, autostart=False, gather_window_s=0.0, max_batch=64)
+    a, job = _serve_job("fz", 9300)
+    try:
+        futs = [fab.submit("t0", job) for _ in range(6)]
+        for _ in range(40):
+            fab.step()
+            if all(f.done() for f in futs):
+                break
+        assert np.all(np.asarray(a) == 6.0)
+        cache = CompileCache(root=cache_root)
+        assert cache.stats()["write"] >= 1
+        before = cache.stats()
+        fab.add_member("m2", ck.NumberCruncher(ck.all_devices().cpus(1), SRC), step=1)
+        after = cache.stats()
+        assert after["miss"] == before["miss"]  # no fresh compile
+        assert after["hit"] > before["hit"]
+        fe2 = fab.shards["m2"]
+        prog2 = fe2.cores.program
+        warmed = _counts(prog2)
+        b = ck.ClArray(np.zeros(N, np.float32), name="fz2", partial_read=True)
+        res = _fused_batch(fe2.cruncher, b, 9300, 4)
+        np.testing.assert_array_equal(np.asarray(b), 4.0)
+        assert res["fused"] and _counts(prog2) == warmed
+    finally:
+        joined = fab.shards.get("m2")
+        fab.close()
+        for cr in list(crunchers.values()) + ([joined.cruncher] if joined else []):
             cr.dispose()
 
 

@@ -6,7 +6,8 @@ as Prometheus text, ``/statusz`` lists the lanes and their shares,
 ``/tracez`` the spans, ``/flightz`` the flight ring, ``/profilez`` the
 last capture, ``/decisionz`` the decision rows, ``/reqz`` the reference's
 ``reqz_payload``); ``/healthz`` answers 503 once a lane degrades;
-``/servez`` answers 501 naming the serving tier's Queue A item;
+``/servez`` answers the serving tier's ``servez_payload`` with a live
+frontend's row;
 ``CK_DEBUG_PORT`` starts one server per process on a fixed port and
 refuses port 0.  Every server binds 127.0.0.1 on a port the test chose
 free, every fetch has a timeout, and every server is closed at teardown.
@@ -139,12 +140,35 @@ def test_every_endpoint_during_a_live_workload(cruncher):
     assert float(a.host()[0]) == float(a.host()[-1]) > 0
 
 
-def test_servez_is_501_naming_the_serving_tier(cruncher):
-    srv = cruncher(1).serve_debug(port=0)
-    with pytest.raises(urllib.error.HTTPError) as info:
-        _get(srv.url + "/servez")
-    assert info.value.code == 501
-    assert "Queue A 8" in json.loads(info.value.read().decode())["error"]
+def test_servez_serves_the_payload_of_the_live_frontends(cruncher):
+    from cekirdekler_tpu_torch.serve import ServeFrontend, ServeJob, servez_payload
+
+    cr = cruncher(2)
+    srv = cr.serve_debug(port=0)
+    a = ck.ClArray(np.zeros(512, np.float32), name="sz")
+    a.partial_read = True
+    job = ServeJob(params=[a], kernels=["inc"], compute_id=931, global_range=512,
+                   local_range=64)
+    fe = ServeFrontend(cr, autostart=False, name="servez-debug")
+    try:
+        futs = [fe.submit("tS", job) for _ in range(3)]
+        fe.step()
+        for f in futs:
+            f.result(timeout=30)
+        fe.submit("tS", job)  # one left queued: the page shows it
+        code, body = _get(srv.url + "/servez")
+        doc = json.loads(body)
+        assert code == 200 and doc["count"] == len(doc["frontends"])
+        mine = [f for f in doc["frontends"] if f["name"] == "servez-debug"]
+        assert mine and mine[0]["queue_depth"] == 1 and mine[0]["requests_done"] == 3
+        assert mine[0]["tenants"]["tS"] == {
+            "inflight": 1, "requests": 4, "admitted": 4, "rejected": 0,
+            "completed": 3, "failed": 0, "deadline_missed": 0}
+        local = [f for f in servez_payload()["frontends"] if f["name"] == "servez-debug"]
+        assert json.loads(json.dumps(local[0]))["tenants"] == mine[0]["tenants"]
+    finally:
+        fe.close()
+    assert float(a.host()[0]) == 4.0  # close drained the queued request
 
 
 def test_reqz_serves_the_reference_s_payload(cruncher):

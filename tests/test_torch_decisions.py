@@ -125,7 +125,9 @@ def test_the_record_format_is_the_reference_s():
     assert decisions.DecisionRecord._fields == ref_decisions.DecisionRecord._fields
     assert set(replay.NOT_PORTED_KINDS) == set(ref_decisions.REPLAYABLE_KINDS) - {
         "load-balance", "prior-split", "transfer-choose", "transfer-observe",
-        "health-verdict", "drain-apply", "readmit", "member-leave", "member-join"}
+        "health-verdict", "drain-apply", "readmit", "member-leave", "member-join",
+        "admission", "coalesce", "breaker", "shed", "retry", "containment", "route"}
+    assert replay.NOT_PORTED_KINDS == ("block-retune",)
 
 
 @pytest.mark.parametrize("lanes", [2, 3])

@@ -263,3 +263,70 @@ def test_cluster_slice_runs_with_jax_blocked():
                           env=_child_env(), capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert "CLUSTER OK" in proc.stdout
+
+
+SERVE_SLICE = ("serve", "serve.tenants", "serve.admission", "serve.coalescer",
+               "serve.resilience", "serve.frontend", "serve.fabric", "tools.loadgen",
+               "tools.fabric_worker")
+
+
+@pytest.mark.parametrize("name", SERVE_SLICE)
+def test_serve_slice_modules_are_scanned(name):
+    """The serving tier, the load generator and the fabric worker are among
+    the scanned files, import no JAX and nothing of the JAX package, and
+    import torch only inside the functions that use it."""
+    parts = name.split(".")
+    path = PORT.joinpath(*parts[:-1], parts[-1] + ".py")
+    if not path.is_file():
+        path = PORT.joinpath(*parts, "__init__.py")
+    assert path in FILES
+    names = _imported_names(path)
+    assert not any(_forbidden(m) for m in names)
+    assert _relative_escapes(path) == []
+    tree = ast.parse(path.read_text(), filename=str(path))
+    top = [a.name for n in tree.body if isinstance(n, ast.Import) for a in n.names]
+    top += [n.module or "" for n in tree.body if isinstance(n, ast.ImportFrom) and n.level == 0]
+    assert not any(m.split(".")[0] == "torch" for m in top), top
+
+
+_SERVE_CHILD = r"""
+import importlib, sys
+
+class Block:
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in ("jax", "jaxlib", "cekirdekler_tpu"):
+            raise ImportError(f"blocked import of {name}")
+        return None
+
+sys.meta_path.insert(0, Block())
+for name in sys.argv[1:]:
+    importlib.import_module("cekirdekler_tpu_torch." + name)
+import numpy as np
+import cekirdekler_tpu_torch as ck
+from cekirdekler_tpu_torch.analysis import model
+from cekirdekler_tpu_torch.serve import ServeFrontend, ServeJob, route_decision
+from cekirdekler_tpu_torch.tools.loadgen import LOADGEN_SRC
+for m in ("serve", "resilience", "router"):
+    assert model.check_machine(m, quick=True)["violations"] == []
+assert route_decision("t0", "k", ["m0", "m1"])["shard"] in ("m0", "m1")
+cr = ck.NumberCruncher(ck.all_devices().cpus(1), LOADGEN_SRC)
+a = ck.ClArray(np.zeros(256, np.float32), name="a", partial_read=True)
+fe = ServeFrontend(cr, autostart=False)
+futs = [fe.submit("t0", ServeJob(params=[a], kernels=["lg_inc"], compute_id=1,
+                                 global_range=256, local_range=64)) for _ in range(3)]
+fe.step()
+assert all(f.result(timeout=30)["batch_requests"] == 3 for f in futs)
+fe.close()
+cr.dispose()
+assert float(a.host()[0]) == 3.0
+leaked = sorted(k for k in sys.modules if k.split(".")[0] in ("jax", "jaxlib", "cekirdekler_tpu"))
+assert not leaked, leaked
+print("SERVE OK")
+"""
+
+
+def test_serve_slice_runs_with_jax_blocked():
+    proc = subprocess.run([sys.executable, "-c", _SERVE_CHILD, *SERVE_SLICE], cwd=ROOT,
+                          env=_child_env(), capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert "SERVE OK" in proc.stdout

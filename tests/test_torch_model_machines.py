@@ -1,15 +1,16 @@
-"""The port's bounded model checker (``analysis/model.py``), drain,
-elastic and balance machines, against the reference's.
+"""The port's bounded model checker (``analysis/model.py``): the drain,
+elastic, balance, serving (admission and coalesce), resilience (breaker,
+shed and retry) and router machines, against the reference's.
 
 At the ``quick`` bounds and at tier-1 bounds (``CK_MODEL_DEPTH=1``) both
-packages' ``DrainMachine``, ``ElasticMachine`` and ``BalanceMachine``
-explore the same state and transition counts, exercise every declared
-invariant the same number of times, and find no violation.  The reference's deliberately broken
-fixture seams (one per declared invariant) give a counterexample in the
-port, and the counterexample bridge replays it (``obs.replay``): a broken
-drain trace diverges, a real balance trace replays clean.  The other
-machine names raise ``NotPortedError`` naming their Queue A item.  No
-wall-clock pin (ROADMAP Queue C, reference state 3).
+packages' machines explore the same state and transition counts, exercise
+every declared invariant the same number of times, and find no violation.
+The reference's deliberately broken fixture seams (one per declared
+invariant) give a counterexample in the port, and the counterexample
+bridge replays it (``obs.replay``): a broken drain trace diverges, a real
+balance trace replays clean.  The ``block`` machine raises
+``NotPortedError`` naming its Queue A item.  No wall-clock pin (ROADMAP
+Queue C, reference state 3).
 """
 
 from __future__ import annotations
@@ -27,6 +28,10 @@ from cekirdekler_tpu_torch.obs import drain as D
 from cekirdekler_tpu_torch.obs.decisions import DECISIONS
 from cekirdekler_tpu_torch.obs.flight import FLIGHT
 from cekirdekler_tpu_torch.obs.replay import save_counterexample, verify_counterexample
+from cekirdekler_tpu_torch.serve import admission as A
+from cekirdekler_tpu_torch.serve import coalescer as C
+from cekirdekler_tpu_torch.serve import fabric as F
+from cekirdekler_tpu_torch.serve import resilience as R
 from tests.test_torch_metrics import restore_planes, save_planes
 
 
@@ -86,10 +91,25 @@ def test_the_vocabulary_and_declared_invariants_are_the_reference_s():
     assert set(M.DrainMachine.checks) == {r[0] for r in D.MODEL_INVARIANTS}
     assert set(M.BalanceMachine.checks) == {r[0] for r in B.MODEL_INVARIANTS}
     assert set(M.ElasticMachine.checks) == {r[0] for r in E.MODEL_INVARIANTS}
+    from cekirdekler_tpu.serve import admission as RA
+    from cekirdekler_tpu.serve import coalescer as RC
+    from cekirdekler_tpu.serve import fabric as RF
+    from cekirdekler_tpu.serve import resilience as RR
+
+    for mine, ref in ((A, RA), (C, RC), (R, RR), (F, RF)):
+        assert mine.MODEL_INVARIANTS == ref.MODEL_INVARIANTS
+    assert R.BREAKER_INVARIANTS == RR.BREAKER_INVARIANTS
+    assert R.SHED_INVARIANTS == RR.SHED_INVARIANTS
+    assert R.RETRY_INVARIANTS == RR.RETRY_INVARIANTS
+    assert set(M.AdmissionMachine.checks) == {r[0] for r in A.MODEL_INVARIANTS}
+    assert set(M.CoalesceMachine.checks) == {r[0] for r in C.MODEL_INVARIANTS}
+    assert set(M.BreakerMachine.checks) == {r[0] for r in R.BREAKER_INVARIANTS}
+    assert set(M.ShedMachine.checks) == {r[0] for r in R.SHED_INVARIANTS}
+    assert set(M.RetryMachine.checks) == {r[0] for r in R.RETRY_INVARIANTS}
+    assert set(M.RouterMachine.checks) == {r[0] for r in F.MODEL_INVARIANTS}
 
 
-@pytest.mark.parametrize("name, item", [("serve", "A 8"), ("resilience", "A 8"),
-                                        ("router", "A 8"), ("block", "A 9")])
+@pytest.mark.parametrize("name, item", [("block", "A 9")])
 def test_other_machines_name_their_queue_item(name, item):
     with pytest.raises(NotPortedError, match=item):
         M.build_machines(name)
@@ -277,6 +297,292 @@ def _patched_resplit(fn):
     return factory
 
 
+# -- the serving machines' seams (serve/admission.py, serve/coalescer.py,
+# serve/resilience.py, serve/fabric.py), the reference's fixtures over the port
+
+def _quota_off_by_one(**kw):
+    if (not kw["kernel_unsafe"] and kw["healthy"]
+            and kw["queue_depth"] < kw["max_queue_depth"]
+            and kw["tenant_inflight"] == kw["quota"]):
+        return {"admit": True, "reason": None, "retry_after_s": None}
+    return A.admit_decision(**kw)
+
+
+def _no_queue_gate(**kw):
+    return A.admit_decision(**dict(kw, queue_depth=0))
+
+
+def _wrong_order(**kw):
+    dec = A.admit_decision(**kw)
+    if not dec["admit"] and not kw["healthy"] \
+            and kw["tenant_inflight"] >= kw["quota"]:
+        return {"admit": False, "reason": A.REJECT_QUOTA,
+                "retry_after_s": dec["retry_after_s"]}
+    return dec
+
+
+def _kernel_backoff(**kw):
+    dec = A.admit_decision(**kw)
+    if dec.get("reason") == A.REJECT_KERNEL:
+        return dict(dec, retry_after_s=1.0)
+    return dec
+
+
+def _moody(**kw):
+    dec = A.admit_decision(**kw)
+    if dec["admit"] and kw["tenant_inflight"] == 1:
+        return {"admit": False, "reason": A.REJECT_QUOTA,
+                "retry_after_s": 0.1}
+    return dec
+
+
+def _admission_machine(**kw):
+    return M.AdmissionMachine(tenants=("a", "b"), quota=2,
+                              max_queue_depth=2, **kw)
+
+
+def _overpromote(groups, rnd, mp):
+    plan = C.plan_coalesce(groups, rnd, mp)
+    keys = [str(g["key"]) for g in groups if int(g.get("pending", 0))]
+    if keys and not plan["promoted"]:
+        plan = dict(plan, promoted=[keys[0]])
+    return plan
+
+
+def _order_dropper(groups, rnd, mp):
+    plan = C.plan_coalesce(groups, rnd, mp)
+    if len(plan["order"]) > 1:
+        order = plan["order"][:-1]
+        plan = dict(plan, order=order,
+                    picked=order[:mp] if mp > 0 else list(order))
+    return plan
+
+
+_jitter_seen: dict = {}
+
+
+def _jitter(groups, rnd, mp):
+    """Nondeterministic per SNAPSHOT: the first plan of a given
+    snapshot is real, every replan of the same snapshot is tampered —
+    exactly the replay-breaking drift plan-deterministic refuses."""
+    plan = C.plan_coalesce(groups, rnd, mp)
+    key = (rnd, tuple(sorted(
+        (g["key"], g.get("starved_rounds", 0)) for g in groups)))
+    n = _jitter_seen.get(key, 0)
+    _jitter_seen[key] = n + 1
+    if n > 0 and len(plan["order"]) > 1:
+        order = list(plan["order"])
+        order[0], order[-1] = order[-1], order[0]
+        plan = dict(plan, order=order,
+                    picked=order[:mp] if mp > 0 else list(order))
+    return plan
+
+
+def _no_fairness(groups, rnd, mp):
+    """The strawman before fairness promotions: EDF/age only, no promotion — the youngest
+    group starves unboundedly behind fixed older/deadlined peers."""
+    rows = [g for g in groups if int(g.get("pending", 0)) > 0]
+    order = [str(g["key"]) for g in sorted(rows, key=C._edf_key)]
+    picked = order[:mp] if mp > 0 else list(order)
+    return {"order": order, "picked": picked, "promoted": [],
+            "max_picks": mp if mp > 0 else 0}
+
+
+def _coalesce_machine(**kw):
+    return M.CoalesceMachine(keys=("ga", "gb", "gc"), max_picks=1, **kw)
+
+
+# -- resilience (serve/resilience.py) fixtures ------------------------------
+
+def _double_probe_admit(state, now, open_s):
+    """Half-open admits a SECOND probe while one is in flight."""
+    out = R.breaker_admit(state, now, open_s)
+    if state.get("state") == R.BREAKER_HALF_OPEN \
+            and state.get("probe_inflight"):
+        st = dict(out["state"])
+        return dict(out, allow=True, probe=True, retry_after_s=None,
+                    state=st)
+    return out
+
+
+def _eager_open(state, event, now, threshold, open_s):
+    """Opens on the FIRST failure (threshold filed down to 1)."""
+    out = R.breaker_transition(state, event, now, threshold, open_s)
+    if state.get("state") == R.BREAKER_CLOSED and event == "failure" \
+            and out["action"] is None:
+        st = dict(out["state"], state=R.BREAKER_OPEN, opened_t=now)
+        return {"state": st, "action": "opened"}
+    return out
+
+
+def _dishonest_hint(state, now, open_s):
+    """Refusals carry a made-up hint instead of the remaining window."""
+    out = R.breaker_admit(state, now, open_s)
+    if not out["allow"]:
+        return dict(out, retry_after_s=999.0)
+    return out
+
+
+def _never_half_open(state, now, open_s):
+    """The open window never times out — admits are refused forever."""
+    if state.get("state") == R.BREAKER_OPEN:
+        return {"allow": False, "probe": False,
+                "retry_after_s": float(open_s) / 2.0,
+                "state": dict(state), "action": None}
+    return R.breaker_admit(state, now, open_s)
+
+
+def _probe_never_closes(state, event, now, threshold, open_s):
+    """A successful probe re-opens instead of closing (permanent open
+    under all-ok inputs)."""
+    out = R.breaker_transition(state, event, now, threshold, open_s)
+    if state.get("state") == R.BREAKER_HALF_OPEN and event == "success":
+        st = dict(out["state"], state=R.BREAKER_OPEN, opened_t=now,
+                  probe_inflight=False)
+        return {"state": st, "action": "reopened"}
+    return out
+
+
+def _breaker_machine(**kw):
+    return M.BreakerMachine(threshold=2, open_ticks=2, **kw)
+
+
+def _hair_trigger_shed(state, qd, wm, cm, ob, dl, engage_streak=2):
+    """Engages on the FIRST pressured evaluation — the hysteresis the
+    pressure gate exists to enforce, filed off."""
+    out = R.brownout_transition(state, qd, wm, cm, ob, dl,
+                                engage_streak=engage_streak)
+    if not state.get("active") and out["pressure"] and not out["active"]:
+        return dict(out, active=True, streak=0, changed=True)
+    return out
+
+
+def _sticky_shed(state, qd, wm, cm, ob, dl, engage_streak=2):
+    """Never releases: degraded mode is permanent."""
+    out = R.brownout_transition(state, qd, wm, cm, ob, dl,
+                                engage_streak=engage_streak)
+    if state.get("active"):
+        return dict(out, active=True, changed=False)
+    return out
+
+
+def _shed_everyone(**kw):
+    """Sheds even a tenant with ZERO requests in flight."""
+    dec = A.admit_decision(**kw)
+    if kw.get("brownout") and dec["admit"]:
+        return {"admit": False, "reason": A.REJECT_BROWNOUT,
+                "retry_after_s": 0.1}
+    return dec
+
+
+def _anonymous_shed(**kw):
+    """Brownout rejections renamed to the quota reason (and a
+    busy-loop hint)."""
+    dec = A.admit_decision(**kw)
+    if dec.get("reason") == A.REJECT_BROWNOUT:
+        return dict(dec, reason=A.REJECT_QUOTA, retry_after_s=0.0)
+    return dec
+
+
+def _shed_machine(**kw):
+    return M.ShedMachine(engage_streak=2, **kw)
+
+
+def _budgetless_retry(attempt, max_attempts, tokens, deadline_left_s,
+                      base_s, cap_s, jitter_u):
+    """Grants retries with an empty budget and past max_attempts —
+    the retry storm the budget exists to prevent."""
+    rd = R.retry_decision(attempt, max_attempts, tokens,
+                          deadline_left_s, base_s, cap_s, jitter_u)
+    if not rd["retry"] and rd["reason"] in ("budget-exhausted",
+                                            "attempts-exhausted"):
+        return {"retry": True, "delay_s": base_s, "reason": None}
+    return rd
+
+
+def _unbounded_backoff(attempt, max_attempts, tokens, deadline_left_s,
+                       base_s, cap_s, jitter_u):
+    """Backoff cap filed off: granted delays blow past 1.5×cap (and
+    any deadline)."""
+    rd = R.retry_decision(attempt, max_attempts, tokens,
+                          deadline_left_s, base_s, cap_s, jitter_u)
+    if rd["retry"]:
+        return dict(rd, delay_s=10.0 * cap_s)
+    return rd
+
+
+def _retry_machine(**kw):
+    return M.RetryMachine(max_attempts=2, budget_cap=2, **kw)
+
+
+class _FlipRoute:
+    """Alternate calls bounce the same key between members — the
+    drive/re-drive comparison (and any replay) diverges."""
+
+    def __init__(self):
+        self.calls = 0
+
+    def __call__(self, tenant, key, members, unhealthy=(), epoch=0):
+        out = F.route_decision(tenant, key, members, unhealthy, epoch)
+        self.calls += 1
+        roster = sorted(set(str(m) for m in members),
+                        key=lambda m: (len(m), m))
+        if out["shard"] is not None and len(roster) > 1 and \
+                self.calls % 2:
+            alt = roster[(roster.index(out["shard"]) + 1) % len(roster)]
+            return dict(out, shard=alt, owner=alt)
+        return out
+
+
+def _modulo_route(tenant, key, members, unhealthy=(), epoch=0):
+    """Placement by hash MOD roster size — the NON-consistent hash
+    minimal-reshuffle exists to forbid: one departure reshuffles keys
+    between the survivors."""
+    import hashlib as _hl
+
+    roster = sorted(set(str(m) for m in members),
+                    key=lambda m: (len(m), m))
+    if not roster:
+        return F.route_decision(tenant, key, members, unhealthy, epoch)
+    h = int(_hl.sha256(f"{tenant}|{key}".encode()).hexdigest()[:16], 16)
+    owner = roster[h % len(roster)]
+    bad = set(str(m) for m in unhealthy)
+    shard, hops = None, 0
+    for i in range(len(roster)):
+        m = roster[(h + i) % len(roster)]
+        if m not in bad:
+            shard = m
+            break
+        hops += 1
+    if shard is None:
+        return {"shard": None, "owner": owner, "diverted": True,
+                "hops": hops, "reason": F.REJECT_SHARD,
+                "epoch": int(epoch)}
+    return {"shard": shard, "owner": owner, "diverted": shard != owner,
+            "hops": hops, "reason": None, "epoch": int(epoch)}
+
+
+def _offroster_route(tenant, key, members, unhealthy=(), epoch=0):
+    """Names a shard that is not in the roster."""
+    out = F.route_decision(tenant, key, members, unhealthy, epoch)
+    if out["shard"] is not None:
+        return dict(out, shard="zz", owner="zz")
+    return out
+
+
+def _silent_divert_route(tenant, key, members, unhealthy=(), epoch=0):
+    """Diverts off a sick owner WITHOUT the diverted flag / hop count
+    — the silent diversion the named-decision rule forbids."""
+    out = F.route_decision(tenant, key, members, unhealthy, epoch)
+    if out["shard"] is not None and out["diverted"]:
+        return dict(out, diverted=False, hops=0)
+    return out
+
+
+def _router_machine(**kw):
+    return M.RouterMachine(member_ids=("p0", "p2"), **kw)
+
+
 BROKEN_FIXTURES = {
     "availability-floor": lambda: _drain_machine(transition=_no_floor),
     "share-conservation": lambda: _drain_machine(masker=_leaky_masker),
@@ -296,6 +602,32 @@ BROKEN_FIXTURES = {
     # needs two departures at once for the order within a phase to vary
     "deterministic-order": lambda: M.ElasticMachine(
         member_ids=("p0", "p2", "p10"), steps=(2, 3), membership_cls=_FlakyOrder),
+    "quota-exact": lambda: _admission_machine(decide=_quota_off_by_one),
+    "queue-bounded": lambda: _admission_machine(decide=_no_queue_gate),
+    "reject-order": lambda: _admission_machine(decide=_wrong_order),
+    "retry-hint": lambda: _admission_machine(decide=_kernel_backoff),
+    "admit-iff": lambda: _admission_machine(decide=_moody),
+    "promoted-are-starved": lambda: _coalesce_machine(plan=_overpromote),
+    "plan-complete": lambda: _coalesce_machine(plan=_order_dropper),
+    "plan-deterministic": lambda: _coalesce_machine(plan=_jitter),
+    "bounded-starvation": lambda: _coalesce_machine(plan=_no_fairness),
+    "breaker-half-open-one-probe": lambda: _breaker_machine(admit=_double_probe_admit),
+    "breaker-opens-on-threshold": lambda: _breaker_machine(transition=_eager_open),
+    "breaker-honest-hint": lambda: _breaker_machine(admit=_dishonest_hint),
+    "breaker-open-times-out": lambda: _breaker_machine(admit=_never_half_open),
+    "breaker-recovers-on-ok": lambda: _breaker_machine(transition=_probe_never_closes),
+    "shed-pressure-gated": lambda: _shed_machine(transition=_hair_trigger_shed),
+    "shed-quota-floor": lambda: _shed_machine(decide=_shed_everyone),
+    "shed-named-hint": lambda: _shed_machine(decide=_anonymous_shed),
+    "shed-releases": lambda: _shed_machine(transition=_sticky_shed),
+    "retry-budget-bounded": lambda: _retry_machine(decide=_budgetless_retry),
+    "retry-backoff-bounded": lambda: _retry_machine(decide=_unbounded_backoff),
+    "placement-deterministic": lambda: _router_machine(route=_FlipRoute()),
+    # mod-N reshuffling shows only between survivors: three members
+    "minimal-reshuffle": lambda: M.RouterMachine(
+        member_ids=("p0", "p2", "p10"), route=_modulo_route),
+    "routes-to-members": lambda: _router_machine(route=_offroster_route),
+    "diversion-named": lambda: _router_machine(route=_silent_divert_route),
 }
 
 #: the elastic invariants broken through the re-split, not the membership class
@@ -306,8 +638,9 @@ PATCHED_FIXTURES = {
 
 
 def test_fixture_table_covers_every_declared_invariant():
-    declared = {r[0] for r in D.MODEL_INVARIANTS} | {r[0] for r in B.MODEL_INVARIANTS} | {
-        r[0] for r in E.MODEL_INVARIANTS}
+    declared = set()
+    for mod in (D, B, E, A, C, R, F):
+        declared |= {r[0] for r in mod.MODEL_INVARIANTS}
     assert set(BROKEN_FIXTURES) | set(PATCHED_FIXTURES) == declared
 
 

@@ -22,15 +22,25 @@ activations in the backward (``torch.utils.checkpoint``, the counterpart
 of ``jax.checkpoint``).  f32 products assume TF32 off on the card,
 PyTorch's default.
 
-Not covered yet, each refused with :class:`NotPortedError`: experts
-(``n_experts > 0``), pipeline stages (``pp_stages > 1``), and the mesh
-paths: ``attention="ring"``/``"ulysses"`` inside the model and a mesh
-(GSPMD placement over dp/fsdp/tp).  Ring and Ulysses attention themselves
-are ported (``parallel/attention.py``).
+With ``n_experts > 0`` every ``moe_every``-th block's FFN is a top-1
+routed experts layer (``models/moe.py``), whose block holds ``router``
+``[d, E]``, ``w1`` ``[E, d, f]`` and ``w2`` ``[E, f, d]`` as the
+reference's does: capacity dispatch when ``moe_capacity_factor > 0``, else
+dense compute-all.  Routing is deterministic, so a remat recompute routes
+as the forward did; the recompute is left out of any open
+``moe.record_routing`` log.
+
+Not covered yet, each refused with :class:`NotPortedError`: pipeline
+stages (``pp_stages > 1``) and the mesh paths: ``attention="ring"``/
+``"ulysses"`` inside the model and a mesh (GSPMD placement over
+dp/fsdp/tp, the experts over ep).  Ring and Ulysses attention themselves
+and the experts over an ep mesh alone (``moe.moe_ffn_sharded``) are
+ported.
 """
 
 from __future__ import annotations
 
+import contextlib
 from dataclasses import dataclass
 
 import numpy as np
@@ -42,10 +52,12 @@ from torch.utils.checkpoint import checkpoint
 from ..errors import DeviceSelectionError, NotPortedError
 from ..ops.flash_attention import flash_attention
 from ..parallel.attention import attention_reference
+from .moe import moe_ffn, moe_ffn_capacity, quiet_routing
 
 __all__ = ["TransformerConfig", "Transformer", "cross_entropy_loss", "params_from_jax", "adamw"]
 
 _BLOCK_PARAMS = ("ln1", "wqkv", "wo", "ln2", "w1", "w2")
+_MOE_BLOCK_PARAMS = ("ln1", "wqkv", "wo", "ln2", "router", "w1", "w2")
 
 
 @dataclass(frozen=True)
@@ -74,6 +86,14 @@ class TransformerConfig:
     def head_dim(self) -> int:
         return self.d_model // self.n_heads
 
+    def is_moe_block(self, i: int) -> bool:
+        """Whether block ``i``'s FFN is an experts layer: every
+        ``moe_every``-th block when ``n_experts > 0`` (``pp_stages > 1``,
+        where the reference makes every block one, is refused)."""
+        if self.n_experts <= 0:
+            return False
+        return (i + 1) % self.moe_every == 0
+
 
 def _refuse_mesh(mesh) -> None:
     if mesh is not None:
@@ -85,10 +105,6 @@ def _refuse_mesh(mesh) -> None:
 
 
 def _check_supported(c: TransformerConfig) -> None:
-    if c.n_experts > 0:
-        raise NotPortedError(
-            "n_experts > 0: the MoE layer (models/moe) is not ported yet "
-            "(ROADMAP Queue A, attention stack: models)")
     if c.pp_stages > 1:
         raise NotPortedError(
             "pp_stages > 1: pipeline parallelism is not ported yet (ROADMAP Queue A, "
@@ -105,15 +121,18 @@ def _check_supported(c: TransformerConfig) -> None:
 class Block(nn.Module):
     """One pre-norm block's parameters, in the reference's layouts."""
 
-    def __init__(self, c: TransformerConfig, gen: torch.Generator):
+    def __init__(self, c: TransformerConfig, gen: torch.Generator, moe: bool = False):
         super().__init__()
         d, h, f = c.d_model, c.n_heads * c.head_dim, c.d_ff
+        lead = (c.n_experts,) if moe else ()
         self.ln1 = nn.Parameter(torch.ones(d, dtype=c.param_dtype))
         self.wqkv = nn.Parameter(_init(gen, (d, 3 * h), d ** -0.5, c.param_dtype))
         self.wo = nn.Parameter(_init(gen, (h, d), h ** -0.5, c.param_dtype))
         self.ln2 = nn.Parameter(torch.ones(d, dtype=c.param_dtype))
-        self.w1 = nn.Parameter(_init(gen, (d, f), d ** -0.5, c.param_dtype))
-        self.w2 = nn.Parameter(_init(gen, (f, d), f ** -0.5, c.param_dtype))
+        self.w1 = nn.Parameter(_init(gen, (*lead, d, f), d ** -0.5, c.param_dtype))
+        self.w2 = nn.Parameter(_init(gen, (*lead, f, d), f ** -0.5, c.param_dtype))
+        self.router = (nn.Parameter(_init(gen, (d, c.n_experts), 0.02, c.param_dtype))
+                       if moe else None)
 
 
 def _init(gen: torch.Generator, shape, scale: float, dtype: torch.dtype) -> torch.Tensor:
@@ -140,7 +159,7 @@ class Transformer(nn.Module):
         gen = torch.Generator(device="cpu").manual_seed(seed)
         self.embed = nn.Parameter(_init(gen, (c.vocab, c.d_model), 0.02, c.param_dtype))
         self.final_norm = nn.Parameter(torch.ones(c.d_model, dtype=c.param_dtype))
-        self.blocks = nn.ModuleList(Block(c, gen) for _ in range(c.n_layers))
+        self.blocks = nn.ModuleList(Block(c, gen, c.is_moe_block(i)) for i in range(c.n_layers))
         self.to(dev)
 
     @property
@@ -166,6 +185,11 @@ class Transformer(nn.Module):
         o = o.reshape(B, T, -1) @ p.wo.to(c.dtype)
         x = x + o
         h = _rms_norm(x, p.ln2)
+        if p.router is not None:
+            cf = c.moe_capacity_factor
+            if cf > 0:
+                return x + moe_ffn_capacity(h, p.router, p.w1, p.w2, capacity_factor=cf)
+            return x + moe_ffn(h, p.router, p.w1, p.w2)
         h = F.gelu(h @ p.w1.to(c.dtype), approximate="tanh")  # jax.nn.gelu's default
         h = h @ p.w2.to(c.dtype)
         return x + h
@@ -182,7 +206,8 @@ class Transformer(nn.Module):
         remat = c.remat and torch.is_grad_enabled()
         for p in self.blocks:
             if remat:
-                x = checkpoint(self._block, p, x, use_reentrant=False)
+                x = checkpoint(self._block, p, x, use_reentrant=False,
+                               context_fn=_remat_contexts)
             else:
                 x = self._block(p, x)
         x = _rms_norm(x, self.final_norm)
@@ -223,6 +248,11 @@ def adamw(model: nn.Module, lr: float) -> torch.optim.AdamW:
                              weight_decay=1e-4)
 
 
+def _remat_contexts():
+    """The forward runs as it is; the recompute stays out of routing logs."""
+    return contextlib.nullcontext(), quiet_routing()
+
+
 def _rms_norm(x: torch.Tensor, gain: torch.Tensor) -> torch.Tensor:
     dt = x.dtype
     xf = x.float()
@@ -240,19 +270,21 @@ def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tens
 def params_from_jax(model: Transformer, tree: dict) -> Transformer:
     """Load the reference's params pytree, given as numpy arrays
     (``{"embed", "final_norm", "blocks": [{"ln1", "wqkv", "wo", "ln2", "w1",
-    "w2"}]}``), into ``model`` as they are: both keep ``[in, out]`` layouts,
+    "w2"}]}``, with ``router`` too in an experts block), into ``model`` as
+    they are: both keep ``[in, out]`` layouts (experts ``[E, in, out]``),
     so nothing is transposed, and ``wqkv`` ``[d, 3h]`` splits as q | k | v
-    over its last axis in both.  Raises on a missing, extra or misshapen
-    array."""
+    over its last axis in both.  Which blocks are experts blocks comes from
+    the model's config.  Raises on a missing, extra or misshapen array."""
     arrays = {"embed": tree["embed"], "final_norm": tree["final_norm"]}
     if len(tree["blocks"]) != len(model.blocks):
         raise ValueError(f"{len(tree['blocks'])} blocks for a model of {len(model.blocks)}")
     for i, blk in enumerate(tree["blocks"]):
-        extra = set(blk) - set(_BLOCK_PARAMS)
-        if extra:
-            raise NotPortedError(f"block {i} holds {sorted(extra)}: MoE blocks are not "
-                                 "ported yet (ROADMAP Queue A, attention stack: models)")
-        for name in _BLOCK_PARAMS:
+        names = _MOE_BLOCK_PARAMS if model.config.is_moe_block(i) else _BLOCK_PARAMS
+        if set(blk) != set(names):
+            raise ValueError(f"block {i} holds {sorted(blk)}, want {sorted(names)} "
+                             f"({'an experts' if names is _MOE_BLOCK_PARAMS else 'a dense'} block of "
+                             "this config)")
+        for name in names:
             arrays[f"blocks.{i}.{name}"] = blk[name]
     dt = model.config.param_dtype
     model.load_state_dict({k: torch.from_numpy(np.array(a)).to(dt) for k, a in arrays.items()},

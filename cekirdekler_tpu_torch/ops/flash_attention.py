@@ -50,9 +50,12 @@ gets the reference's values, and the ring weights such a row out either
 way (ROADMAP Queue C, reference state 9).
 
 The BlockTuner is not ported (ROADMAP Queue A).  A default-argument call
+(:func:`flash_attention` without blocks, :func:`fused_qkv_attention`)
 takes :func:`default_blocks`, which is the pair the reference's tuner
 gives cold, and both gate on the same >= 128 divisor, so flash against
-dense is decided as in the reference.
+dense is decided as in the reference.  :func:`fused_qkv` is the
+reference's one-product q/k/v projection, a plain ``torch.matmul``: the
+reference computes it with XLA, outside any Pallas kernel.
 """
 
 from __future__ import annotations
@@ -70,7 +73,8 @@ from ..parallel.attention import attention_reference
 __all__ = ["flash_attention", "flash_attention_plain", "flash_attention_bwd_plain",
            "flash_attention_parts", "flash_attention_parts_plain",
            "flash_attention_bwd_parts", "flash_attention_bwd_parts_plain",
-           "auto_block", "default_blocks", "LAUNCHES", "BWD_LAUNCHES", "PARTS_LAUNCHES",
+           "auto_block", "default_blocks", "fused_qkv", "fused_qkv_attention", "LAUNCHES",
+           "BWD_LAUNCHES", "PARTS_LAUNCHES",
            "PARTS_DEAD", "PARTS_FWD_ROUTES", "PLAIN_RUNS", "PLAIN_BWD_RUNS", "ROUTES",
            "BWD_ROUTES", "SOURCE", "SOURCE_TC", "SOURCE_BWD", "SOURCE_BWD_TC",
            "SOURCE_PARTS_TC", "KERNEL_BLOCK", "MAX_HEAD_DIM"]
@@ -810,3 +814,28 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: b
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
         return _FlashAttention.apply(q, k, v, causal, block_q, block_k, precision)
     return _flash_forward(q, k, v, causal, block_q, block_k, precision)
+
+
+def fused_qkv(x: torch.Tensor, wq: torch.Tensor, wk: torch.Tensor,
+              wv: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The three attention input projections as one product:
+    ``x @ [wq | wk | wv]`` split back into (q, k, v), views of one buffer.
+    ``x`` is [..., E]; each ``w*`` is [E, F*] (the F's may differ).  The
+    reference's ``precision`` argument has no counterpart: f32 products
+    follow PyTorch's TF32 setting."""
+    qkv = torch.matmul(x, torch.cat([wq, wk, wv], dim=-1))
+    fq, fk = wq.shape[-1], wk.shape[-1]
+    return qkv[..., :fq], qkv[..., fq:fq + fk], qkv[..., fq + fk:]
+
+
+def fused_qkv_attention(x: torch.Tensor, wq: torch.Tensor, wk: torch.Tensor,
+                        wv: torch.Tensor, num_heads: int, causal: bool = False,
+                        precision: str = "highest") -> torch.Tensor:
+    """``x`` [B, T, E] through :func:`fused_qkv`, heads split to
+    [B, T, H, D], then the default-argument :func:`flash_attention`, whose
+    blocks come from :func:`default_blocks` until the block tuner is
+    ported."""
+    B, T, _ = x.shape
+    q, k, v = fused_qkv(x, wq, wk, wv)
+    q, k, v = (t.reshape(B, T, num_heads, -1) for t in (q, k, v))
+    return flash_attention(q, k, v, causal=causal, precision=precision)

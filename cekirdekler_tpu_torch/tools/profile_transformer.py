@@ -8,10 +8,13 @@ takes two untraced train steps (``adamw(model, 1e-3)``) on a seeded 4x2049
 batch and traces a third.  For each traced window it prints the wall time,
 the device time summed over the trace's kernels and copies, the device's
 busy share of the wall (an upper bound: overlapping activities count once
-each), and the top device activities by time.  Needs a CUDA device.  From
-the repository root::
+each), and the top device activities by time.  ``--experts E`` makes
+every block's FFN an experts layer of E experts, dense compute-all or, with
+``--capacity F``, capacity dispatch at factor F.  Needs a CUDA device.
+From the repository root::
 
-    python -m cekirdekler_tpu_torch.tools.profile_transformer [--top 8]
+    python -m cekirdekler_tpu_torch.tools.profile_transformer [--top 8] \
+        [--experts 4 [--capacity 2.0]]
 """
 
 from __future__ import annotations
@@ -27,6 +30,8 @@ from .trace_window import by_name, open_window
 def main(argv: list[str] | None = None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--top", type=int, default=8)
+    ap.add_argument("--experts", type=int, default=0)
+    ap.add_argument("--capacity", type=float, default=0.0)
     args = ap.parse_args(argv)
 
     import numpy as np
@@ -48,7 +53,8 @@ def main(argv: list[str] | None = None) -> int:
         rows = by_name(prof)
         busy_ms = sum(r[1] for r in rows)
         print(json.dumps({
-            "card": card, label[0]: label[1], "wall_ms": wall_ms, "device_busy_ms": busy_ms,
+            "card": card, "experts": args.experts, "capacity": args.capacity,
+            label[0]: label[1], "wall_ms": wall_ms, "device_busy_ms": busy_ms,
             "device_busy_share": busy_ms / wall_ms if wall_ms else None,
             "top": [{"name": n[:80], "ms": ms, "count": c} for n, ms, c in rows[:args.top]],
         }), flush=True)
@@ -57,7 +63,8 @@ def main(argv: list[str] | None = None) -> int:
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True, text=True,
                           check=True, timeout=60).stdout.strip().splitlines()[0]
-    cfg = TransformerConfig(attention="flash")
+    cfg = TransformerConfig(attention="flash", n_experts=args.experts, moe_every=1,
+                            moe_capacity_factor=args.capacity)
     model = Transformer(cfg, seed=0)
     rng = np.random.default_rng(7)
     with torch.inference_mode():

@@ -26,6 +26,7 @@ and the tuner's chunk count against a sweep (``tools/overlap_sweep.py``).
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import os
 import time
@@ -889,7 +890,8 @@ def run_transformer_forward(model, batches, keep: str = "logits") -> dict:
     routes (``tiled`` or the ``dense`` fallback).  On the card a batch is
     timed by CUDA events, on the CPU by the host clock; ``device`` names
     which.  The forwards run under ``torch.inference_mode()``: serving
-    keeps no activations for a backward."""
+    keeps no activations for a backward.  Where the model has experts,
+    ``experts`` holds each batch's routing (:func:`_experts_summary`)."""
     import torch
 
     from .ops import flash_attention as fa
@@ -898,21 +900,40 @@ def run_transformer_forward(model, batches, keep: str = "logits") -> dict:
         raise ValueError(f"keep must be 'logits' or 'argmax', got {keep!r}")
     dev = model.device
     before = (fa.LAUNCHES.count, dict(fa.PLAIN_RUNS.by_key), dict(fa.ROUTES.by_key))
-    outputs, seconds, tokens_per_s = [], [], []
+    outputs, seconds, tokens_per_s, logs = [], [], [], []
     with torch.inference_mode():
         for tokens in batches:
             tokens = torch.as_tensor(tokens, device=dev)
-            logits, sec = _timed(dev, lambda: model(tokens))
+            with _routing(model) as log:
+                logits, sec = _timed(dev, lambda: model(tokens))
+            logs.append(log)
             seconds.append(sec)
             tokens_per_s.append(tokens.numel() / sec)
             outputs.append(logits if keep == "logits" else logits.argmax(dim=-1))
     plain = {k: v - before[1].get(k, 0) for k, v in fa.PLAIN_RUNS.by_key.items()}
     routes = {k: v - before[2].get(k, 0) for k, v in fa.ROUTES.by_key.items()}
-    return {"outputs": outputs, "seconds": seconds, "tokens_per_s": tokens_per_s,
-            "device": str(dev),
-            "launches": {"flash_attention": fa.LAUNCHES.count - before[0],
-                         "plain_flash": {k: v for k, v in plain.items() if v},
-                         "routes": {k: v for k, v in routes.items() if v}}}
+    out = {"outputs": outputs, "seconds": seconds, "tokens_per_s": tokens_per_s,
+           "device": str(dev),
+           "launches": {"flash_attention": fa.LAUNCHES.count - before[0],
+                        "plain_flash": {k: v for k, v in plain.items() if v},
+                        "routes": {k: v for k, v in routes.items() if v}}}
+    if model.config.n_experts > 0:
+        out["experts"] = [_experts_summary(log) for log in logs]
+    return out
+
+
+def _routing(model):
+    """``moe.record_routing()`` for a model with experts, else a null log."""
+    from .models.moe import record_routing
+
+    return record_routing() if model.config.n_experts > 0 else contextlib.nullcontext()
+
+
+def _experts_summary(log) -> dict:
+    """One run's routing: tokens routed to each expert and tokens dropped,
+    summed over the experts layers (a token counts once in each), and each
+    layer's routed and kept counts and capacity (None: dense)."""
+    return {**log.summary(), "layers": log.counts()}
 
 
 def _timed(dev, fn):
@@ -942,7 +963,9 @@ def run_transformer_train(model, optimizer, batch, steps: int, remat: bool | Non
     time: CUDA events on the card, the host clock on the CPU), and the
     launch counts of the run: forward kernel launches, backward kernel
     launches by kernel (``dq``, ``dkv``), plain forward and backward runs
-    by device type, and the flash routes."""
+    by device type, and the flash routes.  Where the model has experts,
+    ``experts`` holds each step's routing (:func:`_experts_summary`; a
+    remat recompute is not counted again)."""
     from .ops import flash_attention as fa
 
     dev = model.device
@@ -955,9 +978,11 @@ def run_transformer_train(model, optimizer, batch, steps: int, remat: bool | Non
         model.config = dataclasses.replace(config, remat=remat)
     try:
         step = model.make_train_step(optimizer)
-        losses, seconds = [], []
+        losses, seconds, logs = [], [], []
         for _ in range(steps):
-            loss, sec = _timed(dev, lambda: step(batch))
+            with _routing(model) as log:
+                loss, sec = _timed(dev, lambda: step(batch))
+            logs.append(log)
             losses.append(float(loss))
             seconds.append(sec)
     finally:
@@ -967,11 +992,14 @@ def run_transformer_train(model, optimizer, batch, steps: int, remat: bool | Non
         now, (_, was) = counters[i].by_key, before[i]
         return {k: v - was.get(k, 0) for k, v in now.items() if v != was.get(k, 0)}
 
-    return {"losses": losses, "seconds": seconds,
-            "tokens_per_s": [n_tokens / sec for sec in seconds], "device": str(dev),
-            "launches": {"flash_attention": fa.LAUNCHES.count - before[0][0],
-                         "flash_attention_bwd": delta(1), "plain_flash": delta(2),
-                         "plain_flash_bwd": delta(3), "routes": delta(4)}}
+    out = {"losses": losses, "seconds": seconds,
+           "tokens_per_s": [n_tokens / sec for sec in seconds], "device": str(dev),
+           "launches": {"flash_attention": fa.LAUNCHES.count - before[0][0],
+                        "flash_attention_bwd": delta(1), "plain_flash": delta(2),
+                        "plain_flash_bwd": delta(3), "routes": delta(4)}}
+    if config.n_experts > 0:
+        out["experts"] = [_experts_summary(log) for log in logs]
+    return out
 
 
 def run_ring_attention(mesh, B: int, T: int, H: int, D: int, dtype, causal: bool = True,

@@ -286,6 +286,23 @@ Phases, each of which raises on failure (the script then exits non-zero):
    are held against the CPU's (plain versions) from the same weights: f32
    at 1x1024, bf16 at 1x2048 beside the CPU's own bf16-vs-f32 gap; and
    the gradients with remat against those without it;
+7b. transformer with experts (one card): ``TransformerConfig()`` widths
+   with 4 experts in every block (``__graft_entry__``'s experts run),
+   bf16, flash, seeded weights.  (a) With the counts set to 0 before each,
+   the forward at 4x2048 and 16x256, dense compute-all and at capacity
+   2.0: every flash launch on ``tc``, no plain flash, each layer's routing
+   (``moe.record_routing``) keeping exactly the first C tokens of each
+   expert (C from the reference's expression, written out here), tokens/s,
+   tokens per expert and dropped tokens printed; capacity 4.0 against
+   dense on the same tokens: at most 1 % of tokens re-routed by a
+   last-bit difference, the rest within 5e-2 abs and 5e-3 mean.  (b) 8
+   ``adamw(model, 1e-3)`` steps on one seeded 4x2049 batch at capacity
+   2.0: the loss falls, 32 forward and 64 backward flash launches, all on
+   ``tc``; one remat step (the forward twice a layer) and the gradients
+   with remat equal to those without it.  (c) one experts layer through
+   ``moe_ffn_sharded`` over ``[cuda:0] * 2`` (ep=2) against ``moe_ffn``
+   and ``moe_ffn_capacity`` on the card, within one bf16 step (2^-8) of
+   the largest magnitude;
 8. ring attention (sp mesh of virtual shards): (a) the ring's three parts
    kernels (``flash_attention_parts``, and the dq and dk/dv kernels of
    ``flash_attention_bwd_parts``) against their plain versions at one ring
@@ -1288,6 +1305,252 @@ def check_transformer(wl, fa, card: str) -> int:
     if err32 > 1e-3:
         raise AssertionError("f32 transformer logits on the card differ from the CPU's")
     return want
+
+
+MOE_EXPERTS = 4
+MOE_BATCHES = ((4, 2048), (16, 256))
+MOE_CAPACITIES = (0.0, 2.0)
+MOE_STEPS = 8
+
+
+def moe_capacity(n_tokens: int, n_experts: int, capacity_factor: float) -> int:
+    """The capacity the reference gives an expert (``cekirdekler_tpu/models/
+    moe.py``), written out here so that the gate does not take it from the
+    code under test."""
+    return int(max(1, -(-n_tokens * capacity_factor // n_experts)))
+
+
+def gate_moe_routing(experts: dict, n_tokens: int, capacity_factor: float, n_experts: int,
+                     n_layers: int) -> int:
+    """One run's routing (``workloads._experts_summary``): every experts
+    layer routed every token, kept all of them in the dense form and, with
+    a capacity, exactly the first C of each expert's tokens; the dropped
+    count is what that implies.  Returns the dropped tokens."""
+    layers = experts["layers"]
+    cap = moe_capacity(n_tokens, n_experts, capacity_factor) if capacity_factor > 0 else None
+    if len(layers) != n_layers:
+        raise AssertionError(f"{len(layers)} experts layers logged, want {n_layers}")
+    dropped = 0
+    for i, layer in enumerate(layers):
+        routed, kept = layer["routed"], layer["kept"]
+        want = routed if cap is None else [min(r, cap) for r in routed]
+        if len(routed) != n_experts or sum(routed) != n_tokens or kept != want or \
+                layer["capacity"] != cap:
+            raise AssertionError(f"layer {i} at capacity factor {capacity_factor}: routed "
+                                 f"{routed}, kept {kept}, capacity {layer['capacity']}; want "
+                                 f"{n_tokens} tokens routed, kept {want}, capacity {cap}")
+        dropped += sum(routed) - sum(kept)
+    if experts["dropped_tokens"] != dropped:
+        raise AssertionError(f"dropped tokens {experts['dropped_tokens']}, the counts give "
+                             f"{dropped}")
+    return dropped
+
+
+def gate_moe_launches(seen: dict, fwd: int, bwd: int, on_card: bool) -> None:
+    """Flash launches of one counted run of the experts phase: ``seen`` holds
+    ``fwd`` (forward launches by route), ``bwd`` (dq and dk/dv launches by
+    route), ``plain`` and ``plain_bwd`` (plain runs by device type).  On the
+    card the ``fwd`` forward and ``bwd`` dq and dk/dv launches are all on
+    the tensor-core route and no plain version ran; on the CPU the plain
+    versions ran as often instead."""
+    def count(key: str, n: int) -> dict:
+        return {key: n} if n else {}
+
+    if on_card:
+        expect = {"fwd": count("tc", fwd), "bwd": count("tc", 2 * bwd), "plain": {},
+                  "plain_bwd": {}}
+    else:
+        expect = {"fwd": {}, "bwd": {}, "plain": count("cpu", fwd),
+                  "plain_bwd": count("cpu", bwd)}
+    if seen != expect:
+        raise AssertionError(f"experts phase flash launches {seen}, want {expect}")
+
+
+def _flash_seen(fa) -> dict:
+    return {"fwd": dict(fa.LAUNCHES.by_key), "bwd": dict(fa.BWD_ROUTES.by_key),
+            "plain": dict(fa.PLAIN_RUNS.by_key), "plain_bwd": dict(fa.PLAIN_BWD_RUNS.by_key)}
+
+
+def _reset_flash(fa) -> None:
+    for counter in (fa.LAUNCHES, fa.BWD_LAUNCHES, fa.BWD_ROUTES, fa.PLAIN_RUNS,
+                    fa.PLAIN_BWD_RUNS, fa.ROUTES):
+        counter.reset()
+
+
+def moe_same_as_dense(model, tokens, capacity_factor: float) -> dict:
+    """The experts model's logits at ``capacity_factor`` (>= E, nothing can
+    drop) against the dense form's on the same tokens.  Where a layer's
+    input differs in its last bf16 bit, a token whose two best router
+    logits are that close may take another expert; such tokens are
+    counted and left out of the logits' comparison, and every other token
+    must agree within the tolerance."""
+    import dataclasses
+
+    import torch
+
+    from cekirdekler_tpu_torch.models import record_routing
+
+    cfg = model.config
+    out = {}
+    try:
+        for cf in (0.0, capacity_factor):
+            model.config = dataclasses.replace(cfg, moe_capacity_factor=cf)
+            with torch.inference_mode(), record_routing() as log:
+                out[cf] = (model(tokens), [c[0] for c in log.calls])
+    finally:
+        model.config = cfg
+    (dense, idx_d), (cap, idx_c) = out[0.0], out[capacity_factor]
+    same = torch.stack([a == b for a, b in zip(idx_d, idx_c)]).all(dim=0)
+    err = (cap - dense).abs().reshape(-1, dense.shape[-1])[same]
+    return {"tokens": int(same.numel()), "rerouted": int((~same).sum()),
+            "max_abs": float(err.max()), "mean_abs": float(err.mean()),
+            "bits_equal": bool(torch.equal(cap, dense))}
+
+
+def gate_moe_same_as_dense(cmp: dict, dtype) -> None:
+    """Capacity >= E against the dense form: at most 1 % of the tokens
+    re-routed, the rest within 5e-2 abs and 5e-3 mean with bf16
+    activations (rounded after GEMMs of other shapes), within 1e-5 in f32."""
+    import torch
+
+    limits = (5e-2, 5e-3) if dtype == torch.bfloat16 else (1e-5, 1e-5)
+    if cmp["rerouted"] > cmp["tokens"] // 100 or cmp["max_abs"] > limits[0] or \
+            cmp["mean_abs"] > limits[1]:
+        raise AssertionError(f"capacity >= E differs from the dense form: {cmp}, limits "
+                             f"{limits} and 1 % re-routed")
+
+
+def check_moe(wl, fa, par, card: str, cfg=None, batches=MOE_BATCHES,
+              capacities=MOE_CAPACITIES, train_shape=(4, 2049), steps: int = MOE_STEPS,
+              device=None) -> dict:
+    """The experts phase: forward, training and the experts over an ep mesh
+    of two virtual shards, for ``cfg`` (``TransformerConfig()`` widths with
+    4 experts in every block, bf16, flash attention) on ``device``
+    (``cuda:0`` unless given).  Returns the phase's numbers and its flash
+    launches."""
+    import dataclasses
+
+    import torch
+
+    from cekirdekler_tpu_torch.models import Transformer, TransformerConfig, adamw, moe
+
+    t_phase = time.perf_counter()
+    if cfg is None:
+        cfg = TransformerConfig(attention="flash", n_experts=MOE_EXPERTS, moe_every=1)
+    dev = torch.device("cuda", 0) if device is None else torch.device(device)
+    on_card = dev.type == "cuda"
+    clock = "CUDA events" if on_card else "host clock"
+    n, E = cfg.n_layers, cfg.n_experts
+    model = Transformer(cfg, device=dev, seed=0)
+    rng = np.random.default_rng(29)
+    toks = [rng.integers(0, cfg.vocab, (b, t)).astype(np.int32) for b, t in batches]
+    tiled = sum(fa.default_blocks(t) is not None for _, t in batches)
+
+    # (a) the forward, dense compute-all and with a capacity
+    res: dict = {"forward": {}, "launches": {}}
+    fwd_launches = 0
+    for cf in capacities:
+        model.config = dataclasses.replace(cfg, moe_capacity_factor=cf)
+        wl.run_transformer_forward(model, toks, keep="argmax")  # outside the count
+        _reset_flash(fa)
+        tr = wl.run_transformer_forward(model, toks, keep="argmax")
+        gate_moe_launches(_flash_seen(fa), n * tiled, 0, on_card)
+        fwd_launches += n * tiled
+        for (b, t), ids, tps, sec, ex in zip(batches, tr["outputs"], tr["tokens_per_s"],
+                                             tr["seconds"], tr["experts"]):
+            if tuple(ids.shape) != (b, t) or int(ids.min()) < 0 or int(ids.max()) >= cfg.vocab:
+                raise AssertionError(f"experts forward {b}x{t}: bad argmax tokens")
+            dropped = gate_moe_routing(ex, b * t, cf, E, n)
+            res["forward"][f"{cf} {b}x{t}"] = {"tokens_per_s": tps, "ms": sec * 1e3,
+                                               "tokens_per_expert": ex["tokens_per_expert"],
+                                               "dropped_tokens": dropped}
+            print(f"experts forward {b}x{t} at capacity factor {cf}: {tps:.1f} tokens/s "
+                  f"({sec * 1e3:.3f} ms, {clock}) on {card}; tokens per expert over the "
+                  f"{n} layers {ex['tokens_per_expert']}, dropped {dropped}")
+    model.config = cfg
+    same = {}
+    for (b, t), tk in zip(batches, toks):
+        same[f"{b}x{t}"] = cmp = moe_same_as_dense(model, torch.as_tensor(tk, device=dev),
+                                                   float(E))
+        print(f"experts logits {b}x{t}, capacity factor {float(E)} vs dense compute-all: "
+              f"{json.dumps(cmp)}")
+        gate_moe_same_as_dense(cmp, cfg.dtype)
+    res["same_as_dense"] = same
+    res["launches"]["forward"] = fwd_launches
+    del model
+
+    # (b) training at capacity 2.0: 8 steps, then one with remat
+    tcfg = dataclasses.replace(cfg, moe_capacity_factor=2.0)
+    model = Transformer(tcfg, device=dev, seed=0)
+    opt = adamw(model, 1e-3)
+    batch = {"tokens": torch.from_numpy(rng.integers(0, cfg.vocab, train_shape)).to(dev)}
+    n_tok = train_shape[0] * (train_shape[1] - 1)
+    t_tiled = int(fa.default_blocks(train_shape[1] - 1) is not None)
+    _reset_flash(fa)
+    tr = wl.run_transformer_train(model, opt, batch, steps)
+    gate_moe_launches(_flash_seen(fa), steps * n * t_tiled, steps * n * t_tiled, on_card)
+    losses = tr["losses"]
+    drops = [gate_moe_routing(ex, n_tok, 2.0, E, n) for ex in tr["experts"]]
+    print(f"experts train {train_shape[0]}x{train_shape[1] - 1} at capacity factor 2.0: "
+          f"losses {losses}; dropped tokens per step {drops}; tokens per expert at the last "
+          f"step {tr['experts'][-1]['tokens_per_expert']}")
+    for i, (tps, sec) in enumerate(zip(tr["tokens_per_s"], tr["seconds"])):
+        print(f"experts train step {i}: {tps:.1f} tokens/s ({sec * 1e3:.3f} ms, {clock}) "
+              f"on {card}")
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"experts train losses not finite or not falling: {losses}")
+    _reset_flash(fa)
+    rm = wl.run_transformer_train(model, opt, batch, 1, remat=True)
+    seen = _flash_seen(fa)
+    gate_moe_launches(seen, 2 * n * t_tiled, n * t_tiled, on_card)  # the forward twice
+    gate_moe_routing(rm["experts"][0], n_tok, 2.0, E, n)
+    print(f"experts remat step: loss {rm['losses'][0]}, {rm['tokens_per_s'][0]:.1f} tokens/s "
+          f"on {card}; flash launches {json.dumps(seen)}")
+    res["launches"]["train"] = {"fwd": steps * n * t_tiled, "dq": steps * n * t_tiled,
+                                "dkv": steps * n * t_tiled}
+    res["train"] = {"losses": losses, "tokens_per_s": tr["tokens_per_s"], "dropped": drops,
+                    "remat_tokens_per_s": rm["tokens_per_s"][0]}
+    del model, opt
+
+    # remat recomputes each block, routing included: the same gradients
+    one = {"tokens": batch["tokens"][:1]}
+    model = Transformer(tcfg, device=dev, seed=0)
+    loss_a, grads_a = _loss_and_grads(model, one)
+    model.config = dataclasses.replace(tcfg, remat=True)
+    loss_b, grads_b = _loss_and_grads(model, one)
+    diff = {k: float((g - grads_b[k]).abs().max()) for k, g in grads_a.items()}
+    print(f"experts gradients 1x{train_shape[1] - 1}, remat vs not: loss {loss_a} / {loss_b}; "
+          f"max abs diff {max(diff.values())} (embed {diff['embed']})")
+    if loss_a != loss_b or any(v != 0.0 for k, v in diff.items() if k != "embed") or \
+            diff["embed"] > 1e-6 * float(grads_a["embed"].abs().max()):
+        raise AssertionError("experts gradients with remat differ from those without it")
+
+    # (c) one experts layer over an ep mesh of two virtual shards
+    blk = model.blocks[0]
+    gen = torch.Generator(device="cpu").manual_seed(5)
+    b, t = batches[0]
+    x = torch.randn(b, t, cfg.d_model, generator=gen).to(cfg.dtype).to(dev)
+    mesh = par.make_mesh([dev] * 2, ep=2)
+    sharded = {}
+    with torch.no_grad():
+        for cf in (0.0, 2.0):
+            got = moe.moe_ffn_sharded(mesh, x, blk.router, blk.w1, blk.w2, capacity_factor=cf)
+            want = (moe.moe_ffn_capacity(x, blk.router, blk.w1, blk.w2, capacity_factor=cf)
+                    if cf else moe.moe_ffn(x, blk.router, blk.w1, blk.w2))
+            scale = float(want.float().abs().max())
+            err = float((got.float() - want.float()).abs().max())
+            sharded[str(cf)] = {"max_abs_err": err, "scale": scale,
+                                "bits_equal": bool(torch.equal(got, want))}
+            if not scale > 0 or err > scale * 2.0 ** -8:
+                raise AssertionError(f"moe_ffn_sharded over ep=2 at capacity factor {cf}: max "
+                                     f"abs err {err} at largest magnitude {scale}")
+    print(f"one experts layer {b}x{t}x{cfg.d_model}, moe_ffn_sharded over ep=2 virtual shards "
+          f"vs one card (limit one bf16 step, 2^-8 of the largest magnitude): "
+          f"{json.dumps(sharded)}")
+    res["sharded"] = sharded
+    res["seconds"] = time.perf_counter() - t_phase
+    print(f"experts phase: {res['seconds']:.1f} s on {card}")
+    return res
 
 
 def tail_moves(ranges: list[list[int]], calls: int) -> tuple[int, int, int]:
@@ -4812,6 +5075,13 @@ def main() -> int:
     (rows["flash_attention_bwd_dq"]["launches"],
      rows["flash_attention_bwd_dkv"]["launches"]) = check_training(wl, fa_op, card)
 
+    phase("transformer with experts (one card)")
+    moe_res = check_moe(wl, fa_op, par, card)
+    rows["flash_attention"]["moe_launches"] = (moe_res["launches"]["forward"]
+                                               + moe_res["launches"]["train"]["fwd"])
+    rows["flash_attention_bwd_dq"]["moe_launches"] = moe_res["launches"]["train"]["dq"]
+    rows["flash_attention_bwd_dkv"]["moe_launches"] = moe_res["launches"]["train"]["dkv"]
+
     phase("ring attention (sp mesh of virtual shards)")
     rows.update(check_ring_parts(fa_op, dev))
     ring_launches = check_ring(wl, fa_op, par, dev, card)
@@ -4859,7 +5129,7 @@ def main() -> int:
             **{key: rr[key] for key in ("kernel_route", "fp32_ms", "fp32_bound_ms", "torch_ops_ms",
                                         "pipeline_launches", "event_ms", "trace_ms",
                                         "marker_launches", "cluster_launches",
-                                        "serve_launches")
+                                        "serve_launches", "moe_launches")
                if key in rr},
         })
     print(f"mpixels_per_sec: {json.dumps(res)}; streamed against monolithic: "
@@ -4882,6 +5152,7 @@ def main() -> int:
     print(f"markers and user events: {json.dumps({k: markers_res[k] for k in ('gate', 'pool', 'overhead', 'seconds')})}")
     print(f"cluster tier: {json.dumps(cluster_res)}")
     print(f"serving tier: {json.dumps(serve_res)}")
+    print(f"transformer with experts: {json.dumps(moe_res)}")
     print(f"phase seconds: {json.dumps(phase_seconds())}")
     print(card)
     print(json.dumps({"kernels": kernels}))

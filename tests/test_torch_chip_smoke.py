@@ -38,6 +38,11 @@ and replay, the /servez scrape); hand-made runs fail them (an inexact
 image, a rejection without a named reason, a fabric that re-routed
 nothing or whose shards never overlapped, a diverging route row, a
 /servez without the live frontend).
+Phase 7b's gates: the experts phase at a small width on the CPU passes;
+it fails a capacity path that drops no token at capacity 0.25, and its
+launch gate fails a flash launch off the ``tc`` route (hand-made
+counts), as its routing and capacity-against-dense gates fail hand-made
+runs.
 """
 
 from __future__ import annotations
@@ -1237,3 +1242,87 @@ def test_phase_5l_card_gate_wants_the_kernels_launched(serving_on_host_lanes):
     with pytest.raises(AssertionError, match="launches"):
         chip_smoke.gate_serving(_tampered(serving_on_host_lanes, "fabric", overlaps=1),
                                 on_card=True)
+
+
+# -- the experts phase (7b) -------------------------------------------------------
+
+def _moe_phase(capacities=(0.0, 2.0, 0.25)) -> dict:
+    """The experts phase on the CPU at a small width: 2 layers of 4 experts,
+    bf16, flash attention (tiled at T=128, the dense fallback at T=16), 3
+    train steps."""
+    from cekirdekler_tpu_torch import parallel as par
+    from cekirdekler_tpu_torch import workloads as wl
+    from cekirdekler_tpu_torch.models import TransformerConfig
+    from cekirdekler_tpu_torch.ops import flash_attention as fa
+
+    cfg = TransformerConfig(vocab=128, d_model=32, n_layers=2, n_heads=4, d_ff=64, max_seq=128,
+                            attention="flash", n_experts=4, moe_every=1)
+    return chip_smoke.check_moe(wl, fa, par, "cpu", cfg=cfg, batches=((2, 128), (4, 16)),
+                                capacities=capacities, train_shape=(2, 129), steps=3,
+                                device="cpu")
+
+
+def test_phase_7b_experts_gates_pass_on_the_cpu():
+    res = _moe_phase()
+    assert res["launches"] == {"forward": 3 * 2, "train": {"fwd": 6, "dq": 6, "dkv": 6}}
+    assert res["forward"]["0.25 2x128"]["dropped_tokens"] > 0
+    assert res["forward"]["0.0 2x128"]["dropped_tokens"] == 0
+    assert res["train"]["losses"][-1] < res["train"]["losses"][0]
+    assert all(c["rerouted"] == 0 for c in res["same_as_dense"].values())
+
+
+def test_phase_7b_experts_gate_fails_a_capacity_that_drops_nothing(monkeypatch):
+    """A capacity path that keeps every token (its C the whole batch) fails
+    the routing gate at capacity 0.25."""
+    from cekirdekler_tpu_torch.models import moe
+
+    monkeypatch.setattr(moe, "capacity", lambda n_tokens, n_experts, factor: n_tokens)
+    with pytest.raises(AssertionError, match="capacity factor 0.25"):
+        _moe_phase(capacities=(0.25,))
+
+
+@pytest.mark.parametrize("fault", ["forward off tc", "backward off tc", "plain on the card",
+                                   "one launch short"])
+def test_phase_7b_launch_gate_fails_a_launch_off_the_tc_route(fault):
+    good = {"fwd": {"tc": 32}, "bwd": {"tc": 64}, "plain": {}, "plain_bwd": {}}
+    chip_smoke.gate_moe_launches(good, 32, 32, True)
+    bad = {"forward off tc": dict(good, fwd={"tc": 31, "fp32": 1}),
+           "backward off tc": dict(good, bwd={"tc": 63, "fp32": 1}),
+           "plain on the card": dict(good, plain={"cuda": 1}),
+           "one launch short": dict(good, fwd={"tc": 31})}[fault]
+    with pytest.raises(AssertionError, match="flash launches"):
+        chip_smoke.gate_moe_launches(bad, 32, 32, True)
+
+
+@pytest.mark.parametrize("layers, dropped, match", [
+    ([{"routed": [5, 3, 0, 0], "kept": [5, 3, 0, 0], "capacity": 4}], 0, "layer 0"),
+    ([{"routed": [4, 3, 1, 0], "kept": [4, 3, 1, 0], "capacity": 4}], 1, "dropped tokens"),
+    ([{"routed": [4, 3, 0, 0], "kept": [4, 3, 0, 0], "capacity": 4}], 0, "layer 0"),
+    ([], 0, "layers logged"),
+])
+def test_phase_7b_routing_gate_refuses(layers, dropped, match):
+    """N = 8 tokens, E = 4, factor 2.0: C = 4.  Refused: a fifth token kept,
+    a dropped count the counts do not give, a token not routed, a layer
+    missing."""
+    assert chip_smoke.moe_capacity(8, 4, 2.0) == 4
+    chip_smoke.gate_moe_routing(
+        {"layers": [{"routed": [5, 3, 0, 0], "kept": [4, 3, 0, 0], "capacity": 4}],
+         "dropped_tokens": 1}, 8, 2.0, 4, 1)
+    with pytest.raises(AssertionError, match=match):
+        chip_smoke.gate_moe_routing({"layers": layers, "dropped_tokens": dropped}, 8, 2.0, 4, 1)
+
+
+@pytest.mark.parametrize("cmp", [
+    {"tokens": 1000, "rerouted": 11, "max_abs": 0.0, "mean_abs": 0.0},
+    {"tokens": 1000, "rerouted": 0, "max_abs": 0.06, "mean_abs": 1e-3},
+    {"tokens": 1000, "rerouted": 0, "max_abs": 0.01, "mean_abs": 6e-3},
+])
+def test_phase_7b_same_as_dense_gate_refuses(cmp):
+    import torch
+
+    chip_smoke.gate_moe_same_as_dense(
+        {"tokens": 1000, "rerouted": 10, "max_abs": 0.05, "mean_abs": 5e-3}, torch.bfloat16)
+    with pytest.raises(AssertionError, match="dense form"):
+        chip_smoke.gate_moe_same_as_dense(cmp, torch.bfloat16)
+    with pytest.raises(AssertionError, match="dense form"):
+        chip_smoke.gate_moe_same_as_dense(dict(cmp, max_abs=2e-5), torch.float32)

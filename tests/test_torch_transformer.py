@@ -17,6 +17,8 @@ order.
 
 from __future__ import annotations
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -130,24 +132,53 @@ def test_seeded_init_is_reproducible():
 
 
 def test_params_from_jax_refuses_misshapen_and_moe_trees(jax_params):
+    """A dense model refuses a misshapen array and an experts tree; an
+    experts model loads the reference's experts tree and refuses it with a
+    misshapen expert array or a block of the wrong kind."""
     port = Transformer(TransformerConfig(**SMALL), device="cpu")
     bad = dict(jax_params, embed=jax_params["embed"][:, :32])
     with pytest.raises(RuntimeError, match="size mismatch"):
         params_from_jax(port, bad)
-    moe = dict(jax_params, blocks=[dict(b, router=b["w1"][:, :2]) for b in jax_params["blocks"]])
-    with pytest.raises(NotPortedError, match="MoE"):
+    moe_cfg = dict(SMALL, n_experts=4, moe_every=2)
+    moe = jax.tree_util.tree_map(
+        np.asarray, RefTransformer(RefConfig(**moe_cfg)).init(jax.random.PRNGKey(1)))
+    with pytest.raises(ValueError, match="router"):
         params_from_jax(port, moe)
+    experts = params_from_jax(Transformer(TransformerConfig(**moe_cfg), device="cpu"), moe)
+    assert torch.equal(experts.blocks[1].router, torch.tensor(moe["blocks"][1]["router"]))
+    assert tuple(experts.blocks[1].w1.shape) == (4, SMALL["d_model"], SMALL["d_ff"])
+    assert experts.blocks[0].router is None
+    misshapen = dict(moe, blocks=[moe["blocks"][0],
+                                  dict(moe["blocks"][1], w2=moe["blocks"][1]["w2"][:3])])
+    with pytest.raises(RuntimeError, match="size mismatch"):
+        params_from_jax(Transformer(TransformerConfig(**moe_cfg), device="cpu"), misshapen)
+    with pytest.raises(ValueError, match="router"):
+        params_from_jax(Transformer(TransformerConfig(**moe_cfg), device="cpu"),
+                        dict(moe, blocks=[moe["blocks"][1], moe["blocks"][1]]))
 
 
 @pytest.mark.parametrize("kw,match", [
-    (dict(n_experts=4), "models/moe"),
     (dict(pp_stages=2), "pipeline"),
     (dict(attention="ring"), "Queue A 9"),
     (dict(attention="ulysses"), "Queue A 9"),
-], ids=["moe", "pp", "ring", "ulysses"])
+], ids=["pp", "ring", "ulysses"])
 def test_uncovered_configs_are_refused(kw, match):
     with pytest.raises(NotPortedError, match=match):
         Transformer(TransformerConfig(**{**SMALL, **kw}), device="cpu")
+
+
+@pytest.mark.parametrize("cf", [0.0, 2.0])
+def test_an_experts_config_builds_and_its_mesh_paths_stay_refused(cf):
+    cfg = TransformerConfig(**SMALL, n_experts=4, moe_every=1, moe_capacity_factor=cf)
+    port = Transformer(cfg, device="cpu")
+    assert all(b.router is not None for b in port.blocks)
+    tokens = torch.from_numpy(_tokens(1, 8))
+    assert tuple(port(tokens).shape) == (1, 8, SMALL["vocab"])
+    with pytest.raises(NotPortedError, match="mesh"):
+        port(tokens, mesh=object())
+    for kw in (dict(pp_stages=2), dict(attention="ring")):
+        with pytest.raises(NotPortedError):
+            Transformer(dataclasses.replace(cfg, **kw), device="cpu")
 
 
 def test_a_mesh_is_refused():
